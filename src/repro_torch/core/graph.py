@@ -1,0 +1,208 @@
+"""CSR graph container + synthetic graph generators (PyTorch).
+
+Port of ``repro/core/graph.py``.  The generators are the same host
+numpy code, so one seed gives byte-identical CSR arrays in both
+packages; only the final hand-off differs (``torch`` tensors on the
+requested device instead of ``jax`` arrays).  The CSR is this system's
+state on the device: ``row_ptr``, ``col_idx`` and ``edge_w``, all int32.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+# Sentinel "infinity" for int32 distance labels.  We avoid INT32_MAX so
+# that INF + weight does not wrap around.
+INF = np.int32(1 << 30)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller
+    names another.  Raises when CUDA is asked for (or defaulted to) and
+    no CUDA device exists — the port never falls back to the CPU on its
+    own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device unless the caller passes "
+            "device='cpu', and no CUDA device is available")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Graph:
+    """Device-resident CSR graph.
+
+    row_ptr : int32[V+1]   prefix of out-degrees
+    col_idx : int32[E]     destination vertex of each edge
+    edge_w  : int32[E]     edge weights (all-ones for unweighted apps)
+    """
+
+    row_ptr: torch.Tensor
+    col_idx: torch.Tensor
+    edge_w: torch.Tensor
+
+    def __post_init__(self):
+        for name in ("row_ptr", "col_idx", "edge_w"):
+            t = getattr(self, name)
+            if t.dtype != torch.int32 or t.ndim != 1:
+                raise ValueError(f"Graph.{name} must be a 1-D int32 "
+                                 f"tensor; got {t.dtype} {tuple(t.shape)}")
+            if t.device != self.row_ptr.device:
+                raise ValueError("Graph arrays must share one device")
+        if self.col_idx.shape != self.edge_w.shape:
+            raise ValueError("col_idx and edge_w must have one length")
+
+    @classmethod
+    def from_numpy(cls, row_ptr, col_idx, edge_w, device=None) -> "Graph":
+        """Build a graph from host CSR arrays (anything ``np.asarray``
+        accepts, e.g. the JAX package's graph arrays), moved to
+        ``device`` — how both packages compute on the same state."""
+        dev = resolve_device(device)
+
+        def put(a):
+            # a private, writable copy: the source may be read-only
+            return torch.from_numpy(np.array(a, dtype=np.int32)).to(dev)
+
+        return cls(put(row_ptr), put(col_idx), put(edge_w))
+
+    # ---- basic properties ------------------------------------------------
+    @property
+    def num_vertices(self) -> int:
+        return self.row_ptr.shape[0] - 1
+
+    @property
+    def num_edges(self) -> int:
+        return self.col_idx.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_ptr.device
+
+    @property
+    def version(self) -> int:
+        """Monotonically increasing topology version, the key of every
+        structure memoized on the graph (see ``repro.core.graph``)."""
+        return self.__dict__.get("_version", 0)
+
+    def bump_version(self) -> None:
+        """Advance :attr:`version` after an in-place topology change."""
+        object.__setattr__(self, "_version", self.version + 1)
+
+    def out_degrees(self) -> torch.Tensor:
+        return self.row_ptr[1:] - self.row_ptr[:-1]
+
+
+# ---------------------------------------------------------------------------
+# Construction helpers (host side, numpy) — same code as repro.core.graph
+# ---------------------------------------------------------------------------
+
+def from_edge_list(src: np.ndarray, dst: np.ndarray, num_vertices: int,
+                   weights: np.ndarray | None = None,
+                   dedup: bool = True, device=None) -> Graph:
+    """Build a CSR Graph from a COO edge list (host-side).
+
+    ``dedup=True`` collapses parallel edges deterministically: each
+    (src, dst) pair keeps the **minimum** weight among its duplicates.
+    """
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    if dedup and len(src):
+        key = src * np.int64(num_vertices) + dst
+        if weights is None:
+            _, keep = np.unique(key, return_index=True)
+            src, dst = src[keep], dst[keep]
+        else:
+            weights = np.asarray(weights)
+            # sort by (key, weight): the first edge of each key run is
+            # its minimum-weight duplicate
+            by_w = np.lexsort((weights, key))
+            key, src, dst, weights = (key[by_w], src[by_w], dst[by_w],
+                                      weights[by_w])
+            keep = np.concatenate([[True], key[1:] != key[:-1]])
+            src, dst, weights = src[keep], dst[keep], weights[keep]
+    order = np.lexsort((dst, src))
+    src, dst = src[order], dst[order]
+    if weights is None:
+        weights = np.ones(len(src), dtype=np.int32)
+    else:
+        weights = np.asarray(weights, dtype=np.int32)[order]
+    counts = np.bincount(src, minlength=num_vertices).astype(np.int32)
+    row_ptr = np.zeros(num_vertices + 1, dtype=np.int32)
+    np.cumsum(counts, out=row_ptr[1:])
+    return Graph.from_numpy(row_ptr, dst.astype(np.int32), weights,
+                            device=device)
+
+
+def rmat(scale: int, edge_factor: int = 16, seed: int = 0,
+         a: float = 0.57, b: float = 0.19, c: float = 0.19,
+         weighted: bool = True, max_weight: int = 100,
+         device=None) -> Graph:
+    """RMAT generator (Chakrabarti et al.), the paper's power-law inputs:
+    ~2**scale vertices, edge_factor * 2**scale directed edges before
+    dedup, power-law out-degree."""
+    rng = np.random.default_rng(seed)
+    n = 1 << scale
+    m = edge_factor * n
+    src = np.zeros(m, dtype=np.int64)
+    dst = np.zeros(m, dtype=np.int64)
+    ab, abc = a + b, a + b + c
+    for bit in range(scale):
+        r = rng.random(m)
+        # pick quadrant: 0=a 1=b 2=c 3=d
+        quad = np.select(
+            [r < a, r < ab, r < abc], [0, 1, 2], default=3)
+        src = (src << 1) | (quad >= 2)
+        dst = (dst << 1) | (quad & 1)
+    w = rng.integers(1, max_weight + 1, size=m) if weighted else None
+    return from_edge_list(src, dst, n, weights=w, device=device)
+
+
+def road_grid(side: int, seed: int = 0, weighted: bool = True,
+              max_weight: int = 100, device=None) -> Graph:
+    """2-D grid graph: constant degree <= 4, diameter 2*side."""
+    rng = np.random.default_rng(seed)
+    n = side * side
+    vs = np.arange(n).reshape(side, side)
+    srcs, dsts = [], []
+    # bidirectional horizontal + vertical edges
+    srcs += [vs[:, :-1].ravel(), vs[:, 1:].ravel(),
+             vs[:-1, :].ravel(), vs[1:, :].ravel()]
+    dsts += [vs[:, 1:].ravel(), vs[:, :-1].ravel(),
+             vs[1:, :].ravel(), vs[:-1, :].ravel()]
+    src = np.concatenate(srcs)
+    dst = np.concatenate(dsts)
+    w = rng.integers(1, max_weight + 1, size=len(src)) if weighted else None
+    return from_edge_list(src, dst, n, weights=w, device=device)
+
+
+def uniform_random(num_vertices: int, avg_degree: int = 8, seed: int = 0,
+                   weighted: bool = True, max_weight: int = 100,
+                   device=None) -> Graph:
+    """Uniform random digraph (no skew) — the balanced control input."""
+    rng = np.random.default_rng(seed)
+    m = num_vertices * avg_degree
+    src = rng.integers(0, num_vertices, size=m)
+    dst = rng.integers(0, num_vertices, size=m)
+    w = rng.integers(1, max_weight + 1, size=m) if weighted else None
+    return from_edge_list(src, dst, num_vertices, weights=w, device=device)
+
+
+def to_coo(g: Graph) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side COO expansion ``(src, dst, weight)`` of a CSR graph
+    (only the ``row_ptr[-1]`` edges owned by some vertex)."""
+    row_ptr = g.row_ptr.cpu().numpy().astype(np.int64)
+    e_real = int(row_ptr[-1])
+    dst = g.col_idx[:e_real].cpu().numpy().astype(np.int64)
+    w = g.edge_w[:e_real].cpu().numpy()
+    src = np.repeat(np.arange(g.num_vertices, dtype=np.int64),
+                    row_ptr[1:] - row_ptr[:-1])
+    return src, dst, w
+
+
+def highest_out_degree_vertex(g: Graph) -> int:
+    """Paper's bfs/sssp source for power-law graphs (first vertex of
+    maximal out-degree, computed on the host)."""
+    return int(np.argmax(np.diff(g.row_ptr.cpu().numpy())))

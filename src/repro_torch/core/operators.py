@@ -1,0 +1,72 @@
+"""Operator algebra for vertex programs (port of ``repro/core/operators.py``).
+
+An operator is factored into a ``direction`` (``push``/``pull``), a
+``msg`` (candidate from the propagated value and the edge weight) and a
+``combine`` (``min``/``add``).  Operators are module-level singletons;
+``as_pull`` memoizes each push operator's pull twin by identity.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Operator:
+    name: str
+    direction: str                    # 'push' | 'pull'
+    combine: str                      # 'min'  | 'add'
+    msg: Callable                     # (value, weight) -> candidate
+    uses_weight: bool = True
+    #: wire narrowings this operator's combine tolerates exactly,
+    #: narrowest-preferred-last (the same declarations as the JAX
+    #: package; the wire codecs arrive with the distributed slice)
+    wire_narrow: tuple = ()
+
+
+# Scatter combines that are commutative AND associative on the value
+# domains the apps use, so a scatter with duplicate targets is
+# order-free and therefore deterministic.
+COMMUTATIVE_COMBINES = frozenset({"min", "max", "add"})
+
+
+# sssp relaxation: dist[dst] = min(dist[dst], dist[src] + w)
+SSSP_RELAX = Operator("sssp_relax", "push", "min",
+                      lambda v, w: v + w)
+
+# bfs: level[dst] = min(level[dst], level[src] + 1)
+BFS_HOP = Operator("bfs_hop", "push", "min",
+                   lambda v, w: v + 1, uses_weight=False,
+                   wire_narrow=("uint16", "int8"))
+
+# connected components: comp[dst] = min(comp[dst], comp[src])
+CC_MIN = Operator("cc_min", "push", "min",
+                  lambda v, w: v, uses_weight=False)
+
+# kcore: when a vertex dies, its (symmetrized) neighbours lose a degree
+KCORE_DEC = Operator("kcore_dec", "push", "add",
+                     lambda v, w: torch.full_like(v, -1),
+                     uses_weight=False, wire_narrow=("uint16",))
+
+# pagerank (pull): acc[v] += contrib[u] for in-neighbours u
+PR_PULL = Operator("pr_pull", "pull", "add",
+                   lambda v, w: v, uses_weight=False)
+
+
+_PULL_TWINS: dict = {}
+
+
+def as_pull(op: Operator) -> Operator:
+    """The pull twin of a push min-combine operator (memoized)."""
+    if op.direction != "push" or op.combine != "min":
+        raise ValueError(
+            f"direction-optimized rounds need a push min-combine "
+            f"operator; got {op.name} (direction={op.direction!r}, "
+            f"combine={op.combine!r})")
+    if op not in _PULL_TWINS:
+        _PULL_TWINS[op] = Operator(op.name + "@pull", "pull",
+                                   op.combine, op.msg, op.uses_weight,
+                                   op.wire_narrow)
+    return _PULL_TWINS[op]

@@ -1,0 +1,28 @@
+"""Hand-written Hopper kernels of the port and their plain versions.
+
+* ``twc_gather.twc_bin_map`` — ``csrc/twc_gather.cu`` (CUDA C++);
+* ``edge_lb.edge_lb_map``    — ``csrc/edge_lb.cu`` (CUDA C++);
+* ``ref``                    — plain PyTorch versions of both;
+* ``ops``                    — the torch gather/scatter epilogues that
+  make the pair an executor of ``core.balancer``;
+* ``build``                  — ``nvcc`` + ``ctypes``, on first use.
+
+Each wrapper keeps a plain-integer launch counter (``fn.launches``),
+incremented only where it launches its kernel.
+"""
+from __future__ import annotations
+
+from .edge_lb import edge_lb_map
+from .twc_gather import twc_bin_map
+
+KERNELS = {"twc_bin_map": twc_bin_map, "edge_lb_map": edge_lb_map}
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel since the last :func:`reset_launch_counts`."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,117 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
+shared library with a plain C interface, and loaded with ``ctypes``.
+The libraries go to ``<repo>/build/repro_torch/`` (listed in
+``.gitignore``), named by a hash of the source and the flags, so a
+changed source is rebuilt and an unchanged one is reused.  Nothing is
+built when this module is imported: :func:`load_all` builds on first
+use, one ``nvcc`` process per source, all started together, and
+:func:`load` is its one-source case.  :func:`check_vec` holds the input
+checks every wrapper makes before it hands raw pointers to a kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOADED: dict = {}
+_LOCK = threading.Lock()
+#: ``nvcc`` output of each build in this process (ptxas register and
+#: shared-memory report), by source name
+BUILD_LOG: dict = {}
+
+
+def sources() -> list:
+    """Names of every kernel source in ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built "
+                           "on a machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{h}.so"
+
+
+def _start(name: str):
+    """Start ``nvcc`` for one source unless its library exists; returns
+    ``(name, out, tmp, process)`` or None."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return name, out, tmp, proc
+
+
+def _finish(job) -> None:
+    name, out, tmp, proc = job
+    log, _ = proc.communicate()
+    BUILD_LOG[name] = log
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)                # atomic: readers never see half
+
+
+def check_vec(kernel: str, name: str, t, n: int, device,
+              dtypes=("int32",)) -> None:
+    """Raise unless ``t`` is a contiguous ``[n]`` tensor on ``device``
+    whose dtype is one of ``dtypes`` (torch dtype names): what a kernel
+    reading raw pointers needs to hold."""
+    if str(t.dtype).removeprefix("torch.") not in dtypes:
+        raise TypeError(f"{kernel}: {name} must be one of {dtypes}, "
+                        f"got {t.dtype}")
+    if t.shape != (n,) or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be a contiguous [{n}] "
+                         f"tensor on {device}; got {tuple(t.shape)} on "
+                         f"{t.device}")
+
+
+def load_all(names=None) -> dict:
+    """The loaded library of ``csrc/<name>.cu`` for each of ``names``
+    (default: every source).  Sources without an up-to-date library are
+    compiled first, one ``nvcc`` process each, all started together."""
+    names = sources() if names is None else list(names)
+    with _LOCK:
+        jobs = [j for j in (_start(n) for n in names if n not in _LOADED)
+                if j is not None]
+        errors = []
+        for job in jobs:
+            try:
+                _finish(job)
+            except RuntimeError as e:    # finish the others, then raise
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        for n in names:
+            if n not in _LOADED:
+                _LOADED[n] = ctypes.CDLL(str(_lib_path(n)))
+        return {n: _LOADED[n] for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    return load_all([name])[name]

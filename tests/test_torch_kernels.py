@@ -1,0 +1,146 @@
+"""Port parity: the plain versions of the two mapping kernels
+(``repro_torch.kernels``) against the Pallas kernels of the JAX package,
+run in interpret mode as tests/test_kernels_graph.py runs them.
+
+Exact comparison (int32 and bit-copied values, tolerance 0): the masks
+are equal and every masked position agrees.  On CPU tensors the
+wrappers compute the plain version and count no launch; the CUDA
+kernels themselves are held against it on the card
+(tests/test_torch_cuda.py and chip_smoke.py)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import edge_lb as jlb
+from repro.kernels import ref as jref
+from repro.kernels import twc_gather as jtwc
+from repro_torch import kernels as tk
+from repro_torch.core.frontier import next_bucket
+from repro_torch.kernels import edge_lb as tlb
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import twc_gather as ttwc
+
+
+def assert_masked_equal(jax_out, port_out, rows=None):
+    """Masks equal; the first three outputs equal where masked."""
+    j = [np.asarray(a) for a in jax_out]
+    p = [t.numpy() for t in port_out]
+    if rows is not None:                 # the JAX kernel pads N to 8
+        j = [a[:rows] for a in j]
+    m = j[3].astype(bool)
+    np.testing.assert_array_equal(p[3], m)
+    for a, b in zip(j[:3], p[:3]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a[m], b[m])
+
+
+def _huge(rng, h, dtype):
+    deg = rng.integers(1, 300, h).astype(np.int32)
+    start_e = (np.cumsum(deg) - deg).astype(np.int32)
+    row = rng.integers(0, 1 << 20, h).astype(np.int32)
+    val = rng.integers(0, 1 << 10, h).astype(dtype)
+    return deg, start_e, row, val
+
+
+@pytest.mark.parametrize("h", [8, 64, 1000])
+@pytest.mark.parametrize("distribution", ["cyclic", "blocked"])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_edge_lb_plain_matches_pallas(h, distribution, dtype):
+    rng = np.random.default_rng(h)
+    deg, start_e, row, val = _huge(rng, h, dtype)
+    total = int(deg.sum())
+    # the main path's bucketed span, and a ragged one (span padding)
+    for n_enum in (next_bucket(total, 2048), total):
+        j = jlb.edge_lb_map(jnp.asarray(start_e), jnp.asarray(row),
+                            jnp.asarray(val), jnp.int32(total), n_enum,
+                            distribution=distribution)
+        p = tlb.edge_lb_map(torch.from_numpy(start_e),
+                            torch.from_numpy(row), torch.from_numpy(val),
+                            total, n_enum, distribution=distribution)
+        assert p[0].shape == j[0].shape
+        assert_masked_equal(j, p)
+
+
+@pytest.mark.parametrize("distribution", ["cyclic", "blocked"])
+@pytest.mark.parametrize("num_tiles", [64, 7])
+def test_edge_lb_full_coverage(distribution, num_tiles):
+    """Every edge of every huge vertex appears exactly once, whatever
+    ``num_tiles`` does to the span (the exact-span contract)."""
+    rng = np.random.default_rng(7)
+    deg, start_e, row, val = _huge(rng, 128, np.int32)
+    total = int(deg.sum())
+    ge, j, v, m = tlb.edge_lb_map(
+        torch.from_numpy(start_e), torch.from_numpy(row),
+        torch.from_numpy(val), total, next_bucket(total, 2048),
+        distribution=distribution, num_tiles=num_tiles)
+    got = np.sort(ge[m].numpy())
+    want = np.sort(np.concatenate(
+        [np.arange(r, r + d) for r, d in zip(row, deg)]))
+    np.testing.assert_array_equal(got, want)
+    # slot j and its value are those of the edge's vertex
+    jj = j[m].numpy()
+    assert np.all((ge[m].numpy() >= row[jj]) &
+                  (ge[m].numpy() < row[jj] + deg[jj]))
+    np.testing.assert_array_equal(v[m].numpy(), val[jj])
+
+
+@pytest.mark.parametrize("width", [8, 128, 1024])
+@pytest.mark.parametrize("chunk", [0, 1])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_twc_plain_matches_pallas(width, chunk, dtype):
+    rng = np.random.default_rng(width + chunk)
+    n = 53                                    # ragged: not a tile multiple
+    vidx = rng.integers(0, 4000, n).astype(np.int32)
+    vidx[::9] = 1 << 22                       # sentinel rows
+    deg = rng.integers(0, (chunk + 1) * width + 1, n).astype(np.int32)
+    row = rng.integers(0, 1 << 20, n).astype(np.int32)
+    val = rng.integers(0, 1 << 10, n).astype(dtype)
+    args = [jnp.asarray(a) for a in (vidx, deg, row, val)]
+    if chunk > 0 and width % 128:
+        # the Pallas kernel pads W=8 lanes to 128 and then strides chunks
+        # by 128, a TPU artifact no bin of the round reaches (W=8 bins
+        # are capped at one pass); the JAX oracle has the true contract
+        j = jref.twc_bin_map_ref(*args, width=width, chunk=chunk,
+                                 sentinel=1 << 22)
+    else:
+        j = jtwc.twc_bin_map(*args, width=width, chunk=chunk,
+                             sentinel=1 << 22)
+    p = ttwc.twc_bin_map(*[torch.from_numpy(a)
+                           for a in (vidx, deg, row, val)],
+                         width=width, chunk=chunk, sentinel=1 << 22)
+    assert p[0].shape == (n, width)
+    assert_masked_equal(j, p, rows=n)
+
+
+def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
+    tk.reset_launch_counts()
+    t = [torch.arange(70, dtype=torch.int32)] * 4
+    out = ttwc.twc_bin_map(*t, width=8, chunk=torch.tensor([0],
+                                                           dtype=torch.int32))
+    ref = tref.twc_bin_map_ref(*t, width=8, chunk=0)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    s = torch.arange(64, dtype=torch.int32) * 3
+    tlb.edge_lb_map(s, s, s, 190, 2048)
+    assert tk.launch_counts() == {"twc_bin_map": 0, "edge_lb_map": 0}
+
+
+def test_wrappers_validate_inputs():
+    i32 = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(TypeError, match="vidx"):
+        ttwc.twc_bin_map(i32.long(), i32, i32, i32, width=8)
+    with pytest.raises(TypeError, match="val"):
+        ttwc.twc_bin_map(i32, i32, i32, i32.double(), width=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ttwc.twc_bin_map(i32, i32, torch.zeros(16, dtype=torch.int32)[::2],
+                         i32, width=8)
+    with pytest.raises(ValueError, match="row_start"):
+        tlb.edge_lb_map(i32, i32[:4], i32, 0, 64)
+    with pytest.raises(ValueError, match="distribution"):
+        tlb.edge_lb_map(i32, i32, i32, 0, 64, distribution="zigzag")
+
+
+def test_kernel_sources_present():
+    from repro_torch.kernels import build
+    assert build.sources() == ["edge_lb", "twc_gather"]
