@@ -1,15 +1,20 @@
-"""Application drivers: bfs and sssp, single-source and batched.
+"""The paper's five applications: bfs, sssp, cc, kcore, pagerank.
 
 Port of the host-mode drivers of ``repro/core/apps/drivers.py``.  Each
 driver runs the data-driven round structure of Section 2.1 of the
 paper: process the current worklist, collect the next worklist from
-label changes (``new < old``), repeat until it is empty.  Every round is
-one ``balancer.relax`` call, which pays exactly one blocking
-device->host transfer; the empty-frontier probe rides on it, so a
-traversal of ``r`` rounds reports ``host_transfers == r + 1``.
+label changes, repeat until it is empty.  Every round is one
+``balancer.relax`` call, which pays exactly one blocking device->host
+transfer; the empty-frontier probe rides on it, so a min-combine
+traversal (bfs, sssp, cc) or kcore of ``r`` rounds reports
+``host_transfers == r + 1``.  pagerank runs a fixed round structure and
+also blocks on its residual: 2 transfers per round.
 
-Drivers follow the graph's device.  ``mode="spmd"`` / ``"fused"`` (the
-static-shape and fused round modes) are not ported yet.
+The min-combine drivers, ``resume_loop`` and ``step_batch`` take
+``direction="push" | "pull" | "adaptive"``; every driver takes any
+``BalancerConfig.backend``.  Drivers follow the graph's device.
+``mode="spmd"`` / ``"fused"`` (the static-shape and fused round modes)
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,9 +26,9 @@ import numpy as np
 import torch
 
 from ..graph import Graph, INF
-from ..frontier import single_source, multi_source_state
+from ..frontier import full_frontier, single_source, multi_source_state
 from ..balancer import (BalancerConfig, RoundStats, relax,
-                        host_transfer_count)
+                        host_transfer_count, _note_host_transfer)
 from .. import operators as ops
 
 
@@ -58,17 +63,70 @@ def relax_round(g, values, labels, frontier, cfg, op,
                  collect_stats=collect_stats, return_active=return_active)
 
 
+def step_batch(g, labels, frontier, cfg, op, mode="host",
+               collect_stats=False):
+    """One serving step over ``[B, V]`` slot state: a balancer round
+    followed by the min-combine frontier update (a vertex re-enters its
+    query's worklist exactly when its label improved).  Returns
+    ``(labels, next_frontier, RoundStats|None)``; only ``min``-combine
+    operators (the apps of :data:`QUERY_APPS`) are valid."""
+    if op.combine != "min":
+        raise ValueError(f"step_batch serves min-combine point queries; "
+                         f"got {op.name} (combine={op.combine!r})")
+    old = labels
+    labels, st = relax_round(g, labels, labels, frontier, cfg, op,
+                             collect_stats=collect_stats, mode=mode)
+    return labels, labels < old, st
+
+
+# the point-query applications a serving deployment admits: name ->
+# (operator, label fill value)
+QUERY_APPS = {
+    "bfs": (ops.BFS_HOP, INF),
+    "sssp": (ops.SSSP_RELAX, INF),
+}
+
+
+def resume_loop(g, labels, frontier, cfg, op, max_rounds: int = 10_000,
+                collect_stats: bool = False, mode: str = "host",
+                direction: Optional[str] = None) -> "AppResult":
+    """Continue a min-combine data-driven loop from explicit
+    labels/frontier state until the worklist drains (the incremental
+    repair entry point).  Only ``min``-combine operators are monotone
+    under resumption, so others are rejected."""
+    if op.combine != "min":
+        raise ValueError(f"resume_loop repairs min-combine fixpoints; "
+                         f"got {op.name} (combine={op.combine!r})")
+    cfg = _with_direction(cfg, direction)
+    return AppResult(*_loop(g, _identity, labels, frontier, cfg, op,
+                            max_rounds, collect_stats, _min_changed,
+                            mode=mode))
+
+
+def _identity(labels):
+    return labels
+
+
+def _min_changed(old, new, frontier):
+    """Next worklist of a min-combine loop: the labels that improved."""
+    return new < old
+
+
 def _sync(t: torch.Tensor) -> None:
     if t.device.type == "cuda":
         torch.cuda.synchronize(t.device)
 
 
-def _loop(g: Graph, labels, frontier, cfg, op, max_rounds: int,
-          collect_stats: bool, mode: str = "host"):
-    """The min-combine data-driven loop over ``[V]`` or ``[B, V]``
-    state.  Convergence is read from the round's own ``return_active``
-    liveness (a slice of the one transfer the round pays).  Returns
-    ``(labels, rounds, seconds, stats, host_transfers)``."""
+def _loop(g: Graph, values_of, labels, frontier, cfg, op,
+          max_rounds: int, collect_stats: bool, next_frontier,
+          mode: str = "host"):
+    """Generic data-driven loop over ``[V]`` or ``[B, V]`` state with
+    explicit current/next worklists: each round propagates
+    ``values_of(labels)``, then ``next_frontier(old, new, frontier)``
+    names the next worklist.  Convergence is read from the round's own
+    ``return_active`` liveness (a slice of the one transfer the round
+    pays).  Returns ``(labels, rounds, seconds, stats,
+    host_transfers)``."""
     _host_mode(mode)
     t_sync = host_transfer_count()
     stats = [] if collect_stats else None
@@ -76,13 +134,13 @@ def _loop(g: Graph, labels, frontier, cfg, op, max_rounds: int,
     rounds = 0
     while rounds < max_rounds:
         old = labels
-        new, st, active = relax_round(g, labels, labels, frontier, cfg,
-                                      op, collect_stats, mode,
-                                      return_active=True)
+        new, st, active = relax_round(g, values_of(labels), labels,
+                                      frontier, cfg, op, collect_stats,
+                                      mode, return_active=True)
         if not bool(np.any(active)):
             break                      # frontier empty: converged
         labels = new
-        frontier = labels < old
+        frontier = next_frontier(old, labels, frontier)
         if collect_stats and st is not None:
             stats.append(st)
         rounds += 1
@@ -104,8 +162,9 @@ def _single(g: Graph, source: int, cfg, op, max_rounds, collect_stats,
                         device=g.device)
     labels[source] = 0
     frontier = single_source(g.num_vertices, source, g.device)
-    return AppResult(*_loop(g, labels, frontier, cfg, op, max_rounds,
-                            collect_stats, mode))
+    return AppResult(*_loop(g, _identity, labels, frontier, cfg, op,
+                            max_rounds, collect_stats, _min_changed,
+                            mode=mode))
 
 
 def sssp(g: Graph, source: int, cfg: BalancerConfig = BalancerConfig(),
@@ -133,8 +192,9 @@ def _batch_loop(g: Graph, sources, cfg, op, max_rounds, collect_stats,
     query whose frontier row empties stops contributing to the union."""
     labels, frontier = multi_source_state(g.num_vertices, sources, INF,
                                           g.device)
-    return AppResult(*_loop(g, labels, frontier, cfg, op, max_rounds,
-                            collect_stats, mode))
+    return AppResult(*_loop(g, _identity, labels, frontier, cfg, op,
+                            max_rounds, collect_stats, _min_changed,
+                            mode=mode))
 
 
 def sssp_batch(g: Graph, sources, cfg: BalancerConfig = BalancerConfig(),
@@ -154,3 +214,115 @@ def bfs_batch(g: Graph, sources, cfg: BalancerConfig = BalancerConfig(),
     """Batched multi-source BFS (see :func:`sssp_batch`)."""
     return _batch_loop(g, sources, _with_direction(cfg, direction),
                        ops.BFS_HOP, max_rounds, collect_stats, mode)
+
+
+def cc(g: Graph, cfg: BalancerConfig = BalancerConfig(),
+       max_rounds: int = 10_000, collect_stats: bool = False,
+       mode: str = "host", direction: Optional[str] = None) -> AppResult:
+    """Connected components by min-label propagation (weakly connected
+    components when ``g`` is symmetrized).  On cc's dense early
+    frontiers, adaptive rounds run as pulls."""
+    cfg = _with_direction(cfg, direction)
+    comp = torch.arange(g.num_vertices, dtype=torch.int32, device=g.device)
+    frontier = full_frontier(g.num_vertices, g.device)
+    return AppResult(*_loop(g, _identity, comp, frontier, cfg, ops.CC_MIN,
+                            max_rounds, collect_stats, _min_changed,
+                            mode=mode))
+
+
+def kcore(g: Graph, k: int, cfg: BalancerConfig = BalancerConfig(),
+          max_rounds: int = 10_000, collect_stats: bool = False,
+          mode: str = "host") -> AppResult:
+    """k-core decomposition: ``labels[v] = 1`` if v is in the k-core.
+
+    Push formulation (integer add): when a vertex dies its neighbours
+    lose one degree.  Expects a symmetrized graph."""
+    _host_mode(mode)
+    deg = g.out_degrees()
+    alive = deg >= k
+    frontier = ~alive & (deg > 0)          # initially-dead vertices push
+    dead_acc = frontier | ~alive
+    stats = [] if collect_stats else None
+    t_sync = host_transfer_count()
+    t0 = time.perf_counter()
+    rounds = 0
+    while rounds < max_rounds:
+        new_deg, st, active = relax_round(g, deg, deg, frontier, cfg,
+                                          ops.KCORE_DEC, collect_stats,
+                                          mode, return_active=True)
+        if not bool(np.any(active)):
+            break                      # no vertex died last round
+        deg = new_deg
+        newly_dead = (deg < k) & ~dead_acc
+        dead_acc = dead_acc | newly_dead
+        frontier = newly_dead
+        if collect_stats and st is not None:
+            stats.append(st)
+        rounds += 1
+    in_core = (~dead_acc).to(torch.int32)
+    _sync(in_core)
+    return AppResult(in_core, rounds, time.perf_counter() - t0, stats,
+                     host_transfer_count() - t_sync)
+
+
+def _pr_round_math(rank, inv_out, sink, acc, damping: float):
+    """The float32 arithmetic around PageRank's round, in the operation
+    order of ``repro.core.apps.drivers._pr_round_math``.  With
+    ``acc=None``: the pre-round ``(contrib, dangling)``; with the
+    scattered ``acc``: the post-round ``(new_rank, delta)``."""
+    n = rank.shape[0]
+    if acc is None:
+        contrib = rank * inv_out
+        dangling = torch.where(sink, rank, 0.0).sum()
+        return contrib, dangling
+    dangling = torch.where(sink, rank, 0.0).sum()
+    new_rank = (1.0 - damping) / n + damping * (acc + dangling / n)
+    delta = (new_rank - rank).abs().max()
+    return new_rank, delta
+
+
+def pagerank(g: Graph, damping: float = 0.85, tol: float = 1e-6,
+             cfg: BalancerConfig = BalancerConfig(),
+             max_rounds: int = 1000, collect_stats: bool = False,
+             rg: Optional[Graph] = None, mode: str = "host") -> AppResult:
+    """Pull-style topology-driven PageRank (residual tolerance).
+
+    Each round scatter-adds ``rank * inv_out`` of the in-neighbours at
+    every vertex over the reverse CSR (float32 add), and dangling
+    vertices (out-degree 0) redistribute their mass uniformly, so
+    ``sum(rank) == 1`` holds on graphs with sinks.  Two counted
+    transfers per round: the round's counts and the residual check."""
+    _host_mode(mode)
+    n = g.num_vertices
+    if rg is None:
+        rg = g.reverse()                   # pull traverses in-edges
+    outdeg = g.out_degrees().to(torch.float32)
+    inv_out = torch.where(outdeg > 0, 1.0 / torch.clamp(outdeg, min=1.0),
+                          0.0)
+    sink = outdeg == 0
+    rank = torch.full((n,), 1.0 / n, dtype=torch.float32, device=g.device)
+    frontier = full_frontier(n, g.device)
+    stats = [] if collect_stats else None
+    t_sync = host_transfer_count()
+    t0 = time.perf_counter()
+    rounds = 0
+    while rounds < max_rounds:
+        contrib, _ = _pr_round_math(rank, inv_out, sink, None,
+                                    float(damping))
+        acc = torch.zeros((n,), dtype=torch.float32, device=g.device)
+        # pull: gather contrib at in-neighbours, scatter-add at anchor
+        acc, st = relax_round(rg, contrib, acc, frontier, cfg,
+                              ops.PR_PULL, collect_stats, mode)
+        new_rank, delta_dev = _pr_round_math(rank, inv_out, sink, acc,
+                                             float(damping))
+        delta = float(delta_dev)
+        _note_host_transfer()          # the residual check blocks
+        rank = new_rank
+        if collect_stats and st is not None:
+            stats.append(st)
+        rounds += 1
+        if delta < tol:
+            break
+    _sync(rank)
+    return AppResult(rank, rounds, time.perf_counter() - t0, stats,
+                     host_transfer_count() - t_sync)

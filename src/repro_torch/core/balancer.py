@@ -1,7 +1,8 @@
 """Adaptive Load Balancer (ALB) — the paper's core contribution, on Hopper.
 
 Port of ``repro/core/balancer.py``: the planner, the executor registry
-and the single-device, host-driven, push-direction round (``relax``).
+and the single-device, host-driven round (``relax``) in push, pull and
+adaptive direction.
 
 Four strategies (Section 3 + 4 of the paper): ``vertex`` (one unit of
 work per active vertex), ``twc`` (degree bins with an unbounded large
@@ -11,11 +12,13 @@ that the edge-balanced executor serves only when the inspector finds it
 non-empty).
 
 A strategy is *planned* once (:func:`make_plan`) and *executed* by one
-of two interchangeable executor pairs:
+of three interchangeable executor pairs:
 
-* ``xla``    — plain torch ops (``_bin_pass_impl`` / ``_lb_pass_impl``);
-* ``pallas`` — the hand-written CUDA mapping kernels of
-  ``repro_torch.kernels`` with a torch-ops gather/scatter epilogue.
+* ``xla``        — plain torch ops (``_bin_pass_impl`` / ``_lb_pass_impl``);
+* ``pallas``     — the hand-written CUDA mapping kernels ``twc_bin_map``
+  and ``edge_lb_map`` with a torch-ops gather/scatter epilogue;
+* ``merge_path`` — no bins and no inspector: every frontier edge goes
+  through the co-ranked equal-work kernel ``merge_path_map``.
 
 The registry names are kept from the JAX package for config parity:
 one ``BalancerConfig`` value selects the same path in both packages.
@@ -28,8 +31,13 @@ No round updates its input labels in place: ``_apply`` scatters into a
 fresh ``[B, V + _SCRATCH]`` tensor, so the round-entry ``values`` (which alias
 the app loop's labels) and the loop's ``old`` labels stay intact.
 
-Later slices: pull / adaptive direction, the ``merge_path`` backend and
-the static-shape and fused round modes raise ``NotImplementedError``.
+A pull round (``direction="pull"``, or ``"adaptive"`` resolving to
+pull) runs the operator's pull twin over the cached reverse CSR: every
+vertex with in-edges is enumerated (binned by in-degree, cached per
+graph by :func:`_pull_enum`), and the executors gather value and
+activity at each in-edge's source and combine at the anchor.
+
+The static-shape and fused round modes arrive with a later slice.
 """
 from __future__ import annotations
 
@@ -42,7 +50,7 @@ import torch
 
 from .graph import Graph
 from .frontier import next_bucket, compact, count, union_frontier
-from .operators import Operator
+from .operators import Operator, as_pull
 
 _WIRE_NAMES = ("identity", "delta", "bitmap")
 _WIRE_NARROW = ("int8", "uint8", "int16", "uint16")
@@ -239,17 +247,18 @@ def register_executor(pair: ExecutorPair) -> None:
 
 
 def get_executor(name: str) -> ExecutorPair:
-    """Look up a backend by name; the CUDA kernel pair (``"pallas"``)
-    is registered on first use."""
-    if name == "merge_path":
-        raise NotImplementedError(
-            "the merge_path backend is not ported yet (ROADMAP Queue 1 "
-            "item 5, with the static-shape and fused round modes)")
-    if name not in _REGISTRY and name == "pallas":
+    """Look up a backend by name (``"xla"`` | ``"pallas"`` |
+    ``"merge_path"``); the two kernel pairs are registered on first
+    use.  ``merge_path``'s plan has no bins (:func:`effective_plan`), so
+    its bin entry is unreachable and raises if ever called."""
+    if name not in _REGISTRY and name in ("pallas", "merge_path"):
         from repro_torch.kernels import ops as kops   # lazy: import cycle
         register_executor(ExecutorPair(
             "pallas", bin_host=kops.twc_bin_apply,
             lb_host=kops.edge_lb_apply))
+        register_executor(ExecutorPair(
+            "merge_path", bin_host=kops.merge_path_no_bins,
+            lb_host=kops.merge_path_apply))
     return _REGISTRY[name]
 
 
@@ -345,7 +354,7 @@ def _bin_pass_impl(g: Graph, values, labels, fmask, vidx, deg, row_start,
                    width: int, op: Operator, chunk):
     """Process one degree bin: each vertex in ``vidx`` contributes its
     edges [chunk*width, chunk*width + width) as an [N, width] tile
-    shared by the whole batch (push direction)."""
+    shared by the whole batch."""
     v = labels.shape[-1]
     off = (int(chunk) * width
            + torch.arange(width, dtype=torch.int32,
@@ -354,11 +363,18 @@ def _bin_pass_impl(g: Graph, values, labels, fmask, vidx, deg, row_start,
     graph_e = torch.where(emask, row_start[:, None] + off, 0)
     dst = g.col_idx[graph_e]
     w = g.edge_w[graph_e]
-    vsafe = torch.where(vidx < v, vidx, 0)
-    live = fmask[:, vsafe][:, :, None]                             # [B,N,1]
-    val = values[:, vsafe][:, :, None]                             # [B,N,1]
-    cand = op.msg(val, w[None])
-    return _apply(labels, dst, cand, emask, live, op.combine)
+    if op.direction == "push":
+        vsafe = torch.where(vidx < v, vidx, 0)
+        live = fmask[:, vsafe][:, :, None]                         # [B,N,1]
+        val = values[:, vsafe][:, :, None]                         # [B,N,1]
+        cand = op.msg(val, w[None])
+        return _apply(labels, dst, cand, emask, live, op.combine)
+    # pull: value AND activity gathered at the in-neighbour (``dst`` in
+    # the reverse CSR), candidate scattered at the anchor
+    live = fmask[:, dst]                                           # [B,N,W]
+    cand = op.msg(values[:, dst], w[None])
+    anchor = vidx[:, None].expand(emask.shape)
+    return _apply(labels, anchor, cand, emask, live, op.combine)
 
 
 def _lb_pass_impl(g: Graph, values, labels, fmask, hidx, hdeg, hrow_start,
@@ -388,10 +404,16 @@ def _lb_pass_impl(g: Graph, values, labels, fmask, hidx, hdeg, hrow_start,
     src = hidx[j]
     dst = g.col_idx[graph_e]
     w = g.edge_w[graph_e]
-    ssafe = torch.where(src < v, src, 0)
-    live = fmask[:, ssafe]                                # [B, n_enum]
-    cand = op.msg(values[:, ssafe], w[None])
-    return _apply(labels, dst, cand, emask, live, op.combine)
+    if op.direction == "push":
+        ssafe = torch.where(src < v, src, 0)
+        live = fmask[:, ssafe]                            # [B, n_enum]
+        cand = op.msg(values[:, ssafe], w[None])
+        return _apply(labels, dst, cand, emask, live, op.combine)
+    # pull: liveness comes from the in-neighbour (``dst`` of the reverse
+    # CSR), the anchor ``src`` receives the candidate
+    live = fmask[:, dst]                                  # [B, n_enum]
+    cand = op.msg(values[:, dst], w[None])
+    return _apply(labels, src, cand, emask, live, op.combine)
 
 
 register_executor(ExecutorPair("xla", bin_host=_bin_pass_impl,
@@ -501,6 +523,61 @@ def _assemble_bins(cnt: np.ndarray, plan: RoundPlan,
     return tuple(bins), lb
 
 
+class _PullEnum(NamedTuple):
+    """Frontier-independent pull-side enumeration of one (graph, plan):
+    the reverse CSR plus the bin / LB member arrays over every vertex
+    with in-edges, binned by in-degree.  A pull round gathers at each
+    in-edge's source, so its work set never depends on the frontier: it
+    is built once per graph and plan (one transfer, not a per-round one)
+    and cached on the Graph."""
+    rg: Graph
+    emask: torch.Tensor  # bool[V]: in-degree > 0 (the enumeration set)
+    bins: tuple          # per plan bin: None | (max_d, edge_sum,
+    #                      bvidx, bdeg, brow) at bucketed capacity
+    lb: Optional[tuple]  # None | (total, hvidx, hdeg, hrow)
+
+
+def _pull_plan_key(cfg: BalancerConfig) -> tuple:
+    """The cfg fields a pull enumeration depends on (the plan's bins and
+    LB mask).  Direction and deal fields are left out so push / adaptive
+    variants share an entry; ``merge_path`` replaces the plan
+    (:func:`effective_plan`), so it is keyed apart."""
+    return (cfg.strategy, cfg.threshold, cfg.small_width,
+            cfg.medium_width, cfg.large_width,
+            cfg.executor == "merge_path")
+
+
+def _build_pull_enum(g: Graph, cfg: BalancerConfig) -> _PullEnum:
+    """Materialize the pull-side enumeration (see :class:`_PullEnum`)."""
+    rg = g.reverse()
+    v = rg.num_vertices
+    emask = rg.out_degrees() > 0
+    cnt, union = _host_round_counts(rg, emask, cfg)
+    cnt = cnt.cpu().numpy()            # one-time set-up, not per round
+    fcap = next_bucket(int(cnt[0]))
+    fidx = compact(union, fcap)
+    deg, row_start, valid = _frontier_meta(rg, fidx)
+    bins, lb = _assemble_bins(cnt, effective_plan(cfg), cfg, fidx, deg,
+                              row_start, valid, fcap, v)
+    return _PullEnum(rg, emask, bins, lb)
+
+
+def _pull_enum(g: Graph, cfg: BalancerConfig) -> _PullEnum:
+    """Cached :func:`_build_pull_enum`, on the Graph object, keyed by
+    ``g.version`` plus :func:`_pull_plan_key`; entries of an older
+    version are dropped when a new one is built."""
+    cache = g.__dict__.get("_pull_enum_cache")
+    if cache is None:
+        cache = {}
+        object.__setattr__(g, "_pull_enum_cache", cache)
+    key = (g.version,) + _pull_plan_key(cfg)
+    if key not in cache:
+        for stale in [k for k in cache if k[0] != g.version]:
+            del cache[stale]
+        cache[key] = _build_pull_enum(g, cfg)
+    return cache[key]
+
+
 def _run_plan_host(gr: Graph, values, labels, fmask, plan: RoundPlan,
                    cfg: BalancerConfig, op: Operator, ex: ExecutorPair,
                    bins, lb, stats) -> torch.Tensor:
@@ -545,18 +622,22 @@ def relax(g: Graph, values: torch.Tensor, labels: torch.Tensor,
     neither is written.  Accepts ``[V]`` or batched ``[B, V]`` state.
     The round pays exactly one blocking device->host transfer: the
     fused count vector of :func:`_host_round_counts`.
+
+    With ``cfg.direction="pull"`` (or ``"adaptive"`` resolving to pull
+    for this round by :func:`resolve_direction` over the same counts)
+    the round runs ``as_pull(op)`` over the cached reverse CSR; only
+    push min-combine operators may be flipped, and the labels are
+    bitwise those of the push round.
     """
-    if cfg.direction != "push" or op.direction != "push":
-        raise NotImplementedError(
-            "pull and adaptive rounds are not ported yet (ROADMAP "
-            "Queue 1 item 4, direction-optimizing rounds)")
     batched = labels.ndim == 2
     if not batched:
         values, labels, frontier = (values[None], labels[None],
                                     frontier[None])
     b, v = labels.shape
     plan = effective_plan(cfg)
-    ex = get_executor(cfg.executor)
+    # validate direction x operator up front, even when adaptive ends
+    # up resolving to push every round
+    pull_op = as_pull(op) if cfg.direction != "push" else None
     cnt, union = _host_round_counts(g, frontier, cfg)
     cnt = cnt.cpu().numpy()
     _note_host_transfer()              # THE per-round host sync point
@@ -566,22 +647,30 @@ def relax(g: Graph, values: torch.Tensor, labels: torch.Tensor,
         out = ((labels if batched else labels[0]), None)
         return out + (active,) if return_active else out
     m_f = _counts_frontier_edges(cnt, plan)
+    direction = resolve_direction(cfg, nf, m_f, v, g.num_edges)
+
+    ex = get_executor(cfg.executor)
     stats = dict(frontier_size=nf, edges_twc=0, edges_lb=0,
                  lb_invoked=False,
                  tile_loads_twc=np.zeros(cfg.num_tiles, np.int64),
                  tile_loads_lb=np.zeros(cfg.num_tiles, np.int64),
                  frontier_per_query=cnt[-b:].astype(np.int64),
-                 direction="push",
+                 direction=direction,
                  frontier_edges=m_f,
                  host_transfers=1) if collect_stats else None
 
-    fcap = next_bucket(nf)
-    fidx = compact(union, fcap)
-    deg, row_start, valid = _frontier_meta(g, fidx)
-    bins, lb = _assemble_bins(cnt, plan, cfg, fidx, deg, row_start,
-                              valid, fcap, v)
-    labels = _run_plan_host(g, values, labels, frontier, plan, cfg,
-                            op, ex, bins, lb, stats)
+    if direction == "pull":
+        pe = _pull_enum(g, cfg)
+        labels = _run_plan_host(pe.rg, values, labels, frontier, plan,
+                                cfg, pull_op, ex, pe.bins, pe.lb, stats)
+    else:
+        fcap = next_bucket(nf)
+        fidx = compact(union, fcap)
+        deg, row_start, valid = _frontier_meta(g, fidx)
+        bins, lb = _assemble_bins(cnt, plan, cfg, fidx, deg, row_start,
+                                  valid, fcap, v)
+        labels = _run_plan_host(g, values, labels, frontier, plan, cfg,
+                                op, ex, bins, lb, stats)
     labels = labels if batched else labels[0]
     out = (labels, RoundStats(**stats) if stats is not None else None)
     return out + (active,) if return_active else out

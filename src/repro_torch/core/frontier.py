@@ -47,6 +47,10 @@ def union_frontier(frontier: torch.Tensor) -> torch.Tensor:
     return frontier if frontier.ndim == 1 else frontier.any(dim=0)
 
 
+def full_frontier(num_vertices: int, device) -> torch.Tensor:
+    return torch.ones((num_vertices,), dtype=torch.bool, device=device)
+
+
 def single_source(num_vertices: int, src: int, device) -> torch.Tensor:
     f = torch.zeros((num_vertices,), dtype=torch.bool, device=device)
     f[src] = True

@@ -94,6 +94,18 @@ class Graph:
     def out_degrees(self) -> torch.Tensor:
         return self.row_ptr[1:] - self.row_ptr[:-1]
 
+    def max_out_degree(self) -> int:
+        return int(self.out_degrees().max())
+
+    def reverse(self) -> "Graph":
+        """Memoized :func:`reverse_graph` (in-edges become out-edges),
+        rebuilt when :attr:`version` has moved since it was cached."""
+        cached = self.__dict__.get("_reverse_cache")
+        if cached is None or cached[0] != self.version:
+            cached = (self.version, reverse_graph(self))
+            object.__setattr__(self, "_reverse_cache", cached)
+        return cached[1]
+
 
 # ---------------------------------------------------------------------------
 # Construction helpers (host side, numpy) — same code as repro.core.graph
@@ -200,6 +212,83 @@ def to_coo(g: Graph) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     src = np.repeat(np.arange(g.num_vertices, dtype=np.int64),
                     row_ptr[1:] - row_ptr[:-1])
     return src, dst, w
+
+
+# ---------------------------------------------------------------------------
+# Derived graphs, built on the graph's own device
+# ---------------------------------------------------------------------------
+# The JAX package builds these on the host with numpy lexsorts; here the
+# same orderings come from stable torch sorts on the graph's device, so
+# the arrays are byte-identical and a 65 M-edge graph is transposed on
+# the card instead of in a host sort.
+
+def _edge_sources(g: Graph, e_real: int) -> torch.Tensor:
+    """int32 source vertex of each of the first ``e_real`` edges."""
+    return torch.repeat_interleave(
+        torch.arange(g.num_vertices, dtype=torch.int32, device=g.device),
+        g.out_degrees(), output_size=e_real)
+
+
+def _csr_from_sorted(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                     num_vertices: int) -> Graph:
+    """CSR of edges already in (src, dst) order."""
+    counts = torch.bincount(src, minlength=num_vertices)
+    row_ptr = torch.zeros(num_vertices + 1, dtype=torch.int32,
+                          device=src.device)
+    row_ptr[1:] = torch.cumsum(counts, 0, dtype=torch.int32)
+    return Graph(row_ptr, dst.to(torch.int32).contiguous(),
+                 w.to(torch.int32).contiguous())
+
+
+def reverse_graph(g: Graph) -> Graph:
+    """CSC view (incoming edges) as a CSR graph, for pull rounds.
+
+    Edges come in CSR order, so their sources are already ascending; a
+    stable sort by destination therefore yields (dst, src, edge order),
+    the order of ``repro.core.graph.reverse_graph``'s lexsort.  Padding
+    past ``row_ptr[-1]`` is reproduced as there: filler edges to vertex
+    ``V - 1`` with weight ``INF``."""
+    e_real = int(g.row_ptr[-1])
+    src = _edge_sources(g, e_real)
+    dst = g.col_idx[:e_real]
+    order = torch.sort(dst, stable=True).indices
+    rg = _csr_from_sorted(dst[order], src[order], g.edge_w[:e_real][order],
+                          g.num_vertices)
+    pad = g.num_edges - e_real
+    if pad > 0:
+        rg = Graph(rg.row_ptr,
+                   torch.cat([rg.col_idx, torch.full(
+                       (pad,), g.num_vertices - 1, dtype=torch.int32,
+                       device=g.device)]),
+                   torch.cat([rg.edge_w, torch.full(
+                       (pad,), int(INF), dtype=torch.int32,
+                       device=g.device)]))
+    return rg
+
+
+def symmetrized(g: Graph) -> Graph:
+    """Undirected view: every edge plus its reverse, deduplicated with
+    the minimum weight kept, as ``repro.core.graph.symmetrized``.
+
+    Its ``lexsort((w, key))`` is two stable sorts here: by weight, then
+    by the int64 key ``src * V + dst`` (below 2**62 for any int32 V).
+    The first edge of each key run is then the minimum-weight one, and
+    the runs are already in (src, dst) order."""
+    e_real = int(g.row_ptr[-1])
+    s = _edge_sources(g, e_real)
+    d = g.col_idx[:e_real]
+    w = g.edge_w[:e_real]
+    src, dst, w = torch.cat([s, d]), torch.cat([d, s]), torch.cat([w, w])
+    by_w = torch.sort(w, stable=True).indices
+    key = src.to(torch.int64)[by_w] * g.num_vertices + dst[by_w]
+    key, by_key = torch.sort(key, stable=True)
+    order = by_w[by_key]
+    del by_w, by_key
+    keep = torch.ones_like(key, dtype=torch.bool)
+    keep[1:] = key[1:] != key[:-1]
+    order = order[keep]
+    return _csr_from_sorted(src[order], dst[order], w[order],
+                            g.num_vertices)
 
 
 def highest_out_degree_vertex(g: Graph) -> int:

@@ -1,11 +1,12 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
-* ``twc_gather.twc_bin_map`` — ``csrc/twc_gather.cu`` (CUDA C++);
-* ``edge_lb.edge_lb_map``    — ``csrc/edge_lb.cu`` (CUDA C++);
-* ``ref``                    — plain PyTorch versions of both;
-* ``ops``                    — the torch gather/scatter epilogues that
-  make the pair an executor of ``core.balancer``;
-* ``build``                  — ``nvcc`` + ``ctypes``, on first use.
+* ``twc_gather.twc_bin_map``    — ``csrc/twc_gather.cu`` (CUDA C++);
+* ``edge_lb.edge_lb_map``       — ``csrc/edge_lb.cu`` (CUDA C++);
+* ``merge_path.merge_path_map`` — ``csrc/merge_path.cu`` (CUDA C++);
+* ``ref``                       — plain PyTorch versions of all three;
+* ``ops``                       — the torch gather/scatter epilogues that
+  make them executors of ``core.balancer``;
+* ``build``                     — ``nvcc`` + ``ctypes``, on first use.
 
 Each wrapper keeps a plain-integer launch counter (``fn.launches``),
 incremented only where it launches its kernel.
@@ -13,9 +14,11 @@ incremented only where it launches its kernel.
 from __future__ import annotations
 
 from .edge_lb import edge_lb_map
+from .merge_path import merge_path_map
 from .twc_gather import twc_bin_map
 
-KERNELS = {"twc_bin_map": twc_bin_map, "edge_lb_map": edge_lb_map}
+KERNELS = {"twc_bin_map": twc_bin_map, "edge_lb_map": edge_lb_map,
+           "merge_path_map": merge_path_map}
 
 
 def launch_counts() -> dict:

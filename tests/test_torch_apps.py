@@ -117,9 +117,11 @@ def test_labels_match_independent_oracle(rmat_pair):
 def test_driver_modes_of_later_slices_raise(rmat_pair):
     _, gt, src = rmat_pair
     for mode in ("spmd", "fused"):
-        with pytest.raises(NotImplementedError):
-            td.sssp(gt, src, mode=mode)
-    with pytest.raises(NotImplementedError):
-        td.bfs(gt, src, direction="pull")
+        for run in (lambda: td.sssp(gt, src, mode=mode),
+                    lambda: td.cc(gt, mode=mode),
+                    lambda: td.kcore(gt, 3, mode=mode),
+                    lambda: td.pagerank(gt, mode=mode)):
+            with pytest.raises(NotImplementedError):
+                run()
     with pytest.raises(ValueError):
         td.bfs(gt, src, mode="warp")

@@ -160,12 +160,107 @@ def test_resolve_direction_matches():
 
 
 def test_later_slices_raise_not_implemented(graphs):
+    """The static-shape and fused round modes are a later slice."""
+    from repro_torch.core.apps import drivers as td
     _, gt = graphs
     lab = torch.zeros((1, gt.num_vertices), dtype=torch.int32)
     fr = torch.ones_like(lab, dtype=torch.bool)
-    for cfg, op in ((tb.BalancerConfig(direction="pull"), tops.BFS_HOP),
-                    (tb.BalancerConfig(direction="adaptive"), tops.BFS_HOP),
-                    (tb.BalancerConfig(backend="merge_path"), tops.BFS_HOP),
-                    (tb.BalancerConfig(), tops.PR_PULL)):
-        with pytest.raises(NotImplementedError):
-            tb.relax(gt, lab, lab, fr, cfg, op)
+    for mode in ("spmd", "fused"):
+        with pytest.raises(NotImplementedError, match=mode):
+            td.relax_round(gt, lab, lab, fr, tb.BalancerConfig(),
+                           tops.BFS_HOP, mode=mode)
+
+
+# ---- direction x backend ---------------------------------------------------
+
+BACKENDS = ["xla", "pallas", "merge_path"]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("direction", ["push", "pull", "adaptive"])
+@pytest.mark.parametrize("batch", [None, 3])
+def test_relax_directions_match_jax(graphs, backend, direction, batch):
+    """Labels, liveness and every RoundStats field (``direction``
+    included) equal to JAX; the pull round also equals the push round."""
+    gj, gt = graphs
+    labels, frontier = round_state(gj.num_vertices, batch or 1, 23)
+    if batch is None:
+        labels, frontier = labels[0], frontier[0]
+    kw = dict(strategy="alb", threshold=64, backend=backend,
+              direction=direction)
+    out_j = jb.relax(gj, jnp.asarray(labels), jnp.asarray(labels),
+                     jnp.asarray(frontier), jb.BalancerConfig(**kw),
+                     jops.SSSP_RELAX, collect_stats=True,
+                     return_active=True)
+    lt = torch.from_numpy(labels.copy())
+    out_t = tb.relax(gt, lt, lt, torch.from_numpy(frontier),
+                     tb.BalancerConfig(**kw), tops.SSSP_RELAX,
+                     collect_stats=True, return_active=True)
+    np.testing.assert_array_equal(out_t[0].numpy(), np.asarray(out_j[0]))
+    assert_stats_equal(out_j[1], out_t[1])
+    np.testing.assert_array_equal(out_t[2], out_j[2])
+    np.testing.assert_array_equal(lt.numpy(), labels)
+    if direction == "pull":
+        assert out_t[1].direction == "pull"
+    push = tb.relax(gt, lt, lt, torch.from_numpy(frontier),
+                    tb.BalancerConfig(strategy="alb", threshold=64),
+                    tops.SSSP_RELAX)
+    assert torch.equal(out_t[0], push[0])
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_relax_pull_operator_add_matches_jax(graphs, backend):
+    """pagerank's round: the pull operator ``PR_PULL`` (float add) over
+    the reverse CSR with a full frontier."""
+    gj, gt = graphs
+    rng = np.random.default_rng(8)
+    contrib = (rng.random(gj.num_vertices) * 1e-3).astype(np.float32)
+    acc = np.zeros(gj.num_vertices, np.float32)
+    fr = np.ones(gj.num_vertices, bool)
+    kw = dict(strategy="alb", threshold=64, backend=backend)
+    rgj = gj.reverse()
+    out_j = jb.relax(rgj, jnp.asarray(contrib), jnp.asarray(acc),
+                     jnp.asarray(fr), jb.BalancerConfig(**kw),
+                     jops.PR_PULL, collect_stats=True)
+    out_t = tb.relax(gt.reverse(), torch.from_numpy(contrib),
+                     torch.from_numpy(acc), torch.from_numpy(fr),
+                     tb.BalancerConfig(**kw), tops.PR_PULL,
+                     collect_stats=True)
+    # float32 sums, scattered in one order on both sides here
+    np.testing.assert_allclose(out_t[0].numpy(), np.asarray(out_j[0]),
+                               rtol=1e-6, atol=0)
+    assert_stats_equal(out_j[1], out_t[1])
+
+
+@pytest.mark.parametrize("direction", ["pull", "adaptive"])
+def test_direction_needs_push_min_operator(graphs, direction):
+    gj, gt = graphs
+    lab = np.zeros((1, gj.num_vertices), np.int32)
+    fr = np.ones_like(lab, dtype=bool)
+    with pytest.raises(ValueError):
+        jb.relax(gj, jnp.asarray(lab), jnp.asarray(lab), jnp.asarray(fr),
+                 jb.BalancerConfig(direction=direction), jops.KCORE_DEC)
+    with pytest.raises(ValueError, match="push min-combine"):
+        tb.relax(gt, torch.from_numpy(lab), torch.from_numpy(lab),
+                 torch.from_numpy(fr), tb.BalancerConfig(direction=direction),
+                 tops.KCORE_DEC)
+
+
+def test_pull_enum_cache_keys_and_version():
+    gt = tg.rmat(8, 8, seed=1, device="cpu")
+    pe = tb._pull_enum(gt, tb.BalancerConfig(direction="pull"))
+    # direction and deal fields share the entry; merge_path is apart
+    assert tb._pull_enum(gt, tb.BalancerConfig(
+        direction="adaptive", distribution="blocked")) is pe
+    mp = tb._pull_enum(gt, tb.BalancerConfig(backend="merge_path"))
+    assert mp is not pe and mp.bins == () and mp.lb is not None
+    assert pe.rg is gt.reverse()
+    before = tb.host_transfer_count()
+    gt.bump_version()
+    pe2 = tb._pull_enum(gt, tb.BalancerConfig(direction="pull"))
+    assert pe2 is not pe and pe2.rg is gt.reverse()
+    assert len(gt.__dict__["_pull_enum_cache"]) == 1
+    # the enumeration's one transfer is set-up, not a per-round one
+    assert tb.host_transfer_count() == before
+    np.testing.assert_array_equal(
+        pe2.emask.numpy(), np.diff(gt.reverse().row_ptr.numpy()) > 0)

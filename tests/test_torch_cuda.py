@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import edge_lb as tlb
+from repro_torch.kernels import merge_path as tmp
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import twc_gather as ttwc
 
@@ -50,3 +51,29 @@ def test_cuda_kernels_match_plain(cuda_device, distribution):
         assert torch.equal(k[3], p[3])
         for a, b in zip(k[:3], p[:3]):
             assert torch.equal(a[k[3]], b[p[3]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_edges", [128, 2048])
+def test_cuda_merge_path_matches_plain(cuda_device, tile_edges):
+    """All outputs equal (0 where masked, on both), on random degrees
+    with zero-degree runs, one huge slot, and an empty frontier."""
+    rng = np.random.default_rng(tile_edges)
+    cases = []
+    for h in (1, 61, 1000, 5000):
+        deg = rng.integers(0, 300, h).astype(np.int32)
+        deg[rng.random(h) < 0.3] = 0
+        deg[0] += 1
+        cases.append(deg)
+    cases += [np.array([50_000], np.int32), np.zeros(4, np.int32)]
+    for deg in cases:
+        start_e = (np.cumsum(deg) - deg).astype(np.int32)
+        row = rng.integers(0, 1 << 20, deg.shape[0]).astype(np.int32)
+        t = [torch.from_numpy(a).to(cuda_device) for a in (start_e, row)]
+        total = int(deg.sum())
+        for ecap in (max(total, 1), 2 * total + 3 * tile_edges):
+            k = tmp.merge_path_map(*t, total, ecap, tile_edges=tile_edges)
+            p = tref.merge_path_map_ref(*t, total, ecap,
+                                        tile_edges=tile_edges)
+            for a, b in zip(k, p):
+                assert torch.equal(a, b)

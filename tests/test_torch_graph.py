@@ -1,6 +1,7 @@
-"""Port parity: graph generators, frontier helpers and operators of
-``repro_torch`` against the JAX package, on the same numpy inputs
-(exact: int32 throughout), plus the port's structural rules."""
+"""Port parity: graph generators, derived graphs (reverse, symmetrized),
+frontier helpers and operators of ``repro_torch`` against the JAX
+package, on the same numpy inputs (exact: int32 throughout), plus the
+port's structural rules."""
 import ast
 from pathlib import Path
 
@@ -178,3 +179,60 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tg.uniform_random(8, device="cuda")
     assert tg.resolve_device("cpu").type == "cpu"
+
+
+# ---- derived graphs: reverse and symmetrized ---------------------------------
+
+DERIVED = [
+    lambda m, **k: m.rmat(9, 8, seed=3, **k),
+    lambda m, **k: m.rmat(8, 4, seed=1, weighted=False, **k),
+    lambda m, **k: m.road_grid(12, **k),
+    lambda m, **k: m.uniform_random(300, avg_degree=3, seed=5, **k),
+]
+DERIVED_IDS = ["rmat9", "rmat8_unweighted", "road12", "uniform300"]
+
+
+@pytest.mark.parametrize("make", DERIVED, ids=DERIVED_IDS)
+def test_reverse_and_symmetrized_byte_identical(make):
+    gj, gt = make(jg), make(tg, device=CPU)
+    assert_same_csr(jg.reverse_graph(gj), tg.reverse_graph(gt))
+    assert_same_csr(jg.symmetrized(gj), tg.symmetrized(gt))
+    assert gt.max_out_degree() == gj.max_out_degree()
+
+
+def test_symmetrized_keeps_min_weight_of_both_directions():
+    """(u, v) and (v, u) with different weights, parallel input edges
+    and self loops: the one kept edge of each pair has the minimum."""
+    rng = np.random.default_rng(4)
+    src = rng.integers(0, 30, 500)
+    dst = rng.integers(0, 30, 500)
+    w = rng.integers(1, 9, 500)
+    gj = jg.from_edge_list(src, dst, 30, weights=w)
+    gt = tg.Graph.from_numpy(gj.row_ptr, gj.col_idx, gj.edge_w, device=CPU)
+    sj, st = jg.symmetrized(gj), tg.symmetrized(gt)
+    assert_same_csr(sj, st)
+    s, d, ww = tg.to_coo(st)
+    pair = dict(zip(zip(s, d), ww))
+    assert all(pair[(b, a)] == c for (a, b), c in pair.items())
+
+
+def test_reverse_of_padded_graph_keeps_its_filler():
+    gj = jg.pad_graph(jg.rmat(7, 4, seed=2), e_multiple=1024)
+    assert gj.num_edges > int(gj.row_ptr[-1])
+    gt = tg.Graph.from_numpy(gj.row_ptr, gj.col_idx, gj.edge_w, device=CPU)
+    assert_same_csr(jg.reverse_graph(gj), tg.reverse_graph(gt))
+
+
+def test_reverse_is_memoized_per_version():
+    gt = tg.rmat(7, 4, seed=2, device=CPU)
+    rg = gt.reverse()
+    assert gt.reverse() is rg
+    gt.bump_version()
+    rg2 = gt.reverse()
+    assert rg2 is not rg and gt.reverse() is rg2
+    assert_same_csr(rg, rg2)
+
+
+def test_full_frontier_matches():
+    np.testing.assert_array_equal(tfr.full_frontier(37, CPU).numpy(),
+                                  np.asarray(jfr.full_frontier(37)))

@@ -1,6 +1,7 @@
-"""Port parity: the plain versions of the two mapping kernels
+"""Port parity: the plain versions of the three mapping kernels
 (``repro_torch.kernels``) against the Pallas kernels of the JAX package,
-run in interpret mode as tests/test_kernels_graph.py runs them.
+run in interpret mode as tests/test_kernels_graph.py and
+tests/test_fused.py run them.
 
 Exact comparison (int32 and bit-copied values, tolerance 0): the masks
 are equal and every masked position agrees.  On CPU tensors the
@@ -13,11 +14,13 @@ import pytest
 import torch
 
 from repro.kernels import edge_lb as jlb
+from repro.kernels import merge_path as jmp
 from repro.kernels import ref as jref
 from repro.kernels import twc_gather as jtwc
 from repro_torch import kernels as tk
 from repro_torch.core.frontier import next_bucket
 from repro_torch.kernels import edge_lb as tlb
+from repro_torch.kernels import merge_path as tmp
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import twc_gather as ttwc
 
@@ -123,7 +126,11 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
         assert torch.equal(a, b)
     s = torch.arange(64, dtype=torch.int32) * 3
     tlb.edge_lb_map(s, s, s, 190, 2048)
-    assert tk.launch_counts() == {"twc_bin_map": 0, "edge_lb_map": 0}
+    out = tmp.merge_path_map(s, s, 190, 2048)
+    for a, b in zip(out, tref.merge_path_map_ref(s, s, 190, 2048)):
+        assert torch.equal(a, b)
+    assert tk.launch_counts() == {"twc_bin_map": 0, "edge_lb_map": 0,
+                                  "merge_path_map": 0}
 
 
 def test_wrappers_validate_inputs():
@@ -139,8 +146,76 @@ def test_wrappers_validate_inputs():
         tlb.edge_lb_map(i32, i32[:4], i32, 0, 64)
     with pytest.raises(ValueError, match="distribution"):
         tlb.edge_lb_map(i32, i32, i32, 0, 64, distribution="zigzag")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tmp.merge_path_map(i32, i32, 0, 64, tile_edges=100)
+    with pytest.raises(ValueError, match="H >= 1"):
+        tmp.merge_path_map(i32[:0], i32[:0], 0, 64)
+    with pytest.raises(TypeError, match="start_e"):
+        tmp.merge_path_map(i32.long(), i32, 0, 64)
+    with pytest.raises(ValueError, match="row_start"):
+        tmp.merge_path_map(i32, i32[:4], 0, 64)
 
 
 def test_kernel_sources_present():
     from repro_torch.kernels import build
-    assert build.sources() == ["edge_lb", "twc_gather"]
+    assert build.sources() == ["edge_lb", "merge_path", "twc_gather"]
+
+
+# ---- merge_path_map ---------------------------------------------------------
+
+def check_merge_path(deg, row_start, total, tile_edges, ecap=None):
+    """The plain version against the Pallas kernel (interpret mode): the
+    masks equal, ``graph_e`` and ``slot_j`` equal where the mask is set
+    (the TPU kernel's slot on masked ids depends on its window), and 0
+    there in the plain version."""
+    deg = np.asarray(deg, np.int32)
+    start_e = (np.cumsum(deg) - deg).astype(np.int32)
+    row_start = np.asarray(row_start, np.int32)
+    ecap = int(max(total, 1)) if ecap is None else ecap
+    j = jmp.merge_path_map(jnp.asarray(start_e), jnp.asarray(row_start),
+                           jnp.int32(total), ecap, tile_edges=tile_edges)
+    p = tmp.merge_path_map(torch.from_numpy(start_e),
+                           torch.from_numpy(row_start), total, ecap,
+                           tile_edges=tile_edges)
+    m = np.asarray(j[2])
+    assert p[0].shape == j[0].shape
+    np.testing.assert_array_equal(p[2].numpy(), m)
+    for a, b in zip(j[:2], p[:2]):
+        np.testing.assert_array_equal(np.asarray(a)[m], b.numpy()[m])
+        assert not b.numpy()[~m].any()
+    return p
+
+
+# the four cases of tests/test_fused.py
+@pytest.mark.parametrize("deg,row_start,total,tile_edges", [
+    ([0, 0, 0, 0], [0, 0, 0, 0], 0, 256),
+    ([5000], [17], 5000, 256),
+    ([100, 900, 1, 499, 1500], [0, 100, 1000, 1001, 1500], 3000, 1024),
+    ([2, 0, 0, 3, 0, 5, 0], [0, 2, 2, 2, 5, 5, 10], 10, 128),
+], ids=["empty", "single_huge", "ragged_tail", "zero_degree_runs"])
+def test_merge_path_plain_matches_pallas_cases(deg, row_start, total,
+                                               tile_edges):
+    check_merge_path(deg, row_start, total, tile_edges)
+
+
+@pytest.mark.parametrize("h", [1, 61, 1000])
+@pytest.mark.parametrize("tile_edges", [128, 2048])
+def test_merge_path_plain_matches_pallas_sweep(h, tile_edges):
+    """Random degrees with zero-degree runs, the main path's bucketed
+    span (``next_bucket(total, tile_edges)``) and a ragged total."""
+    rng = np.random.default_rng(h + tile_edges)
+    deg = rng.integers(0, 300, h).astype(np.int32)
+    deg[rng.random(h) < 0.3] = 0
+    deg[0] += 1                                # total > 0
+    total = int(deg.sum())
+    row = rng.integers(0, 1 << 20, h).astype(np.int32)
+    ge, j, m = check_merge_path(deg, row, total, tile_edges,
+                                ecap=next_bucket(total, tile_edges))
+    # every edge of every slot exactly once, and each in its own slot
+    got = np.sort(ge[m].numpy())
+    want = np.sort(np.concatenate(
+        [np.arange(r, r + d) for r, d in zip(row, deg)]))
+    np.testing.assert_array_equal(got, want)
+    jj = j[m].numpy()
+    assert np.all((ge[m].numpy() >= row[jj]) &
+                  (ge[m].numpy() < row[jj] + deg[jj]))
