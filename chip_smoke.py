@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py            # full size: rmat scale 22
-    python3 chip_smoke.py --scale 16 # a quicker rehearsal
+    python3 chip_smoke.py            # full size: rmat scale 22, and
+                                     # deepseek-moe-16b at 28 layers
+    python3 chip_smoke.py --scale 16 # a quicker graph rehearsal
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card's name and power limit (``nvidia-smi``), then an ``nvcc``
    build of every kernel source in the checkout, all in parallel;
-2. each CUDA kernel against its plain PyTorch version on the card,
-   exactly (tolerance 0: int32 and bit-copied outputs), over swept
-   shapes;
+2. each CUDA kernel against its plain PyTorch version on the card over
+   swept shapes: the index kernels exactly (tolerance 0: int32 and
+   bit-copied outputs), ``flash_attention`` within ``FLASH_TOL``;
 3. the main path at full size: ALB ``sssp``, ``bfs`` and ``sssp_batch``
    (B = 8) on ``rmat(22, 16, seed=0)`` through the kernel pair, with
    launch counts reset just before and read just after; labels held
@@ -26,10 +27,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    torch-ops pair and scipy / numpy oracles; ``host_transfers`` as the
    drivers count them; median wall times;
 4. each kernel and its plain version timed on the card at the shapes
-   the main path gave it (one ALB sssp, one merge-path sssp), beside the
-   least time the card could take; device profiles of ALB sssp,
+   the main path gave it (one ALB sssp, one merge-path sssp; one
+   prefill and one decode step of phase 5), beside the least time the
+   card could take and, for ``flash_attention``, PyTorch's
+   ``scaled_dot_product_attention``; device profiles of ALB sssp,
    sssp_batch, adaptive cc and pagerank;
-5. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
+5. the LM serving path, after the graph phases' tensors are freed:
+   deepseek-moe-16b at its published widths and 28 layers, random bf16
+   weights from a seeded generator on the card, 4 requests of 1024
+   prompt tokens and 32 greedy tokens, launch counts reset just before
+   and read just after (``positions_in_expert`` 28 x 32,
+   ``flash_attention`` 28); every dispatch plan bitwise equal through
+   the kernel and one-hot routes; prefill logits and first tokens held
+   against plain attention + one-hot dispatch; a skewed request set
+   (one repeated token) whose layer-0 routing the ALB rebalance must
+   keep more of; median wall times, syncing calls per decode step and
+   device profiles of one prefill and one decode step;
+6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
    limit line again, and last the ``{"ok": true, "device": {...}}`` line.
 
 Imports neither ``jax`` nor the JAX package ``repro``.
@@ -37,10 +51,12 @@ Imports neither ``jax`` nor the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 from pathlib import Path
 
@@ -53,6 +69,8 @@ ROOT = Path(__file__).resolve().parent
 # arithmetic (the float32 rate; the integer rate is not higher)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# the kernels of the graph phases (3, 3b); phase 5 runs the other two
+GRAPH_KERNELS = ("twc_bin_map", "edge_lb_map", "merge_path_map")
 
 
 def card_line() -> str:
@@ -193,6 +211,66 @@ def kernel_vs_plain(dev) -> dict:
     return errs
 
 
+# the LM kernels against their plain versions: positions_in_expert
+# exactly; flash_attention at tests/test_kernels_lm.py's tolerances
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+
+
+def lm_kernels_vs_plain(dev) -> dict:
+    """``positions_in_expert`` exactly over N x E x (uniform, one-expert,
+    out-of-range ids); ``flash_attention`` over S x (H, Hkv) x hd x
+    causal x dtype within ``FLASH_TOL``.  Returns the max errors."""
+    import torch
+    from repro_torch.kernels import flash_attention, moe_dispatch, ref
+    rng = np.random.default_rng(1)
+    pie_err, pie_cases = 0, 0
+    for n in (0, 1, 24, 255, 1024, 1025, 24_576, 10 ** 6):
+        for e in (1, 8, 64):
+            for ids in (rng.integers(0, e, n), np.full(n, e - 1),
+                        rng.integers(-2, e + 3, n)):
+                t = torch.from_numpy(ids.astype(np.int32)).to(dev)
+                got = moe_dispatch.positions_in_expert(t, e)
+                want = ref.positions_in_expert_ref(t, e)
+                check(got.dtype == torch.int32 and got.shape == want.shape,
+                      f"positions_in_expert: dtype/shape (N={n}, E={e})")
+                d = (got.long() - want.long()).abs()
+                pie_err = max(pie_err, int(d.max()) if n else 0)
+                pie_cases += 1
+    torch.cuda.synchronize()
+    check(pie_err == 0, f"positions_in_expert != plain: {pie_err}")
+    fa_err = {"bfloat16": 0.0, "float32": 0.0}
+    fa_cases = 0
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for s in (1, 100, 128, 1024, 2048):
+        b = 1 if s > 1024 else 2
+        for h, hkv in ((16, 16), (4, 2), (8, 1)):
+            for hd in (16, 64, 128):
+                for dtype in ("bfloat16", "float32"):
+                    q, k, v = (torch.randn((b, s, n, hd), generator=gen,
+                                           device=dev)
+                               .to(getattr(torch, dtype))
+                               for n in (h, hkv, hkv))
+                    for causal in (True, False):
+                        got = flash_attention.flash_attention(
+                            q, k, v, causal=causal)
+                        want = ref.flash_attention_ref(q, k, v,
+                                                       causal=causal)
+                        check(got.dtype == q.dtype and got.shape == q.shape,
+                              "flash_attention: dtype/shape")
+                        err = float((got.float() - want.float()).abs().max())
+                        fa_err[dtype] = max(fa_err[dtype], err)
+                        fa_cases += 1
+    torch.cuda.synchronize()
+    for dtype, tol in FLASH_TOL.items():
+        check(fa_err[dtype] <= tol, f"flash_attention {dtype} != plain: "
+              f"max error {fa_err[dtype]} > {tol}")
+    print(f"phase 2: positions_in_expert == plain on {pie_cases} cases "
+          f"(tolerance 0): max error {pie_err}; flash_attention within "
+          f"{FLASH_TOL} of plain on {fa_cases} cases: max error {fa_err}",
+          flush=True)
+    return {"positions_in_expert": pie_err, "flash_attention": fa_err}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -212,18 +290,32 @@ def oracle(g, source: int, unweighted: bool) -> np.ndarray:
 
 def count_syncs(fn) -> list:
     """Where ``fn`` made syncing CUDA calls (``file:line`` of each), as
-    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them; where that
+    line is inside torch, the innermost line of the port that led to it
+    follows (``... via file:line``)."""
     import torch
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as seen:
+    sites = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        site = f"{Path(filename).name}:{lineno}"
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if "repro_torch" in f.filename]
+        if ours and Path(ours[-1].filename) != Path(filename):
+            site += f" via {Path(ours[-1].filename).name}:{ours[-1].lineno}"
+        sites.append(site)
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return [f"{Path(w.filename).name}:{w.lineno}" for w in seen
-            if "synchroniz" in str(w.message)]
+    return sites
 
 
 def main_path(dev, scale: int) -> dict:
@@ -389,13 +481,6 @@ def pull_path(g, src, sources, res) -> dict:
     from repro_torch.core.balancer import BalancerConfig
     from repro_torch.core.graph import symmetrized
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x = fn()
-        torch.cuda.synchronize()
-        return x, time.perf_counter() - t0
-
     rg, rev_s = timed(g.reverse)
     sym, sym_s = timed(lambda: symmetrized(g))
     csr_gb = {n: sum(t.numel() * 4 for t in (x.row_ptr, x.col_idx,
@@ -446,8 +531,9 @@ def pull_path(g, src, sources, res) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"phase 3b: kernel launches on the slice-2 path: {launches}; "
           f"peak device memory {peak_gb:.2f} GB", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the slice-2 path")
+    for name in GRAPH_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the slice-2 "
+              f"path")
     # the kernel pair on pull rounds: pagerank's rounds are all pulls
     # (PR_PULL over the reverse CSR); adaptive cc's pull rounds served
     # both the bins and the huge bin
@@ -679,7 +765,7 @@ def time_kernels(g, src, errs: dict, launches: dict) -> list:
     return rows
 
 
-def profile_path(runs: dict, wall_s: dict) -> dict:
+def profile_path(runs: dict, wall_s: dict, label: str = "phase 4") -> dict:
     """Where the device time of each traversal of ``runs`` (name ->
     callable) goes: kernels by name from ``torch.profiler`` (device
     activity only), and the device's busy share of ``wall_s[name]``, the
@@ -710,15 +796,478 @@ def profile_path(runs: dict, wall_s: dict) -> dict:
             "device_ms": busy_us / 1e3,
             "busy_share": busy_us / plain_wall_us if busy_us else None,
             "top": [[n, round(t / 1e3, 4), c] for n, (t, c) in top]}
-        print(f"phase 4: profiled {name}: device busy "
+        print(f"{label}: profiled {name}: device busy "
               f"{busy_us / 1e3:.2f} ms of the unprofiled median wall "
               f"{plain_wall_us / 1e3:.2f} ms "
               + (f"({busy_us / plain_wall_us:.1%})" if busy_us else
                  "(profiler saw no device time: not measured)")
               + f"; profiled wall {wall_us / 1e3:.2f} ms", flush=True)
         for n, t, c in out[name]["top"]:
-            print(f"phase 4:   {t:9.3f} ms {c:5d}x {n}", flush=True)
+            print(f"{label}:   {t:9.3f} ms {c:5d}x {n}", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the LM serving path (deepseek-moe-16b, ALB-adaptive MoE)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "deepseek-moe-16b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 32
+# The kernel route (flash attention, kernel dispatch) against the plain
+# route (plain attention, one-hot dispatch).  With random weights the
+# 28-layer model is chaotic: attention outputs one bf16 rounding apart
+# flip near-tie expert choices, and by layer 28 the logits decorrelate
+# (PERF.md).  So each kernel is held where its difference does not
+# compound: dispatch alone over all 28 layers (bitwise), each layer's
+# attention sublayer on the same input (LM_ATTN_RTOL), and the whole
+# model at depth 1 (LM_LOGITS_RTOL, first tokens equal); the divergence
+# at depths 2..28 is printed.
+LM_ATTN_RTOL = 1 / 32           # of the largest |attention output|
+LM_LOGITS_RTOL = 0.05           # of the largest |logit|
+LM_DEPTHS = (1, 2, 4, 8, 16, 28)
+# H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet, 700 W)
+BF16_FLOPS_PER_S = 989e12
+
+
+def timed(fn):
+    """(fn(), seconds) on the host clock, between device synchronizes."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def serve(model, cfg, prompts, gen: int, **kw) -> dict:
+    """Prefill ``prompts`` into an empty cache, then ``gen - 1`` greedy
+    decode steps: ``gen`` tokens per request.  Host clock around work
+    that ends in a device synchronize; the tokens stay on the card until
+    the end."""
+    import torch
+    from repro_torch.models import transformer as T
+    b, p = prompts.shape
+    cache = T.zeros_cache(cfg, b, p + gen, device=prompts.device)
+    (logits, cache), prefill_s = timed(
+        lambda: T.prefill(model, cfg, prompts, cache, **kw))
+    first_logits = logits
+    toks = [logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)]
+
+    def decode():
+        nonlocal logits, cache
+        for _ in range(gen - 1):
+            logits, cache = T.decode_step(model, cfg, toks[-1], cache, **kw)
+            toks.append(logits[:, -1].argmax(-1, keepdim=True)
+                        .to(torch.int32))
+    _, decode_s = timed(decode)
+    return {"first_logits": first_logits, "tokens": torch.cat(toks, 1),
+            "prefill_s": prefill_s,
+            "decode_ms_per_step": decode_s / max(gen - 1, 1) * 1e3,
+            "tokens_per_s": b * gen / (prefill_s + decode_s),
+            "index": cache["index"]}
+
+
+def moe_inputs(model):
+    """Forward pre-hooks that keep each MoE layer's input: returns (the
+    list they fill with ``(layer, x)``, a function that removes them)."""
+    seen, handles = [], []
+    for li, blk in enumerate(model.layers):
+        handles.append(blk.moe.register_forward_pre_hook(
+            lambda mod, args, li=li: seen.append((li, args[0]))))
+    return seen, lambda: [h.remove() for h in handles]
+
+
+def plans_equal(model, cfg, seen) -> int:
+    """Each captured MoE input's dispatch plan through the kernel route
+    and the one-hot route, from the same probs: bitwise equal.  Returns
+    the number of plans compared."""
+    import torch
+    from repro_torch.models import moe as MOE
+    for li, x in seen:
+        t = x.shape[0] * x.shape[1]
+        probs = MOE.router_probs(model.layers[li].moe,
+                                 x.reshape(t, -1).to(torch.bfloat16))
+        a = MOE.dispatch_plan(probs, cfg.moe, t, use_pallas_dispatch=True)
+        b = MOE.dispatch_plan(probs, cfg.moe, t, use_pallas_dispatch=False)
+        check(a[4] == b[4] and all(torch.equal(x, y)
+                                   for x, y in zip(a[:4], b[:4])),
+              f"layer {li}: dispatch plan differs between the kernel and "
+              f"the one-hot route")
+    return len(seen)
+
+
+def attention_inputs(model):
+    """Forward pre-hooks that keep each attention sublayer's prefill
+    input (calls with more than one position): returns (the list they
+    fill with ``(layer, x, positions)``, a function that removes
+    them)."""
+    seen, handles = [], []
+
+    def hook(mod, args, kwargs, li):
+        x = args[0]
+        if x.shape[1] > 1:
+            seen.append((li, x, kwargs["positions"]))
+    for li, blk in enumerate(model.layers):
+        handles.append(blk.attn.register_forward_pre_hook(
+            lambda mod, args, kwargs, li=li: hook(mod, args, kwargs, li),
+            with_kwargs=True))
+    return seen, lambda: [h.remove() for h in handles]
+
+
+def attention_sublayers(model, cfg, attn_in) -> list:
+    """Each layer's GQA sublayer on its captured prefill input, through
+    flash_attention and through plain attention: max |diff| over max
+    |plain output|, per layer."""
+    from repro_torch.models import layers as L
+    errs = []
+    for li, x, pos in attn_in:
+        p = model.layers[li].attn
+        a, _ = L.gqa_apply(p, x, cfg, positions=pos, attn_impl="flash")
+        b, _ = L.gqa_apply(p, x, cfg, positions=pos, attn_impl="plain")
+        errs.append(float((a.float() - b.float()).abs().max()) /
+                    float(b.float().abs().max()))
+    check(len(errs) == cfg.num_layers, "attention inputs captured")
+    return errs
+
+
+def depth_sweep(model, cfg, prompts, dev) -> list:
+    """Prefill through the first L layers of the same weights (and the
+    head), kernel route against plain attention + one-hot dispatch:
+    logits, first tokens and each layer's routing (the plan from each
+    route's own MoE input) compared, for L in LM_DEPTHS."""
+    import dataclasses
+    import types
+    import torch
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    out = []
+    for depth in (d for d in LM_DEPTHS if d <= cfg.num_layers):
+        sub = types.SimpleNamespace(
+            embed=model.embed, layers=model.layers[:depth],
+            final_norm=model.final_norm, lm_head=model.lm_head)
+        cfg_d = dataclasses.replace(cfg, num_layers=depth)
+        res = []
+        for kw in ({}, {"use_pallas_dispatch": False, "attn_impl": "plain"}):
+            seen, remove = moe_inputs(sub)
+            try:
+                logits, _ = T.prefill(sub, cfg_d, prompts, T.zeros_cache(
+                    cfg_d, prompts.shape[0], prompts.shape[1], device=dev),
+                    **kw)
+            finally:
+                remove()
+            plans = []
+            for li, x in seen:
+                t = x.shape[0] * x.shape[1]
+                probs = MOE.router_probs(model.layers[li].moe,
+                                         x.reshape(t, -1).to(torch.bfloat16))
+                plans.append(MOE.dispatch_plan(probs, cfg.moe, t)[0])
+            res.append((logits, plans))
+        (lk, pk), (lp, pp) = res
+        out.append({
+            "layers": depth,
+            "logit_err": float((lk - lp).abs().max()),
+            "logit_scale": float(lp.abs().max()),
+            "first_tokens_equal": bool(torch.equal(lk[:, -1].argmax(-1),
+                                                   lp[:, -1].argmax(-1))),
+            "layers_same_routing": sum(bool(torch.equal(a, b))
+                                       for a, b in zip(pk, pp)),
+            "slots_differ": sum(int((a != b).sum()) for a, b in zip(pk, pp))})
+    return out
+
+
+def skewed_layer0(model, cfg, dev) -> dict:
+    """Every prompt position one repeated token: layer 0 routes every
+    slot to the same top-k experts (the power-law case).  Kept shares
+    with and without the ALB rebalance, and the per-expert loads."""
+    import dataclasses
+    import torch
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    prompts = torch.full((LM_BATCH, LM_PROMPT), 7, dtype=torch.int32,
+                         device=dev)
+    seen, remove = moe_inputs(model)
+    try:
+        T.prefill(model, cfg, prompts,
+                  T.zeros_cache(cfg, LM_BATCH, LM_PROMPT, device=dev))
+    finally:
+        remove()
+    x = seen[0][1]
+    t = x.shape[0] * x.shape[1]
+    m = cfg.moe
+    probs = MOE.router_probs(model.layers[0].moe,
+                             x.reshape(t, -1).to(torch.bfloat16))
+    fe, _, _, keep, cap = MOE.dispatch_plan(probs, m, t,
+                                            use_pallas_dispatch=True)
+    fe0, _, _, keep0, _ = MOE.dispatch_plan(
+        probs, dataclasses.replace(m, adaptive=False), t,
+        use_pallas_dispatch=True)
+    load = torch.bincount(fe[keep].long(), minlength=m.num_experts)
+    routed = torch.bincount(fe0.long(), minlength=m.num_experts)
+    out = {"slots": int(fe.numel()), "cap": cap,
+           "kept_adaptive": float(keep.float().mean()),
+           "kept_static": float(keep0.float().mean()),
+           "experts_routed_to": int((routed > 0).sum()),
+           "routed_load": routed.tolist(), "kept_load": load.tolist()}
+    check(out["kept_adaptive"] > out["kept_static"],
+          f"skewed set: the rebalance kept no more slots: {out}")
+    if cap * m.num_experts >= fe.numel():
+        check(out["kept_adaptive"] == 1.0,
+              f"skewed set: capacity covers every slot, kept {out}")
+    print(f"phase 5: skewed set, layer 0: {out['slots']} slots to "
+          f"{out['experts_routed_to']} experts (cap {cap}); kept "
+          f"{out['kept_adaptive']:.4f} with the ALB rebalance, "
+          f"{out['kept_static']:.4f} by pos < cap alone; routed load "
+          f"{[c for c in out['routed_load'] if c]} -> kept load min "
+          f"{min(out['kept_load'])} max {max(out['kept_load'])}",
+          flush=True)
+    return out
+
+
+def lm_path(dev, smoke: bool = False) -> dict:
+    """Phase 5: deepseek-moe-16b at its published widths and depth
+    (``smoke``: its SMOKE config, for a rehearsal on the CPU with the
+    CUDA calls stubbed), random bf16 weights
+    from a seeded generator on the card, 4 requests of 1024 prompt
+    tokens and 32 greedy tokens each."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import transformer as T
+    cfg = (get_smoke_config if smoke else get_config)(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model, init_s = timed(lambda: T.init(cfg, generator=gen, device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    print(f"phase 5: {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.moe.num_experts} experts top-"
+          f"{cfg.moe.top_k} (+{cfg.moe.num_shared_experts} shared), "
+          f"{n_params} parameters, {weight_bytes / 1e9:.3f} GB of bf16 "
+          f"weights and f32 gains on the card (init {init_s:.1f} s); peak "
+          f"allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB",
+          flush=True)
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(dev)
+
+    # the counted run: every launch of the serving path
+    seen, remove = moe_inputs(model)
+    attn_in, remove_attn = attention_inputs(model)
+    kernels.reset_launch_counts()
+    try:
+        kern = serve(model, cfg, prompts, LM_GEN)
+    finally:
+        remove()
+        remove_attn()
+    launches = kernels.launch_counts()
+    want = {"positions_in_expert": cfg.num_layers * LM_GEN,
+            "flash_attention": cfg.num_layers}
+    print(f"phase 5: kernel launches serving {LM_BATCH} x ({LM_PROMPT} + "
+          f"{LM_GEN}) tokens: {launches} (expected {want})", flush=True)
+    for name, n in want.items():
+        check(launches[name] == n, f"{name}: {launches[name]} launches on "
+              f"the serving path, expected {n}")
+    check(kern["index"] == LM_PROMPT + LM_GEN - 1, "cache index")
+    logits = kern["first_logits"]
+    check(logits.shape == (LM_BATCH, 1, cfg.padded_vocab) and
+          logits.dtype == torch.float32 and
+          bool(torch.isfinite(logits).all()), "prefill logits")
+    check(kern["tokens"].shape == (LM_BATCH, LM_GEN) and
+          bool(((kern["tokens"] >= 0) &
+                (kern["tokens"] < cfg.vocab_size)).all()), "tokens")
+    n_plans = plans_equal(model, cfg, seen)
+    del seen
+
+    # kernel 4 in the model: one-hot dispatch with the same attention
+    # gives the same plans, so logits and tokens equal bitwise
+    onehot = serve(model, cfg, prompts, LM_GEN, use_pallas_dispatch=False)
+    check(torch.equal(onehot["first_logits"], logits) and
+          torch.equal(onehot["tokens"], kern["tokens"]),
+          "kernel dispatch != one-hot dispatch over the serving run")
+    # kernel 5 in the model: each layer's attention sublayer on the
+    # kernel route's own prefill input, flash against plain attention
+    attn_err = attention_sublayers(model, cfg, attn_in)
+    del attn_in
+    # the whole model: kernel route against plain attention + one-hot
+    # dispatch, by depth
+    depth = depth_sweep(model, cfg, prompts, dev)
+    plain = serve(model, cfg, prompts, LM_GEN, use_pallas_dispatch=False,
+                  attn_impl="plain")
+    agree = float((kern["tokens"] == plain["tokens"]).float().mean())
+    print(f"phase 5: {n_plans} dispatch plans bitwise equal through the "
+          f"kernel and one-hot routes; one-hot dispatch serving run: "
+          f"logits and all {LM_BATCH} x {LM_GEN} tokens bitwise equal; "
+          f"attention sublayers, flash against plain on each layer's "
+          f"input: max |diff| / max |out| {max(attn_err):.5f} (tolerance "
+          f"{LM_ATTN_RTOL:.5f}; per layer {[round(e, 5) for e in attn_err]})",
+          flush=True)
+    for d in depth:
+        print(f"phase 5: depth {d['layers']:2d}: prefill logits kernel "
+              f"route vs plain route: max |diff| {d['logit_err']:.5f} of "
+              f"max |logit| {d['logit_scale']:.4f} "
+              f"({d['logit_err'] / d['logit_scale']:.4f}); first tokens "
+              f"equal {d['first_tokens_equal']}; layers routed "
+              f"identically {d['layers_same_routing']} of {d['layers']}; "
+              f"slots routed differently {d['slots_differ']}", flush=True)
+    print(f"phase 5: {cfg.num_layers} layers, plain route serving run: "
+          f"first tokens "
+          f"{kern['tokens'][:, 0].tolist()} (kernel) vs "
+          f"{plain['tokens'][:, 0].tolist()} (plain); {agree:.4f} of the "
+          f"{LM_BATCH} x {LM_GEN} generated tokens agree", flush=True)
+    check(max(attn_err) <= LM_ATTN_RTOL,
+          "attention sublayer: flash != plain attention")
+    d1 = depth[0]
+    check(d1["logit_err"] <= LM_LOGITS_RTOL * d1["logit_scale"] and
+          d1["first_tokens_equal"],
+          f"depth {d1['layers']}: kernel route != plain route: {d1}")
+    skew = skewed_layer0(model, cfg, dev)
+
+    runs = [kern] + [serve(model, cfg, prompts, LM_GEN) for _ in range(2)]
+    med = {k: float(np.median([r[k] for r in runs]))
+           for k in ("prefill_s", "decode_ms_per_step", "tokens_per_s")}
+    cache = T.zeros_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
+    _, cache = T.prefill(model, cfg, prompts, cache)
+    tok = kern["tokens"][:, :1]
+    syncs = count_syncs(lambda: T.decode_step(model, cfg, tok, cache))
+    print(f"phase 5: median of 3 runs: prefill {med['prefill_s']:.4f} s, "
+          f"decode {med['decode_ms_per_step']:.3f} ms per step, "
+          f"{med['tokens_per_s']:.1f} generated tokens per s; "
+          f"{len(syncs)} syncing calls in one decode step "
+          f"{sorted(set(syncs))}; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    wall = {"prefill": med["prefill_s"],
+            "decode_step": med["decode_ms_per_step"] / 1e3}
+    prof = profile_path(
+        {"prefill": lambda: T.prefill(model, cfg, prompts, cache),
+         "decode_step": lambda: T.decode_step(model, cfg, tok, cache)},
+        wall, label="phase 5")
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "params": n_params, "weight_bytes": weight_bytes,
+            "init_s": init_s, "launches": launches,
+            "plans_compared": n_plans, "attn_sublayer_err": attn_err,
+            "depth_sweep": depth, "tokens_agree_28_layers": agree,
+            "first_tokens": kern["tokens"][:, 0].tolist(),
+            "seconds": {k: [r[k] for r in runs] for k in med},
+            "median": med, "syncs_per_decode_step": len(syncs),
+            "sync_sites": sorted(set(syncs)), "skewed": skew,
+            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "profile": prof, "model": model, "cfg": cfg, "prompts": prompts,
+            "cache": cache, "tok": tok}
+
+
+def capture_lm_launches(model, cfg, prompts, cache, tok) -> dict:
+    """The arguments of every kernel launch of one prefill and one decode
+    step, recorded by swapping the names the model calls through for
+    recorders that forward to the real wrappers; each call is tagged
+    with its phase."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    calls = {"positions_in_expert": [], "flash_attention": []}
+    phase = ["prefill"]
+
+    def recorder(name, fn):
+        def rec(*a, **k):
+            calls[name].append((phase[0], a, k))
+            return fn(*a, **k)
+        return rec
+
+    real = MOE.positions_in_expert, L.flash_attention
+    MOE.positions_in_expert = recorder("positions_in_expert", real[0])
+    L.flash_attention = recorder("flash_attention", real[1])
+    try:
+        T.prefill(model, cfg, prompts, cache)
+        phase[0] = "decode"
+        T.decode_step(model, cfg, tok, cache)
+    finally:
+        MOE.positions_in_expert, L.flash_attention = real
+    return calls
+
+
+def time_lm_kernels(lm: dict) -> list:
+    """Rows 4 and 5: each kernel and its plain version on the card at
+    the shapes phase 5 gave it (CUDA events, stream held busy), beside
+    the least time the card could take; ``ms`` is the mean per launch
+    over the serving run's mix (one prefill, LM_GEN - 1 decode steps)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, moe_dispatch, ref
+    calls = capture_lm_launches(lm["model"], lm["cfg"], lm["prompts"],
+                                lm["cache"], lm["tok"])
+    steps = {"prefill": 1, "decode": LM_GEN - 1}
+
+    def sdpa(q, k, v, causal=True):
+        kw = {"enable_gqa": True} if q.shape[2] != k.shape[2] else {}
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, **kw)
+
+    def pie_work(a, k):
+        return 8 * a[0].numel(), 0
+
+    def fa_work(a, k):
+        q, kk = a[0], a[1]
+        b, s, h, hd = q.shape
+        byts = (2 * q.numel() + 2 * kk.numel()) * q.element_size()
+        flops = 2 * b * h * s * s * hd
+        if not k.get("causal", True):
+            flops *= 2
+        return byts, flops
+
+    table = [("positions_in_expert", moe_dispatch.positions_in_expert,
+              ref.positions_in_expert_ref, None, pie_work,
+              "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+              "src/repro/kernels/moe_dispatch.py:45"),
+             ("flash_attention", flash_attention.flash_attention,
+              ref.flash_attention_ref, sdpa, fa_work,
+              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:68")]
+    rows = []
+    for name, fn, plain, lib, work, source, replaces in table:
+        by_phase = {}
+        for ph, a, k in calls[name]:
+            by_phase.setdefault(ph, []).append((a, k))
+        check(len(by_phase) > 0, f"{name}: no launch captured")
+        err = 0.0
+        for cs in by_phase.values():   # the kernel against plain, main path
+            for a, k in cs:
+                d = (fn(*a, **k).float() - plain(*a, **k).float()).abs()
+                err = max(err, float(d.max()))
+        tol = 0 if name == "positions_in_expert" else FLASH_TOL["bfloat16"]
+        check(err <= tol, f"{name} != plain on main-path inputs: {err}")
+        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+             "ops": 0.0}
+        per_phase = {}
+        n_launch = 0
+        for ph, cs in by_phase.items():
+            w = steps[ph] * len(cs)          # launches on the serving run
+            cs = cs[:4]                      # time a few of each shape
+            ms = device_ms(fn, cs)
+            pms = device_ms(plain, cs)
+            lms = device_ms(lib, cs) if lib is not None else None
+            b = sum(work(a, k)[0] for a, k in cs) / len(cs)
+            o = sum(work(a, k)[1] for a, k in cs) / len(cs)
+            per_phase[ph] = {"ms": ms, "plain_ms": pms, "library_ms": lms,
+                             "bytes": b, "ops": o, "launches": w,
+                             "shape": list(cs[0][0][0].shape)}
+            n_launch += w
+            for key, val in (("ms", ms), ("plain_ms", pms),
+                             ("library_ms", lms or 0.0), ("bytes", b),
+                             ("ops", o)):
+                t[key] += w * val
+        t = {k: v / n_launch for k, v in t.items()}
+        t_b = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_o = t["ops"] / BF16_FLOPS_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": lm["launches"][name],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": t["library_ms"] if lib is not None else None,
+            "by_phase": per_phase})
+    return rows
 
 
 def main() -> int:
@@ -751,12 +1300,13 @@ def main() -> int:
         print(f"phase 1: {name}: {' | '.join(info)}", flush=True)
 
     errs = kernel_vs_plain(dev)
+    lm_kernels_vs_plain(dev)
     mp = main_path(dev, args.scale)
     g, src, sources = mp.pop("graph"), mp.pop("src"), mp.pop("sources")
     pp = pull_path(g, src, sources, mp.pop("results"))
     apps, cfgs = pp.pop("apps"), pp.pop("cfgs")
-    launches = {k: mp["launches"].get(k, 0) + pp["launches"][k]
-                for k in pp["launches"]}
+    launches = {k: mp["launches"][k] + pp["launches"][k]
+                for k in GRAPH_KERNELS}
     rows = time_kernels(g, src, errs, launches)
     for r in rows:
         print(f"phase 4: {r['name']}: {r['ms']:.4f} ms per launch "
@@ -775,7 +1325,24 @@ def main() -> int:
          for a in ("cc_adaptive", "pagerank")}, pp.pop("median_s"))
     print(json.dumps({"main_path": {"scale": args.scale, **mp}}), flush=True)
     print(json.dumps({"pull_path": pp}), flush=True)
-    print(json.dumps({"kernels": rows}), flush=True)
+
+    # phase 5 needs the card's memory: free the graph phases' tensors
+    del g, apps, cfgs, kern
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = lm_path(dev)
+    lm_rows = time_lm_kernels(lm)
+    for r in lm_rows:
+        print(f"phase 4: {r['name']}: {r['ms']:.4f} ms per launch over the "
+              f"serving mix (plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']} ms, bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']}); max error against plain on main-path "
+              f"inputs {r['max_abs_err']}; {r['launches']} launches; by "
+              f"phase {r['by_phase']}", flush=True)
+    for k in ("model", "cfg", "prompts", "cache", "tok"):
+        lm.pop(k)
+    print(json.dumps({"lm_path": lm}), flush=True)
+    print(json.dumps({"kernels": rows + lm_rows}), flush=True)
     print(card, flush=True)              # as nvidia-smi prints it
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

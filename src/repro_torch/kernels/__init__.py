@@ -3,7 +3,11 @@
 * ``twc_gather.twc_bin_map``    — ``csrc/twc_gather.cu`` (CUDA C++);
 * ``edge_lb.edge_lb_map``       — ``csrc/edge_lb.cu`` (CUDA C++);
 * ``merge_path.merge_path_map`` — ``csrc/merge_path.cu`` (CUDA C++);
-* ``ref``                       — plain PyTorch versions of all three;
+* ``moe_dispatch.positions_in_expert`` — ``csrc/moe_dispatch.cu``
+  (CUDA C++), the MoE dispatch plan's arrival ranks;
+* ``flash_attention.flash_attention`` — ``csrc/flash_attention.cu``
+  (CUDA C++), the prefill attention of the LM serving path;
+* ``ref``                       — plain PyTorch versions of all five;
 * ``ops``                       — the torch gather/scatter epilogues that
   make them executors of ``core.balancer``;
 * ``build``                     — ``nvcc`` + ``ctypes``, on first use.
@@ -13,12 +17,16 @@ incremented only where it launches its kernel.
 """
 from __future__ import annotations
 
+from . import flash_attention as _flash   # the module keeps its name
 from .edge_lb import edge_lb_map
 from .merge_path import merge_path_map
+from .moe_dispatch import positions_in_expert
 from .twc_gather import twc_bin_map
 
 KERNELS = {"twc_bin_map": twc_bin_map, "edge_lb_map": edge_lb_map,
-           "merge_path_map": merge_path_map}
+           "merge_path_map": merge_path_map,
+           "positions_in_expert": positions_in_expert,
+           "flash_attention": _flash.flash_attention}
 
 
 def launch_counts() -> dict:

@@ -1,13 +1,19 @@
-"""Plain PyTorch versions of the mapping kernels.
+"""Plain PyTorch versions of the kernels.
 
 Same output contract as ``repro/kernels/ref.py`` (and the CUDA kernels):
-four outputs ``(graph_e, anchor_or_slot, val, mask)``, three for the
-merge-path map ``(graph_e, slot_j, mask)``.  The kernel wrappers call
-these for CPU tensors, and the CUDA kernels are held against them on
-the card.  The one difference from the JAX oracles: ``twc_bin_map_ref``
-returns exactly ``[N, W]`` (no padding of N to a TPU vertex tile).
+four outputs ``(graph_e, anchor_or_slot, val, mask)`` for the mapping
+kernels, three for the merge-path map ``(graph_e, slot_j, mask)``; the
+arrival rank for ``positions_in_expert_ref``; the attention output for
+``flash_attention_ref``.  The kernel wrappers call these for CPU
+tensors, and the CUDA kernels are held against them on the card.  The
+differences from the JAX oracles: ``twc_bin_map_ref`` returns exactly
+``[N, W]`` (no padding of N to a TPU vertex tile), and
+``positions_in_expert_ref`` gives 0 to an out-of-range expert id, as the
+TPU kernel does (the JAX oracle's ``take_along_axis`` fills INT32_MIN).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -60,3 +66,35 @@ def twc_bin_map_ref(vidx, deg, row_start, val, *, width: int,
     anchor = vidx[:, None].expand(emask.shape)
     v = val[:, None].expand(emask.shape)
     return ge, anchor, v, emask
+
+
+def positions_in_expert_ref(flat_expert, num_experts: int):
+    """Oracle for moe_dispatch.positions_in_expert: ``pos[i]`` = number
+    of earlier slots routed to the same expert (one-hot exclusive
+    cumsum, int32).  Ids outside ``[0, num_experts)`` count for nothing
+    and get 0."""
+    experts = torch.arange(num_experts, dtype=torch.int32,
+                           device=flat_expert.device)
+    onehot = (flat_expert[:, None] == experts[None, :]).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    valid = (flat_expert >= 0) & (flat_expert < num_experts)
+    idx = torch.where(valid, flat_expert, 0).to(torch.int64)
+    got = torch.gather(pos, 1, idx[:, None])[:, 0]
+    return torch.where(valid, got, 0)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Oracle for flash_attention: plain softmax attention in float32.
+    q: [B, S, H, hd]; k/v: [B, S, Hkv, hd] (query head i reads KV head
+    i // (H // Hkv)); returns [B, S, H, hd] in ``q.dtype``."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qf = q.float().reshape(b, s, hkv, g, hd) / math.sqrt(hd)
+    sc = torch.einsum("bqkgd,bckd->bqkgc", qf, k.float())
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        sc = sc.masked_fill(~mask[None, :, None, None, :], float("-inf"))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bqkgc,bckd->bqkgd", p, v.float())
+    return out.reshape(b, s, h, hd).to(q.dtype)

@@ -1,0 +1,217 @@
+"""Mixture-of-Experts layer with ALB-adaptive dispatch (PyTorch).
+
+Port of ``repro/models/moe.py``.  The router's tokens-per-expert
+histogram is the LM-stack analogue of the paper's edges-per-vertex
+distribution, and the dispatch applies the paper's inspector-executor
+split to it:
+
+* inspector: the per-step expert load; slots past an expert's capacity
+  overflow;
+* executor: overflow slots are re-dealt over the free capacity of all
+  experts by an exclusive prefix sum plus ``searchsorted`` -- the
+  edge-balanced renumbering of the graph LB kernel (``edge_lb_map``).
+
+Where the JAX package runs the executor under ``lax.cond(any(overflow))``,
+the port runs it unconditionally: it is the identity when nothing
+overflows (``fits`` is all false), so the plan is bitwise the same and
+no device-to-host sync is made per layer.
+
+``dispatch_plan(use_pallas_dispatch=True)`` computes the arrival ranks
+with the hand-written kernel ``kernels.moe_dispatch.positions_in_expert``
+(on CUDA tensors; its plain version on CPU tensors), ``False`` with the
+one-hot cumsum.  The expert FFNs are plain batched matrix products.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.moe_dispatch import positions_in_expert
+from ..kernels.ref import positions_in_expert_ref
+from .layers import COMPUTE_DTYPE, MLP, _matrix
+
+
+class MoE(nn.Module):
+    """``router [d, E]``; stacked expert FFNs ``w_gate``/``w_up [E, d,
+    f]``, ``w_down [E, f, d]``; an optional shared SwiGLU MLP of width
+    ``f * num_shared_experts`` (``moe.moe_init``).  All bf16."""
+
+    def __init__(self, cfg, *, generator=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        m, d = cfg.moe, cfg.d_model
+        shapes = {"router": (d, m.num_experts),
+                  "w_gate": (m.num_experts, d, m.d_expert),
+                  "w_up": (m.num_experts, d, m.d_expert),
+                  "w_down": (m.num_experts, m.d_expert, d)}
+        for name, shape in shapes.items():
+            setattr(self, name, _matrix(shape, generator, device))
+        self.shared = (MLP(d, m.d_expert * m.num_shared_experts, "silu",
+                           generator=generator, device=device)
+                       if m.num_shared_experts else None)
+
+    def forward(self, x, *, use_pallas_dispatch: bool = False):
+        return moe_apply(self, x, self.cfg,
+                         use_pallas_dispatch=use_pallas_dispatch)
+
+
+def _positions_in_expert(expert_of, num_experts):
+    """pos[i] = rank of assignment i within its expert (arrival order):
+    the one-hot cumsum, the plain version of the kernel."""
+    return positions_in_expert_ref(expert_of, num_experts)
+
+
+def _top_k(probs, k: int):
+    """``lax.top_k``: the k largest along the last axis, ties broken
+    towards the lower index (a stable descending sort; ``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+def _row_sum(x):
+    """Sum over the last axis, left to right, as XLA reduces the k gate
+    values: the normalized gates then equal JAX's bitwise."""
+    s = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        s = s + x[..., i]
+    return s
+
+
+def dispatch_plan(probs, m, t, *, use_pallas_dispatch: bool = False):
+    """Routing plan: (flat_expert, pos, gate_flat, keep, cap).
+
+    probs: float32 ``[T, E]``.  ``flat_expert`` and ``pos`` are int32
+    ``[T*K]``, ``gate_flat`` float32, ``keep`` bool; ``cap`` a host int.
+    """
+    gate_vals, gate_idx = _top_k(probs, m.top_k)          # [T, K]
+    gate_vals = gate_vals / torch.clamp(_row_sum(gate_vals)[:, None],
+                                        min=1e-9)
+    cap = _cap_of(m, t)
+
+    flat_expert = gate_idx.reshape(-1)                    # [T*K] int32
+    if use_pallas_dispatch:
+        pos = positions_in_expert(flat_expert, m.num_experts)
+    else:
+        pos = _positions_in_expert(flat_expert, m.num_experts)
+
+    gate_flat = gate_vals.reshape(-1)
+    if m.adaptive:
+        flat_expert, pos, gate_flat = _rebalance(probs, m, cap, flat_expert,
+                                                 pos, gate_flat)
+    keep = pos < cap
+    return flat_expert, pos, gate_flat, keep, cap
+
+
+def _rebalance(probs, m, cap: int, flat_e, pos, gate):
+    """The ALB executor: deal the overflow slots (``pos >= cap``) in
+    order over the free capacity of all experts by exclusive prefix sum
+    + searchsorted (side right: where experts have no free slot, the
+    repeated ``start`` values resolve to the last of them).  Rerouted
+    slots take the router's probability of the expert they land on.
+    Identity when nothing overflows."""
+    e = m.num_experts
+    overflow = pos >= cap
+    kept1 = (~overflow).to(torch.int32)
+    load = torch.zeros((e,), dtype=torch.int32, device=pos.device) \
+        .index_add_(0, flat_e, kept1)
+    free = cap - load                                     # >= 0
+    start = torch.cumsum(free, 0, dtype=torch.int32) - free   # exclusive
+    total_free = free.sum(dtype=torch.int32)
+    ovf_rank = torch.cumsum(overflow.to(torch.int32), 0,
+                            dtype=torch.int32) - 1
+    j = torch.searchsorted(start, ovf_rank, right=True, out_int32=True) - 1
+    j = torch.clamp(j, 0, e - 1)
+    fits = overflow & (ovf_rank < total_free)
+    new_e = torch.where(fits, j, flat_e)
+    new_pos = torch.where(fits, load[j] + (ovf_rank - start[j]), pos)
+    tok = torch.arange(flat_e.shape[0], device=pos.device) // m.top_k
+    new_gate = torch.where(fits, probs[tok, j].to(gate.dtype), gate)
+    return new_e, new_pos, new_gate
+
+
+def router_probs(p, xf):
+    """Softmax of the router logits in float32: ``xf [T, d]`` (bf16)
+    -> ``[T, E]``."""
+    logits = (xf @ p.router).float()
+    return torch.softmax(logits, dim=-1)
+
+
+def moe_apply(p, x, cfg, *, use_pallas_dispatch: bool = False):
+    """x: [B, S, D] -> (out, aux_loss).
+
+    Grouped (GShard-style) dispatch when ``m.dispatch_groups > 1``:
+    positions, capacity and the ALB rebalance are computed per group of
+    ``T / G`` tokens (``_plan_static``).
+    """
+    m = cfg.moe
+    bsz, s, d = x.shape
+    t = bsz * s
+    g = m.dispatch_groups
+    if t % g:
+        raise ValueError(f"moe_apply: {t} tokens do not split into {g} "
+                         f"dispatch groups")
+    tg = t // g
+    e, k = m.num_experts, m.top_k
+    xf = x.reshape(t, d).to(COMPUTE_DTYPE)
+    probs = router_probs(p, xf)                           # [T, E]
+
+    # aux load-balancing loss (Switch-style); one-hot by comparison, as
+    # F.one_hot checks its range with a device-to-host sync
+    top1 = torch.argmax(probs, dim=-1)
+    experts = torch.arange(e, device=x.device)
+    me = probs.mean(dim=0)
+    ce = (top1[:, None] == experts[None, :]).float().mean(dim=0)
+    aux = m.router_aux_weight * e * torch.sum(me * ce)
+
+    if g > 1:
+        plans = [_plan_static(pg, m, tg, use_pallas_dispatch)
+                 for pg in probs.reshape(g, tg, e)]
+        flat_expert, pos, gate_flat, keep = (torch.stack(z) for z in
+                                             list(zip(*plans))[:4])
+        cap = _cap_of(m, tg)
+    else:
+        flat_expert, pos, gate_flat, keep, cap = dispatch_plan(
+            probs, m, t, use_pallas_dispatch=use_pallas_dispatch)
+        flat_expert, pos = flat_expert[None], pos[None]
+        gate_flat, keep = gate_flat[None], keep[None]
+
+    # ---- dispatch: [G, E, C, D] buffers ----------------------------------
+    # Kept slots have unique (expert, pos) in their group, so a plain
+    # (non-accumulating) store of each kept row gives the buffer that
+    # JAX's scatter-add builds; dropped slots (which add zeros there) go
+    # to one scratch row past the buffer, which is discarded.
+    xk = xf.reshape(g, tg, 1, d).expand(g, tg, k, d).reshape(g * tg * k, d)
+    grp = torch.arange(g, device=x.device)[:, None]
+    slot = (grp * e + flat_expert) * cap + pos
+    scratch = g * e * cap
+    slot = torch.where(keep, slot, scratch).reshape(-1)
+    buf = torch.zeros((scratch + 1, d), dtype=COMPUTE_DTYPE, device=x.device)
+    buf[slot] = xk
+    buf = buf[:scratch].view(g, e, cap, d)
+
+    # ---- expert FFNs: batched over experts -------------------------------
+    gate = F.silu(torch.matmul(buf, p.w_gate))
+    up = torch.matmul(buf, p.w_up)
+    eout = torch.matmul(gate * up, p.w_down)              # [G, E, C, D]
+
+    # ---- combine: gather expert outputs back to token slots ---------------
+    pos_c = torch.where(keep, pos, 0)
+    tok_out = eout.reshape(g * e * cap, d)[
+        ((grp * e + flat_expert) * cap + pos_c).reshape(-1)]
+    tok_out = torch.where(keep.reshape(-1, 1), tok_out, 0)
+    w = gate_flat.reshape(-1, 1).to(COMPUTE_DTYPE)
+    combined = (tok_out * w).reshape(t, k, d).sum(dim=1)
+
+    if p.shared is not None:
+        combined = combined + p.shared(xf)
+    return combined.reshape(bsz, s, d).to(x.dtype), aux
+
+
+def _cap_of(m, t):
+    return max(int(m.capacity_factor * t * m.top_k / m.num_experts), 4)
+
+
+def _plan_static(probs, m, t, use_pallas_dispatch: bool = False):
+    return dispatch_plan(probs, m, t, use_pallas_dispatch=use_pallas_dispatch)

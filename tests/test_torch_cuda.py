@@ -1,5 +1,6 @@
 """The CUDA kernels of ``repro_torch`` against their plain versions on
-the card (exact: masks equal, masked positions equal).  Marked ``gpu``:
+the card (the index kernels exactly: masks equal, masked positions
+equal; attention at the tolerances of tests/test_kernels_lm.py).  Marked ``gpu``:
 they skip without a CUDA device.  No JAX import, so the file also runs
 on a machine that has only PyTorch:
 
@@ -10,7 +11,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import edge_lb as tlb
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import merge_path as tmp
+from repro_torch.kernels import moe_dispatch as tmd
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import twc_gather as ttwc
 
@@ -77,3 +80,36 @@ def test_cuda_merge_path_matches_plain(cuda_device, tile_edges):
                                         tile_edges=tile_edges)
             for a, b in zip(k, p):
                 assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 24, 1024, 1025, 24_576, 100_003])
+@pytest.mark.parametrize("e", [1, 8, 64, 256])
+def test_cuda_positions_in_expert_matches_plain(cuda_device, n, e):
+    """Exact, on uniform, one-expert and out-of-range id streams."""
+    rng = np.random.default_rng(n + e)
+    streams = [rng.integers(0, e, n), np.full(n, e - 1),
+               rng.integers(-2, e + 3, n)]
+    for ids in streams:
+        t = torch.from_numpy(ids.astype(np.int32)).to(cuda_device)
+        got = tmd.positions_in_expert(t, e)
+        want = tref.positions_in_expert_ref(t, e)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 100, 128, 300])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_matches_plain(cuda_device, s, h, hkv, hd,
+                                            dtype, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(s * hd + h)
+    q, k, v = (torch.randn((2, s, n, hd), generator=gen, device=cuda_device)
+               .to(dtype) for n in (h, hkv, hkv))
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    want = tref.flash_attention_ref(q, k, v, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -150,6 +150,11 @@ def _port_files():
 def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
     assert len(files) > 10
+    port = REPO / "src" / "repro_torch"
+    for rel in ("configs/base.py", "models/layers.py", "models/moe.py",
+                "models/transformer.py", "models/convert.py",
+                "kernels/moe_dispatch.py", "kernels/flash_attention.py"):
+        assert port / rel in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

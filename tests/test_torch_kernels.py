@@ -130,7 +130,9 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
     for a, b in zip(out, tref.merge_path_map_ref(s, s, 190, 2048)):
         assert torch.equal(a, b)
     assert tk.launch_counts() == {"twc_bin_map": 0, "edge_lb_map": 0,
-                                  "merge_path_map": 0}
+                                  "merge_path_map": 0,
+                                  "positions_in_expert": 0,
+                                  "flash_attention": 0}
 
 
 def test_wrappers_validate_inputs():
@@ -158,7 +160,8 @@ def test_wrappers_validate_inputs():
 
 def test_kernel_sources_present():
     from repro_torch.kernels import build
-    assert build.sources() == ["edge_lb", "merge_path", "twc_gather"]
+    assert build.sources() == ["edge_lb", "flash_attention", "merge_path",
+                               "moe_dispatch", "twc_gather"]
 
 
 # ---- merge_path_map ---------------------------------------------------------
