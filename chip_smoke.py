@@ -11,7 +11,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    build of every kernel source in the checkout, all in parallel;
 2. each CUDA kernel against its plain PyTorch version on the card over
    swept shapes: the index kernels exactly (tolerance 0: int32 and
-   bit-copied outputs), ``flash_attention`` within ``FLASH_TOL``;
+   bit-copied outputs), ``flash_attention`` within ``FLASH_TOL`` on both
+   routes (wgmma: bf16 at head width 64 and 128, ragged S included;
+   simt: float32 and other widths), each case counted on its route;
 3. the main path at full size: ALB ``sssp``, ``bfs`` and ``sssp_batch``
    (B = 8) on ``rmat(22, 16, seed=0)`` through the kernel pair, with
    launch counts reset just before and read just after; labels held
@@ -37,7 +39,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    weights from a seeded generator on the card, 4 requests of 1024
    prompt tokens and 32 greedy tokens, launch counts reset just before
    and read just after (``positions_in_expert`` 28 x 32,
-   ``flash_attention`` 28); every dispatch plan bitwise equal through
+   ``flash_attention`` 28, all on its wgmma route); every dispatch plan
+   bitwise equal through
    the kernel and one-hot routes; prefill logits and first tokens held
    against plain attention + one-hot dispatch; a skewed request set
    (one repeated token) whose layer-0 routing the ALB rebalance must
@@ -219,7 +222,10 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 def lm_kernels_vs_plain(dev) -> dict:
     """``positions_in_expert`` exactly over N x E x (uniform, one-expert,
     out-of-range ids); ``flash_attention`` over S x (H, Hkv) x hd x
-    causal x dtype within ``FLASH_TOL``.  Returns the max errors."""
+    causal x dtype, and bf16 hd = 128 at S = 127, 129 and 1000 (the
+    wgmma route's ragged tiles), within ``FLASH_TOL``, each launch
+    counted on the route ``flash_attention.route`` gives it.  Returns
+    the max errors."""
     import torch
     from repro_torch.kernels import flash_attention, moe_dispatch, ref
     rng = np.random.default_rng(1)
@@ -239,34 +245,38 @@ def lm_kernels_vs_plain(dev) -> dict:
     torch.cuda.synchronize()
     check(pie_err == 0, f"positions_in_expert != plain: {pie_err}")
     fa_err = {"bfloat16": 0.0, "float32": 0.0}
-    fa_cases = 0
+    fa_cases = {"wgmma": 0, "simt": 0}
+    by_route = flash_attention.flash_attention.launches_by_route
+    counted = dict(by_route)
     gen = torch.Generator(device=dev).manual_seed(2)
-    for s in (1, 100, 128, 1024, 2048):
+    sweep = [(s, hd, dtype) for s in (1, 100, 128, 1024, 2048)
+             for hd in (16, 64, 128) for dtype in ("bfloat16", "float32")]
+    sweep += [(s, 128, "bfloat16") for s in (127, 129, 1000)]
+    for s, hd, dtype in sweep:
         b = 1 if s > 1024 else 2
         for h, hkv in ((16, 16), (4, 2), (8, 1)):
-            for hd in (16, 64, 128):
-                for dtype in ("bfloat16", "float32"):
-                    q, k, v = (torch.randn((b, s, n, hd), generator=gen,
-                                           device=dev)
-                               .to(getattr(torch, dtype))
-                               for n in (h, hkv, hkv))
-                    for causal in (True, False):
-                        got = flash_attention.flash_attention(
-                            q, k, v, causal=causal)
-                        want = ref.flash_attention_ref(q, k, v,
-                                                       causal=causal)
-                        check(got.dtype == q.dtype and got.shape == q.shape,
-                              "flash_attention: dtype/shape")
-                        err = float((got.float() - want.float()).abs().max())
-                        fa_err[dtype] = max(fa_err[dtype], err)
-                        fa_cases += 1
+            q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=dev)
+                       .to(getattr(torch, dtype)) for n in (h, hkv, hkv))
+            for causal in (True, False):
+                got = flash_attention.flash_attention(q, k, v, causal=causal)
+                want = ref.flash_attention_ref(q, k, v, causal=causal)
+                check(got.dtype == q.dtype and got.shape == q.shape,
+                      "flash_attention: dtype/shape")
+                err = float((got.float() - want.float()).abs().max())
+                fa_err[dtype] = max(fa_err[dtype], err)
+                fa_cases[flash_attention.route(q.dtype, hd)] += 1
     torch.cuda.synchronize()
     for dtype, tol in FLASH_TOL.items():
         check(fa_err[dtype] <= tol, f"flash_attention {dtype} != plain: "
               f"max error {fa_err[dtype]} > {tol}")
+    launched = {r: by_route[r] - counted[r] for r in by_route}
+    check(launched == fa_cases and fa_cases["wgmma"] > 0,
+          f"flash_attention: launches by route {launched}, expected "
+          f"{fa_cases}")
     print(f"phase 2: positions_in_expert == plain on {pie_cases} cases "
           f"(tolerance 0): max error {pie_err}; flash_attention within "
-          f"{FLASH_TOL} of plain on {fa_cases} cases: max error {fa_err}",
+          f"{FLASH_TOL} of plain on {sum(fa_cases.values())} cases "
+          f"(launches by route {launched}): max error {fa_err}",
           flush=True)
     return {"positions_in_expert": pie_err, "flash_attention": fa_err}
 
@@ -1061,13 +1071,18 @@ def lm_path(dev, smoke: bool = False) -> dict:
         remove()
         remove_attn()
     launches = kernels.launch_counts()
+    flash_routes = dict(kernels.KERNELS["flash_attention"].launches_by_route)
     want = {"positions_in_expert": cfg.num_layers * LM_GEN,
             "flash_attention": cfg.num_layers}
     print(f"phase 5: kernel launches serving {LM_BATCH} x ({LM_PROMPT} + "
-          f"{LM_GEN}) tokens: {launches} (expected {want})", flush=True)
+          f"{LM_GEN}) tokens: {launches} (expected {want}); "
+          f"flash_attention by route {flash_routes}", flush=True)
     for name, n in want.items():
         check(launches[name] == n, f"{name}: {launches[name]} launches on "
               f"the serving path, expected {n}")
+    check(flash_routes["wgmma"] == cfg.num_layers,
+          f"flash_attention: {flash_routes} on the serving path, expected "
+          f"all {cfg.num_layers} on the wgmma route")
     check(kern["index"] == LM_PROMPT + LM_GEN - 1, "cache index")
     logits = kern["first_logits"]
     check(logits.shape == (LM_BATCH, 1, cfg.padded_vocab) and
@@ -1145,6 +1160,7 @@ def lm_path(dev, smoke: bool = False) -> dict:
     return {"arch": cfg.name, "layers": cfg.num_layers,
             "params": n_params, "weight_bytes": weight_bytes,
             "init_s": init_s, "launches": launches,
+            "flash_launches_by_route": flash_routes,
             "plans_compared": n_plans, "attn_sublayer_err": attn_err,
             "depth_sweep": depth, "tokens_agree_28_layers": agree,
             "first_tokens": kern["tokens"][:, 0].tolist(),
@@ -1221,7 +1237,7 @@ def time_lm_kernels(lm: dict) -> list:
               "src/repro/kernels/moe_dispatch.py:45"),
              ("flash_attention", flash_attention.flash_attention,
               ref.flash_attention_ref, sdpa, fa_work,
-              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
               "src/repro/kernels/flash_attention.py:68")]
     rows = []
     for name, fn, plain, lib, work, source, replaces in table:
@@ -1251,6 +1267,10 @@ def time_lm_kernels(lm: dict) -> list:
             per_phase[ph] = {"ms": ms, "plain_ms": pms, "library_ms": lms,
                              "bytes": b, "ops": o, "launches": w,
                              "shape": list(cs[0][0][0].shape)}
+            if name == "flash_attention":     # which of its two kernels
+                q = cs[0][0][0]
+                per_phase[ph]["kernel_route"] = flash_attention.route(
+                    q.dtype, q.shape[-1])
             n_launch += w
             for key, val in (("ms", ms), ("plain_ms", pms),
                              ("library_ms", lms or 0.0), ("bytes", b),
@@ -1296,7 +1316,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in sorted(build.BUILD_LOG.items()):
         info = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln or
+                "Performance" in ln]
         print(f"phase 1: {name}: {' | '.join(info)}", flush=True)
 
     errs = kernel_vs_plain(dev)
@@ -1333,8 +1354,11 @@ def main() -> int:
     lm = lm_path(dev)
     lm_rows = time_lm_kernels(lm)
     for r in lm_rows:
-        print(f"phase 4: {r['name']}: {r['ms']:.4f} ms per launch over the "
-              f"serving mix (plain {r['plain_ms']:.4f} ms, library "
+        routes = sorted({p.get("kernel_route", "cuda")
+                         for p in r["by_phase"].values()})
+        print(f"phase 4: {r['name']} ({'/'.join(routes)}): {r['ms']:.4f} ms "
+              f"per launch over the serving mix (plain {r['plain_ms']:.4f} "
+              f"ms, library "
               f"{r['library_ms']} ms, bound {r['bound_ms']:.5f} ms by "
               f"{r['bound_by']}); max error against plain on main-path "
               f"inputs {r['max_abs_err']}; {r['launches']} launches; by "

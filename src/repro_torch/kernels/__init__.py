@@ -5,15 +5,19 @@
 * ``merge_path.merge_path_map`` — ``csrc/merge_path.cu`` (CUDA C++);
 * ``moe_dispatch.positions_in_expert`` — ``csrc/moe_dispatch.cu``
   (CUDA C++), the MoE dispatch plan's arrival ranks;
-* ``flash_attention.flash_attention`` — ``csrc/flash_attention.cu``
-  (CUDA C++), the prefill attention of the LM serving path;
+* ``flash_attention.flash_attention`` — the prefill attention of the LM
+  serving path, two CUDA C++ kernels chosen by ``flash_attention.route``:
+  ``csrc/flash_attention_wgmma.cu`` (bf16, head width 64 or 128: TMA
+  and ``wgmma``) and ``csrc/flash_attention.cu`` (float32 and other
+  head widths: CUDA cores);
 * ``ref``                       — plain PyTorch versions of all five;
 * ``ops``                       — the torch gather/scatter epilogues that
   make them executors of ``core.balancer``;
 * ``build``                     — ``nvcc`` + ``ctypes``, on first use.
 
 Each wrapper keeps a plain-integer launch counter (``fn.launches``),
-incremented only where it launches its kernel.
+incremented only where it launches its kernel; ``flash_attention`` also
+counts each route (``fn.launches_by_route``).
 """
 from __future__ import annotations
 
@@ -37,3 +41,5 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        for r in getattr(fn, "launches_by_route", ()):
+            fn.launches_by_route[r] = 0

@@ -3,10 +3,13 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library with a plain C interface, and loaded with ``ctypes``.
 The libraries go to ``<repo>/build/repro_torch/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so a
-changed source is rebuilt and an unchanged one is reused.  Nothing is
-built when this module is imported: :func:`load_all` builds on first
-use, one ``nvcc`` process per source, all started together, and
+``.gitignore``), named by a hash of the source, every ``csrc/*.cuh``
+header and the flags, so a changed source or header is rebuilt and an
+unchanged one is reused.  Every source builds with ``NVCC_FLAGS`` alone:
+none needs an include path or a library of its own (the wgmma kernel
+reaches the CUDA driver's tensor-map encoder through the runtime).
+Nothing is built when this module is imported: :func:`load_all` builds
+on first use, one ``nvcc`` process per source, all started together, and
 :func:`load` is its one-source case.  :func:`check_vec` holds the input
 checks every wrapper makes before it hands raw pointers to a kernel.
 """
@@ -46,9 +49,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{h}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # any source may include one
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

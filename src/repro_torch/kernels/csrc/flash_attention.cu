@@ -1,5 +1,8 @@
 // flash_attention: causal or non-causal attention forward with an
-// online softmax, grouped-query heads, for Hopper (sm_90a).
+// online softmax, grouped-query heads, for Hopper (sm_90a), on the CUDA
+// cores: the "simt" route of kernels/flash_attention.py, which takes
+// float32 and the head widths other than 64 and 128 (bf16 at 64 and 128
+// takes flash_attention_wgmma.cu).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:68
 // (flash_attention; kernel body _flash_kernel at :28).  For q [B,S,H,hd]
@@ -28,13 +31,14 @@
 // the block's last query row are not visited; the heaviest query
 // blocks are scheduled first.  Output = acc / max(sum, 1e-30).
 //
-// What bounds it on this card: operations.  Causal attention does
-// about 2*B*H*S^2*hd FLOPs (q.k and p.v over the lower triangle); at
-// the prefill shapes (B=4, S=1024, H=16, hd=128) that is 17.2 GFLOP
-// against 8*B*S*H*hd = 33.6 MB of bytes.  The tensor cores' bf16 rate
-// (989 TFLOP/s) sets the bound; this first kernel runs its products on
-// the CUDA cores in float32, so it sits far from that bound -- wgmma
-// and TMA are later work.  Padding keeps every shared-memory access of
+// What bounds it on this card: bytes, closely followed by operations.
+// Causal attention does about 2*B*H*S^2*hd FLOPs (q.k and p.v over the
+// lower triangle) and must read q, k, v and write out once,
+// 4*B*S*H*hd elements; at B=4, S=1024, H=16, hd=128 in bf16 that is
+// 17.2 GFLOP (0.0174 ms at 989 TFLOP/s) against 67.1 MB (0.0200 ms at
+// 3.35 TB/s).  This kernel runs its products on the CUDA cores in
+// float32 (a TF32 product would not hold float32's tolerance), so it
+// sits far from that bound.  Padding keeps every shared-memory access of
 // the inner loops free of bank conflicts (row strides HD+1 floats,
 // HD+2 halves, 80 floats for the probability tile).  The kernel
 // allocates nothing and launches on the caller's stream.

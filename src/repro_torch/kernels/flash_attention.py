@@ -1,17 +1,26 @@
 """``flash_attention``: attention forward with an online softmax — the
 prefill path of the port's GQA attention.
 
-Port of ``repro/kernels/flash_attention.py`` (Pallas, TPU) to the CUDA
-C++ kernel ``csrc/flash_attention.cu``: one block per (batch*head,
-64-query block), K/V tiles streamed through shared memory, query head
-``i`` reading KV head ``i // (H // Hkv)`` without a materialized repeat,
-float32 (max, sum, acc) per row, causal key tiles above the diagonal
-skipped.  Unlike the TPU kernel it takes any S (no ``S % block == 0``)
-and any head width up to 128.
+Port of ``repro/kernels/flash_attention.py`` (Pallas, TPU) to two CUDA
+C++ kernels, chosen by :func:`route` from (dtype, head width):
+
+* ``"wgmma"`` — ``csrc/flash_attention_wgmma.cu``, bf16 with head width
+  64 or 128 (the LM serving path): a persistent grid over 128-query
+  blocks, TMA loads into an mbarrier ring, both products ``wgmma`` on
+  the tensor cores, two consumer warpgroups taking turns;
+* ``"simt"`` — ``csrc/flash_attention.cu``, float32 and every other
+  head width up to 128: the products on the CUDA cores in float32 (a
+  TF32 product would not hold float32's tolerance).
+
+Both: query head ``i`` reads KV head ``i // (H // Hkv)`` without a
+materialized repeat, float32 (max, sum, acc) per row, causal key tiles
+above the diagonal skipped.  Unlike the TPU kernel they take any S (no
+``S % block == 0``).
 
 For CPU tensors the wrapper computes the plain version
 (``ref.flash_attention_ref``); for CUDA tensors it launches the kernel
-or raises.
+of its route or raises.  ``flash_attention.launches`` counts launches of
+both routes, ``flash_attention.launches_by_route`` each one.
 """
 from __future__ import annotations
 
@@ -26,15 +35,34 @@ from .ref import flash_attention_ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: widest head the kernel takes
+#: widest head the kernels take
 MAX_HEAD_DIM = 128
+#: head widths of the wgmma route (its TMA boxes are 64 lanes wide)
+WGMMA_HEAD_DIMS = (64, 128)
+#: TMA reads and writes from 16-byte aligned addresses only
+TMA_ALIGN = 16
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel that computes ``flash_attention`` for this dtype and
+    head width: ``"wgmma"`` (bf16, hd 64 or 128) or ``"simt"``."""
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
 
 
 @functools.cache
-def _lib():
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_launch
+def _simt():
+    fn = build.load("flash_attention").flash_attention_launch
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def _wgmma():
+    fn = build.load("flash_attention_wgmma").flash_attention_wgmma_launch
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
     return fn
 
@@ -64,6 +92,17 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k, v must be contiguous")
 
 
+def check_tma(**tensors) -> None:
+    """Raise unless every tensor's first element is 16-byte aligned, as
+    the wgmma route's TMA loads need (a contiguous view at an odd
+    storage offset is not)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"flash_attention: {name} starts at "
+                             f"{t.data_ptr():#x}, not {TMA_ALIGN}-byte "
+                             f"aligned; the wgmma route reads it by TMA")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: ``[B, S, H, hd]``; k/v: ``[B, S, Hkv, hd]`` (H % Hkv == 0).
@@ -79,14 +118,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, s, h, k.shape[2], hd, int(causal), _DTYPES[q.dtype],
-                 torch.cuda.current_stream(dev).cuda_stream)
+    which = route(q.dtype, hd)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+            h, k.shape[2], hd, int(causal))
+    if which == "wgmma":
+        check_tma(q=q, k=k, v=v)
+        err = _wgmma()(*args, stream)
+    else:
+        err = _simt()(*args, _DTYPES[q.dtype], stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention ({which}): TMA tensor map "
+                           f"encoding failed with CUresult {-err}")
     if err != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed with "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention ({which}): kernel launch "
+                           f"failed with CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[which] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}

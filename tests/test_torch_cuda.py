@@ -1,6 +1,7 @@
 """The CUDA kernels of ``repro_torch`` against their plain versions on
 the card (the index kernels exactly: masks equal, masked positions
-equal; attention at the tolerances of tests/test_kernels_lm.py).  Marked ``gpu``:
+equal; attention, both routes, at the tolerances of
+tests/test_kernels_lm.py).  Marked ``gpu``:
 they skip without a CUDA device.  No JAX import, so the file also runs
 on a machine that has only PyTorch:
 
@@ -98,17 +99,27 @@ def test_cuda_positions_in_expert_matches_plain(cuda_device, n, e):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [1, 100, 128, 300])
-@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("s", [1, 100, 127, 128, 129, 300, 1024])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (8, 1), (16, 16)])
 @pytest.mark.parametrize("hd", [16, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_attention_matches_plain(cuda_device, s, h, hkv, hd,
                                             dtype, causal):
+    """Both routes: bf16 at hd 64 and 128 through the wgmma kernel (S
+    127, 129 and 1024 reach its ragged 128-row tiles), the rest through
+    the CUDA-core kernel; the launch is counted on its route."""
     gen = torch.Generator(device=cuda_device).manual_seed(s * hd + h)
     q, k, v = (torch.randn((2, s, n, hd), generator=gen, device=cuda_device)
                .to(dtype) for n in (h, hkv, hkv))
+    which = tfa.route(dtype, hd)
+    before = dict(tfa.flash_attention.launches_by_route)
     got = tfa.flash_attention(q, k, v, causal=causal)
+    after = tfa.flash_attention.launches_by_route
+    assert after[which] == before[which] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    assert which == ("wgmma" if dtype == torch.bfloat16 and hd >= 64
+                     else "simt")
     want = tref.flash_attention_ref(q, k, v, causal=causal)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     assert got.dtype == dtype and got.shape == q.shape

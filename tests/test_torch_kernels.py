@@ -160,8 +160,32 @@ def test_wrappers_validate_inputs():
 
 def test_kernel_sources_present():
     from repro_torch.kernels import build
-    assert build.sources() == ["edge_lb", "flash_attention", "merge_path",
+    assert build.sources() == ["edge_lb", "flash_attention",
+                               "flash_attention_wgmma", "merge_path",
                                "moe_dispatch", "twc_gather"]
+
+
+def test_build_cache_key_covers_headers(tmp_path, monkeypatch):
+    """A library is named by its source, every csrc/*.cuh header and the
+    flags: a changed or added header gives a new path (rebuilt, not
+    loaded stale); another source's change does not."""
+    from repro_torch.kernels import build
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "b.cu").write_text("// b\n")
+    (tmp_path / "h.cuh").write_text("#define X 1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build._lib_path("a")
+    assert first == build._lib_path("a")
+    assert first.name.startswith("a-") and first.suffix == ".so"
+    (tmp_path / "b.cu").write_text("// b, changed\n")
+    assert build._lib_path("a") == first
+    (tmp_path / "h.cuh").write_text("#define X 2\n")
+    second = build._lib_path("a")
+    assert second != first
+    (tmp_path / "g.cuh").write_text("// new header\n")
+    assert build._lib_path("a") not in (first, second)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-g",))
+    assert build._lib_path("a") not in (first, second)
 
 
 # ---- merge_path_map ---------------------------------------------------------

@@ -144,12 +144,44 @@ def test_flash_attention_validation():
         tfa.flash_attention(t, t, t)
 
 
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 96, "simt"),
+    (torch.bfloat16, 32, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 64, "simt")])
+def test_flash_attention_route(dtype, hd, want):
+    """bf16 at head width 64 or 128 goes to the wgmma kernel; float32
+    (whose tolerance a TF32 product would break) and other widths to
+    the CUDA-core kernel."""
+    assert tfa.route(dtype, hd) == want
+
+
+def test_flash_attention_tma_alignment_check():
+    """The wgmma route refuses a tensor whose first element is not
+    16-byte aligned: a contiguous view at an odd storage offset."""
+    base = torch.zeros(8 * 64 + 8, dtype=torch.bfloat16)
+    aligned = base[:8 * 64].view(1, 2, 4, 64)
+    shifted = base[1:1 + 8 * 64].view(1, 2, 4, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    tfa.check_tma(q=aligned, k=aligned)
+    with pytest.raises(ValueError, match="k starts at .* not 16-byte"):
+        tfa.check_tma(q=aligned, k=shifted)
+    # on the CPU the plain version takes it as it is
+    got = tfa.flash_attention(shifted, shifted, shifted)
+    want = tref.flash_attention_ref(shifted.clone(), shifted.clone(),
+                                    shifted.clone())
+    assert torch.equal(got, want)
+
+
 def test_lm_kernels_count_no_launch_on_cpu():
     tk.reset_launch_counts()
     tmd.positions_in_expert(torch.zeros(5, dtype=torch.int32), 4)
     x = torch.zeros((1, 3, 2, 16))
     tfa.flash_attention(x, x, x)
+    tfa.flash_attention(*(torch.zeros((1, 3, 2, 128),
+                                      dtype=torch.bfloat16),) * 3)
     assert tk.launch_counts()["positions_in_expert"] == 0
     assert tk.launch_counts()["flash_attention"] == 0
+    assert tfa.flash_attention.launches_by_route == {"wgmma": 0, "simt": 0}
     assert tk.KERNELS["flash_attention"] is tfa.flash_attention
     assert tk.KERNELS["positions_in_expert"] is tmd.positions_in_expert
