@@ -11,11 +11,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    build of every kernel source in the checkout, all in parallel;
 2. each CUDA kernel against its plain PyTorch version on the card over
    swept shapes: the index kernels exactly (tolerance 0: int32 and
-   bit-copied outputs), ``flash_attention`` within ``FLASH_TOL`` on both
-   routes (wgmma: bf16 at head width 64 and 128, ragged S included;
-   simt: float32 and other widths), each case counted on its route;
+   bit-copied outputs); the fused relax kernels ``twc_bin_relax`` and
+   ``edge_lb_relax`` for every operator and pull twin, B in {1, 3, 8},
+   every bin width and chunk, both deals, exactly for min and int add
+   and within ``RELAX_FLOAT_RTOL`` for float add; ``flash_attention``
+   within ``FLASH_TOL`` on both routes (wgmma: bf16 at head width 64
+   and 128, ragged S included; simt: float32 and other widths), each
+   case counted on its route;
 3. the main path at full size: ALB ``sssp``, ``bfs`` and ``sssp_batch``
-   (B = 8) on ``rmat(22, 16, seed=0)`` through the kernel pair, with
+   (B = 8) on ``rmat(22, 16, seed=0)`` through the kernel pair (one
+   fused ``twc_bin_relax`` / ``edge_lb_relax`` launch per pass), with
    launch counts reset just before and read just after; labels held
    bitwise against the torch-ops pair and against a scipy oracle;
    ``host_transfers == rounds + 1``; syncing calls per round counted
@@ -29,9 +34,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    torch-ops pair and scipy / numpy oracles; ``host_transfers`` as the
    drivers count them; median wall times;
 4. each kernel and its plain version timed on the card at the shapes
-   the main path gave it (one ALB sssp, one merge-path sssp; one
-   prefill and one decode step of phase 5), beside the least time the
-   card could take and, for ``flash_attention``, PyTorch's
+   the main path gave it (one ALB sssp and two pagerank rounds for the
+   fused kernels, which are also timed beside the unfused route they
+   replaced, index-map kernel + torch epilogue, and the index-map
+   kernels at the same shapes; one merge-path sssp; one prefill and one
+   decode step of phase 5), beside the least time the card could take
+   and, for ``flash_attention``, PyTorch's
    ``scaled_dot_product_attention``; device profiles of ALB sssp,
    sssp_batch, adaptive cc and pagerank;
 5. the LM serving path, after the graph phases' tensors are freed:
@@ -72,8 +80,9 @@ ROOT = Path(__file__).resolve().parent
 # arithmetic (the float32 rate; the integer rate is not higher)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
-# the kernels of the graph phases (3, 3b); phase 5 runs the other two
-GRAPH_KERNELS = ("twc_bin_map", "edge_lb_map", "merge_path_map")
+# the kernels the graph phases (3, 3b) launch; phase 5 runs two more,
+# and the index maps twc_bin_map / edge_lb_map are on no main path
+GRAPH_KERNELS = ("twc_bin_relax", "edge_lb_relax", "merge_path_map")
 
 
 def card_line() -> str:
@@ -211,6 +220,134 @@ def kernel_vs_plain(dev) -> dict:
           f"kernel != plain: {errs}")
     print(f"phase 2: kernel == plain on {cases} cases "
           f"(tolerance 0, masks equal): {errs}", flush=True)
+    return errs
+
+
+# every operator of the fused relax kernels, and the pull twins
+RELAX_OPS = ("SSSP_RELAX", "BFS_HOP", "CC_MIN", "KCORE_DEC", "PR_PULL",
+             "SSSP_RELAX@pull", "BFS_HOP@pull", "CC_MIN@pull")
+# float32 add: the kernels sum a vertex's candidates in another order
+# than the plain version's index_add_ (bins: a fixed tree; huge bin:
+# atomics), as tests/test_torch_cuda.py holds them
+RELAX_FLOAT_RTOL = 1e-4
+
+
+def relax_op(name):
+    from repro_torch.core import operators
+    base, _, pull = name.partition("@")
+    op = getattr(operators, base)
+    return operators.as_pull(op) if pull else op
+
+
+def relax_err(got, want) -> float:
+    """Max |got - want| (int labels), or max |got - want| / |want|
+    (float labels; 0 where both are 0)."""
+    import torch
+    if got.dtype.is_floating_point:
+        tiny = torch.finfo(want.dtype).tiny
+        return float(((got - want).abs() / want.abs().clamp_min(tiny))
+                     .max())
+    return float((got.long() - want.long()).abs().max())
+
+
+def relax_vs_plain(dev) -> dict:
+    """``twc_bin_relax`` and ``edge_lb_relax`` against their plain
+    versions on a random CSR (V = 50,000, degrees up to 6,000): every
+    operator and pull twin, B in {1, 3, 8}; bins at W in {8, 128, 1024},
+    chunk 0..2 (host int and device int32), sentinel rows and an empty
+    bin; huge bins of one row (on and off a 2048-edge tile), several
+    rows with sentinel slots, 2,000 rows with zero-degree slots, and a
+    3,000-slot zero-degree run wider than the cyclic deal's stage, both
+    deals, bucketed and ragged spans, 64 and 7 tiles.  Returns the max
+    errors ``{name: {"int": abs, "float": rel}}``."""
+    import torch
+    from repro_torch.core.frontier import next_bucket
+    from repro_torch.kernels import ref, relax
+    rng = np.random.default_rng(5)
+    v = 50_000
+    deg = rng.integers(0, 40, v)
+    deg[:12] = [6000, 3000, 2048, 1500, 1025, 1024, 1023, 300, 129, 128, 9,
+                0]
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    e = int(row_ptr[-1])
+    col = torch.from_numpy(rng.integers(0, v, e).astype(np.int32)).to(dev)
+    w = torch.from_numpy(rng.integers(1, 101, e).astype(np.int32)).to(dev)
+
+    def t32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    vid = np.concatenate([np.arange(12), rng.integers(12, v, 500),
+                          np.full(100, v)])
+    rng.shuffle(vid)
+    safe = np.where(vid < v, vid, 0)
+    rows = [t32(vid), t32(np.where(vid < v, deg[safe], 0)),
+            t32(np.where(vid < v, row_ptr[safe], 0))]
+    huge = []
+    for hv in ([2], [1], list(range(7)), list(range(200, 2200)),
+               [1] + [11] * 3000 + [2]):
+        hv = np.array(hv)
+        pad = 0 if len(hv) == 1 else 5
+        hvidx, hdeg, hrow = (np.concatenate([a, np.full(pad, f)])
+                             for a, f in ((hv, v), (deg[hv], 0),
+                                          (row_ptr[hv], 0)))
+        start_e = np.cumsum(hdeg) - hdeg
+        huge.append(([t32(hvidx), t32(start_e), t32(hrow)],
+                     int(hdeg.sum())))
+    errs = {"twc_bin_relax": {"int": 0.0, "float": 0.0},
+            "edge_lb_relax": {"int": 0.0, "float": 0.0}}
+    counted = {k: getattr(relax, k).launches for k in errs}
+    cases = {k: 0 for k in errs}
+
+    def held(name, got, want):
+        kind = "float" if got.dtype.is_floating_point else "int"
+        errs[name][kind] = max(errs[name][kind], relax_err(got, want))
+        cases[name] += 1
+
+    for opname in RELAX_OPS:
+        op = relax_op(opname)
+        for b in (1, 3, 8):
+            fm = torch.from_numpy(rng.random((b, v)) < 0.6).to(dev)
+            if opname == "PR_PULL":
+                lab = torch.from_numpy(
+                    (rng.random((b, v)) * 1e-3).astype(np.float32)).to(dev)
+                val = torch.from_numpy(
+                    (rng.random((b, v)) * 1e-3).astype(np.float32)).to(dev)
+            else:
+                lab = rng.integers(0, 500, (b, v)).astype(np.int32)
+                lab[rng.random((b, v)) < 0.3] = 1 << 30
+                lab, val = t32(lab), t32(lab)
+            for width in (8, 128, 1024):
+                for chunk in (0, 1, 2):
+                    for ch in (chunk, t32([chunk])):
+                        for n in (len(vid), 0):
+                            r = [x[:n] for x in rows]
+                            held("twc_bin_relax", relax.twc_bin_relax(
+                                val, lab.clone(), fm, col, w, *r, op,
+                                width=width, chunk=ch),
+                                ref.twc_bin_relax_ref(
+                                val, lab.clone(), fm, col, w, *r, op,
+                                width=width, chunk=chunk))
+            for t, total in huge:
+                for n_enum in (next_bucket(total, 2048), total):
+                    for tiles in (64, 7):
+                        for dist in ("cyclic", "blocked"):
+                            kw = dict(distribution=dist, num_tiles=tiles)
+                            held("edge_lb_relax", relax.edge_lb_relax(
+                                val, lab.clone(), fm, col, w, *t, total,
+                                n_enum, op, **kw),
+                                ref.edge_lb_relax_ref(
+                                val, lab.clone(), fm, col, w, *t, total,
+                                n_enum, op, **kw))
+    torch.cuda.synchronize()
+    for name, err in errs.items():
+        check(err["int"] == 0 and err["float"] <= RELAX_FLOAT_RTOL,
+              f"{name} != plain: {err}")
+    launched = {k: getattr(relax, k).launches - counted[k] for k in errs}
+    check(launched["twc_bin_relax"] == cases["twc_bin_relax"] // 2 and
+          launched["edge_lb_relax"] == cases["edge_lb_relax"],
+          f"relax launches {launched} for cases {cases}")
+    print(f"phase 2: fused relax == plain on {cases} cases ({launched} "
+          f"launches; min and int add exact, float add within rtol "
+          f"{RELAX_FLOAT_RTOL}): {errs}", flush=True)
     return errs
 
 
@@ -361,7 +498,7 @@ def main_path(dev, scale: int) -> dict:
     launches = kernels.launch_counts()
     print(f"phase 3: kernel launches on the main path: {launches}",
           flush=True)
-    for name in ("twc_bin_map", "edge_lb_map"):
+    for name in ("twc_bin_relax", "edge_lb_relax"):
         check(launches[name] > 0, f"{name} was not launched on the main "
               f"path")
 
@@ -548,9 +685,9 @@ def pull_path(g, src, sources, res) -> dict:
     # (PR_PULL over the reverse CSR); adaptive cc's pull rounds served
     # both the bins and the huge bin
     for run in ("pagerank/kernel", "cc_adaptive/kernel"):
-        check(by_run[run]["twc_bin_map"] > 0 and
-              by_run[run]["edge_lb_map"] > 0,
-              f"{run}: twc_bin_map / edge_lb_map not launched")
+        check(by_run[run]["twc_bin_relax"] > 0 and
+              by_run[run]["edge_lb_relax"] > 0,
+              f"{run}: twc_bin_relax / edge_lb_relax not launched")
     pulls = [s for s in out["cc_adaptive", "kernel"].stats
              if s.direction == "pull"]
     check(any(s.edges_twc > 0 for s in pulls) and
@@ -641,33 +778,129 @@ def pull_path(g, src, sources, res) -> dict:
 # phase 4: timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def capture_launches(g, src, cfg) -> dict:
-    """The arguments of every kernel launch of one sssp traversal under
-    ``cfg``, recorded by swapping the kernel modules the epilogue calls
-    through for recorders that forward to the real wrappers."""
+RELAX_KERNELS = ("twc_bin_relax", "edge_lb_relax")
+
+
+def capture_launches(run) -> dict:
+    """The arguments of every kernel launch of ``run()``, recorded by
+    swapping the kernel modules the executor entries call through for
+    recorders that forward to the real wrappers.  A fused relax call's
+    labels are recorded as a copy of what the call found (the kernel
+    combines into them)."""
     import types
-    from repro_torch.core.apps import drivers
     from repro_torch.kernels import ops
-    calls = {"twc_bin_map": [], "edge_lb_map": [], "merge_path_map": []}
+    calls = {"twc_bin_relax": [], "edge_lb_relax": [], "merge_path_map": []}
 
     def recorder(name, fn):
         def rec(*a, **k):
-            calls[name].append((a, k))
+            kept = (a[0], a[1].clone()) + a[2:] if name in RELAX_KERNELS \
+                else a
+            calls[name].append((kept, k))
             return fn(*a, **k)
         return rec
 
-    real = ops._twc, ops._edge_lb, ops._merge_path
-    ops._twc = types.SimpleNamespace(
-        twc_bin_map=recorder("twc_bin_map", real[0].twc_bin_map))
-    ops._edge_lb = types.SimpleNamespace(
-        edge_lb_map=recorder("edge_lb_map", real[1].edge_lb_map))
+    real = ops._relax, ops._merge_path
+    ops._relax = types.SimpleNamespace(**{
+        n: recorder(n, getattr(real[0], n)) for n in RELAX_KERNELS})
     ops._merge_path = types.SimpleNamespace(
-        merge_path_map=recorder("merge_path_map", real[2].merge_path_map))
+        merge_path_map=recorder("merge_path_map", real[1].merge_path_map))
     try:
-        drivers.sssp(g, src, cfg)
+        run()
     finally:
-        ops._twc, ops._edge_lb, ops._merge_path = real
+        ops._relax, ops._merge_path = real
     return calls
+
+
+def twc_unfused(values, labels, fmask, col_idx, edge_w, vidx, deg,
+                row_start, op, *, width, chunk):
+    """The route ``twc_bin_relax`` replaced, as ``ops.twc_bin_apply`` ran
+    it before the fused kernels (a yardstick the port never calls): the
+    ``twc_bin_map`` kernel, then the torch gather/scatter epilogue into
+    fresh labels."""
+    from repro_torch.core.balancer import _apply
+    from repro_torch.kernels import twc_gather
+    import torch
+    v = labels.shape[-1]
+    vsafe = torch.where(vidx < v, vidx, 0)
+    val = values[:, vsafe]
+    ge, anchor, _, mask = twc_gather.twc_bin_map(
+        vidx, deg, row_start, val[0], width=width, chunk=chunk, sentinel=v)
+    dst = col_idx[ge]
+    w = edge_w[ge]
+    if op.direction == "push":
+        live = fmask[:, vsafe][:, :, None]
+        cand = op.msg(val[:, :, None], w[None])
+        return _apply(labels, dst, cand, mask, live, op.combine)
+    live = fmask[:, dst]
+    cand = op.msg(values[:, dst], w[None])
+    return _apply(labels, anchor, cand, mask, live, op.combine)
+
+
+def lb_unfused(values, labels, fmask, col_idx, edge_w, hvidx, start_e,
+               row_start, total, n_enum, op, **kw):
+    """The route ``edge_lb_relax`` replaced, as ``ops.edge_lb_apply`` ran
+    it before the fused kernels (a yardstick the port never calls): the
+    batch-0 ``hval`` gather, the ``edge_lb_map`` kernel, then the torch
+    epilogue into fresh labels."""
+    import torch
+    from repro_torch.kernels import edge_lb, ref
+    v = labels.shape[-1]
+    hval = values[0, torch.where(hvidx < v, hvidx, 0)]
+    ge, j, _, mask = edge_lb.edge_lb_map(start_e, row_start, hval, total,
+                                         n_enum, **kw)
+    src = hvidx[j.clamp(0, hvidx.shape[0] - 1)]
+    return ref.slot_epilogue(col_idx, edge_w, values, labels, fmask, src,
+                             ge, mask, op)
+
+
+def map_args(name, a, k) -> tuple:
+    """The index-map kernel's call at a fused call's shapes."""
+    if name == "twc_bin_relax":
+        vidx, deg, row_start = a[5:8]
+        return ((vidx, deg, row_start, vidx),
+                {"width": k["width"], "chunk": k["chunk"],
+                 "sentinel": a[1].shape[-1]})
+    start_e, row_start, total, n_enum = a[6:10]
+    return (start_e, row_start, start_e, total, n_enum), dict(k)
+
+
+def relax_work(name, a, k) -> tuple:
+    """(bytes, operations) one fused pass must do on these inputs, each
+    byte once: the int32 row (bin) or slot (huge bin) inputs; col_idx of
+    the live edges, and edge_w for v + w; one fmask byte per query at
+    each distinct gather vertex; the values read and the labels read and
+    written at each distinct (query, vertex) of a live candidate, so at
+    most the whole [B, V] arrays.  Operations: ~8 integer operations per
+    live (edge, query), plus 4 per step of each huge-bin id's slot
+    search."""
+    import torch
+    from repro_torch.core.operators import msg_kind
+    from repro_torch.kernels import ref
+    values, labels, fmask, col_idx = a[:4]
+    b, v = labels.shape
+    if name == "twc_bin_relax":
+        op = a[8]
+        ge, src, _, mask = ref.twc_bin_map_ref(*map_args(name, a, k)[0],
+                                               width=k["width"],
+                                               chunk=k["chunk"],
+                                               sentinel=v)
+        fixed, search = 12 * a[5].shape[0], 0
+    else:
+        op, hvidx = a[10], a[5]
+        ge, j, _, mask = ref.edge_lb_map_ref(*map_args(name, a, k)[0], **k)
+        src = hvidx[j]
+        fixed = 12 * hvidx.shape[0]
+        search = int(mask.sum()) * 4 * hvidx.shape[0].bit_length()
+    ge, src = ge[mask].long(), src[mask].long()
+    dst = col_idx[ge].long()
+    gather, scatter = (src, dst) if op.direction == "push" else (dst, src)
+    q = torch.arange(b, device=ge.device)[:, None] * v
+    live = fmask[:, gather]                                  # [B, n_e]
+    nbytes = (fixed + 4 * ge.numel() * (2 if msg_kind(op) == 0 else 1)
+              + b * torch.unique(gather).numel()
+              + 4 * torch.unique((q + gather)[live]).numel()
+              + 8 * torch.unique((q + scatter)[live]).numel())
+    return nbytes, 8 * int(live.sum()) + search
 
 
 def device_ms(fn, calls, reps: int = 3) -> float:
@@ -733,45 +966,144 @@ def mp_work(a, k):
     return 8 * h + 9 * n_tiles * tile, ops
 
 
+def device_ms_fresh(fn, calls, reps: int = 3) -> float:
+    """Mean device time per call of ``fn``, which combines into the
+    labels it is given (its second argument): every launch starts from a
+    fresh copy of the recorded labels, made on the stream before its
+    start event.  CUDA events around each launch; the stream is held
+    busy while the host enqueues, so host overhead is not counted."""
+    import torch
+    work = [a[1].clone() for a, _ in calls]
+    for (a, k), lab in zip(calls, work):          # warm-up
+        fn(a[0], lab, *a[2:], **k)
+    pairs = []
+    for (a, k), lab in zip(calls, work):
+        torch.cuda._sleep(2_000_000)
+        for _ in range(reps):
+            lab.copy_(a[1])
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn(a[0], lab, *a[2:], **k)
+            e.record()
+            pairs.append((s, e))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / len(pairs)
+
+
+def bound(work, calls) -> tuple:
+    """(bound ms, "bytes" | "operations", mean bytes) of the mean call."""
+    b = sum(work(a, k)[0] for a, k in calls) / len(calls)
+    o = sum(work(a, k)[1] for a, k in calls) / len(calls)
+    t_b, t_o = b / HBM_BYTES_PER_S * 1e3, o / SCALAR_OPS_PER_S * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", b
+
+
+def time_relax(name, cs, probe: bool) -> dict:
+    """One fused kernel over the recorded calls ``cs``: held against its
+    plain version (exact for int labels, ``RELAX_FLOAT_RTOL`` for
+    float), then timed beside its plain version, the unfused route it
+    replaced and its bound; with ``probe``, also with ``PROBE_MIN``
+    off."""
+    from repro_torch.kernels import ref, relax
+    fn = getattr(relax, name)
+    plain = {"twc_bin_relax": ref.twc_bin_relax_ref,
+             "edge_lb_relax": ref.edge_lb_relax_ref}[name]
+    unfused = {"twc_bin_relax": twc_unfused,
+               "edge_lb_relax": lb_unfused}[name]
+    abs_err, rel_err = 0.0, 0.0
+    for a, k in cs:
+        got = fn(a[0], a[1].clone(), *a[2:], **k)
+        want = plain(a[0], a[1].clone(), *a[2:], **k)
+        abs_err = max(abs_err, float((got.double() - want.double())
+                                     .abs().max()))
+        if got.dtype.is_floating_point:
+            rel_err = max(rel_err, relax_err(got, want))
+    check((abs_err == 0 or cs[0][0][1].dtype.is_floating_point) and
+          rel_err <= RELAX_FLOAT_RTOL,
+          f"{name} != plain on main-path inputs: {abs_err}, {rel_err}")
+    bms, by, nbytes = bound(lambda a, k: relax_work(name, a, k), cs)
+    out = {"ms": device_ms_fresh(fn, cs),
+           "plain_ms": device_ms_fresh(plain, cs),
+           "unfused_ms": device_ms_fresh(unfused, cs),
+           "bound_ms": bms, "bound_by": by, "max_abs_err": abs_err,
+           "max_rel_err": rel_err, "timed_launches": len(cs),
+           "mean_bytes": nbytes}
+    if probe:
+        relax.PROBE_MIN = False
+        try:
+            out["probe_off_ms"] = device_ms_fresh(fn, cs)
+        finally:
+            relax.PROBE_MIN = True
+    return out
+
+
 def time_kernels(g, src, errs: dict, launches: dict) -> list:
+    """Phase 4's rows of the graph kernels.  The fused kernels at the
+    shapes of one ALB sssp (their row) and of two pagerank rounds
+    (``by_run``); the index-map kernels at the same sssp's shapes (no
+    main path launches them); ``merge_path_map`` at one merge-path
+    sssp's."""
+    from repro_torch.core.apps import drivers
     from repro_torch.core.balancer import BalancerConfig
     from repro_torch.kernels import edge_lb, merge_path, ref, twc_gather
-    calls = capture_launches(g, src, BalancerConfig(strategy="alb",
-                                                    use_pallas=True))
-    calls["merge_path_map"] = capture_launches(
-        g, src, BalancerConfig(strategy="alb",
-                               backend="merge_path"))["merge_path_map"]
+    kern = BalancerConfig(strategy="alb", use_pallas=True)
+    calls = {"sssp": capture_launches(lambda: drivers.sssp(g, src, kern)),
+             "pagerank": capture_launches(lambda: drivers.pagerank(
+                 g, cfg=kern, max_rounds=2, tol=0.0))}
+    mp_calls = capture_launches(lambda: drivers.sssp(
+        g, src, BalancerConfig(strategy="alb", backend="merge_path")))
+    rows = []
+    for name, source, replaces in (
+            ("twc_bin_relax", "src/repro_torch/kernels/csrc/twc_relax.cu",
+             "src/repro/kernels/twc_gather.py:54"),
+            ("edge_lb_relax",
+             "src/repro_torch/kernels/csrc/edge_lb_relax.cu",
+             "src/repro/kernels/edge_lb.py:105")):
+        by_run = {}
+        for run, cs in calls.items():
+            check(len(cs[name]) > 0, f"{name}: no launch captured ({run})")
+            by_run[run] = time_relax(name, cs[name], probe=run == "sssp")
+        top = by_run["sssp"]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in by_run.values()),
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by")},
+            "library_ms": None, "unfused_ms": top["unfused_ms"],
+            "timed_launches": top["timed_launches"],
+            "mean_bytes": top["mean_bytes"], "by_run": by_run})
     table = [("twc_bin_map", twc_gather.twc_bin_map, ref.twc_bin_map_ref,
               twc_work, "src/repro_torch/kernels/csrc/twc_gather.cu",
-              "src/repro/kernels/twc_gather.py:54"),
+              "src/repro/kernels/twc_gather.py:54",
+              [map_args("twc_bin_relax", a, k)
+               for a, k in calls["sssp"]["twc_bin_relax"]]),
              ("edge_lb_map", edge_lb.edge_lb_map, ref.edge_lb_map_ref,
               lb_work, "src/repro_torch/kernels/csrc/edge_lb.cu",
-              "src/repro/kernels/edge_lb.py:105"),
+              "src/repro/kernels/edge_lb.py:105",
+              [map_args("edge_lb_relax", a, k)
+               for a, k in calls["sssp"]["edge_lb_relax"]]),
              ("merge_path_map", merge_path.merge_path_map,
               ref.merge_path_map_ref, mp_work,
               "src/repro_torch/kernels/csrc/merge_path.cu",
-              "src/repro/kernels/merge_path.py:107")]
-    rows = []
-    for name, fn, plain, work, source, replaces in table:
-        cs = calls[name]
+              "src/repro/kernels/merge_path.py:107",
+              mp_calls["merge_path_map"])]
+    for name, fn, plain, work, source, replaces, cs in table:
         check(len(cs) > 0, f"{name}: no launch captured")
         # the kernel against its plain version on the main path's inputs
         for a, k in cs:
             errs[name] = max(errs[name], masked_err(fn(*a, **k),
                                                     plain(*a, **k)))
         check(errs[name] == 0, f"{name} != plain on main-path inputs")
-        b = sum(work(a, k)[0] for a, k in cs) / len(cs)
-        o = sum(work(a, k)[1] for a, k in cs) / len(cs)
-        t_b, t_o = b / HBM_BYTES_PER_S * 1e3, o / SCALAR_OPS_PER_S * 1e3
+        bms, by, nbytes = bound(work, cs)
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": device_ms(fn, cs), "plain_ms": device_ms(plain, cs),
-            "bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations",
-            "library_ms": None,
-            "timed_launches": len(cs), "mean_bytes": b})
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "timed_launches": len(cs), "mean_bytes": nbytes})
     return rows
 
 
@@ -1321,20 +1653,27 @@ def main() -> int:
         print(f"phase 1: {name}: {' | '.join(info)}", flush=True)
 
     errs = kernel_vs_plain(dev)
+    relax_vs_plain(dev)
     lm_kernels_vs_plain(dev)
     mp = main_path(dev, args.scale)
     g, src, sources = mp.pop("graph"), mp.pop("src"), mp.pop("sources")
     pp = pull_path(g, src, sources, mp.pop("results"))
     apps, cfgs = pp.pop("apps"), pp.pop("cfgs")
     launches = {k: mp["launches"][k] + pp["launches"][k]
-                for k in GRAPH_KERNELS}
+                for k in GRAPH_KERNELS + ("twc_bin_map", "edge_lb_map")}
     rows = time_kernels(g, src, errs, launches)
     for r in rows:
         print(f"phase 4: {r['name']}: {r['ms']:.4f} ms per launch "
               f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"by {r['bound_by']}) over {r['timed_launches']} launches of "
-              f"one sssp; {r['launches']} launches on the two main-path "
-              f"runs", flush=True)
+              f"by {r['bound_by']}"
+              + (f", unfused route {r['unfused_ms']:.4f} ms"
+                 if "unfused_ms" in r else "")
+              + f") over {r['timed_launches']} launches of one sssp; "
+              f"{r['launches']} launches on the two main-path runs",
+              flush=True)
+        for run, t in r.get("by_run", {}).items():
+            print(f"phase 4:   {r['name']} at {run}'s shapes: {t}",
+                  flush=True)
     from repro_torch.core.apps import drivers
     kern = cfgs["kernel"]
     mp["profile"] = profile_path(

@@ -15,8 +15,9 @@ A strategy is *planned* once (:func:`make_plan`) and *executed* by one
 of three interchangeable executor pairs:
 
 * ``xla``        — plain torch ops (``_bin_pass_impl`` / ``_lb_pass_impl``);
-* ``pallas``     — the hand-written CUDA mapping kernels ``twc_bin_map``
-  and ``edge_lb_map`` with a torch-ops gather/scatter epilogue;
+* ``pallas``     — the hand-written fused CUDA kernels ``twc_bin_relax``
+  and ``edge_lb_relax``: one launch per pass, combined into the labels
+  with atomics;
 * ``merge_path`` — no bins and no inspector: every frontier edge goes
   through the co-ranked equal-work kernel ``merge_path_map``.
 
@@ -27,9 +28,12 @@ Every executor entry is batched (``[B, V]`` values, labels and
 frontier mask): bins, the inspector and the LB deal are planned once on
 the union frontier, and per-query activity is re-gathered per edge.
 
-No round updates its input labels in place: ``_apply`` scatters into a
-fresh ``[B, V + _SCRATCH]`` tensor, so the round-entry ``values`` (which alias
-the app loop's labels) and the loop's ``old`` labels stay intact.
+No round updates its input labels in place.  The torch-ops entries
+scatter into a fresh ``[B, V + _SCRATCH]`` tensor (``_apply``) in every
+pass; a pair registered ``in_place`` (``pallas``) combines into the
+labels it is given, so the round clones the labels once and every pass
+combines into that copy.  Either way the round-entry ``values`` (which
+alias the app loop's labels) and the loop's ``old`` labels stay intact.
 
 A pull round (``direction="pull"``, or ``"adaptive"`` resolving to
 pull) runs the operator's pull twin over the cached reverse CSR: every
@@ -230,12 +234,16 @@ class ExecutorPair:
                op, distribution, num_tiles, tile_edges) -> labels
 
     ``values`` / ``labels`` / ``fmask`` are ``[B, V]``; the enumeration
-    arguments are batch-shared (union frontier).  The static-shape
-    entries of the JAX pairs arrive with the spmd/fused slice.
+    arguments are batch-shared (union frontier).  With ``in_place`` the
+    entries combine into ``labels`` and return it: the round hands them
+    a private copy, made once per round, never the caller's labels.
+    The static-shape entries of the JAX pairs arrive with the spmd/fused
+    slice.
     """
     name: str
     bin_host: Callable
     lb_host: Callable
+    in_place: bool = False
 
 
 _REGISTRY: dict = {}
@@ -255,7 +263,7 @@ def get_executor(name: str) -> ExecutorPair:
         from repro_torch.kernels import ops as kops   # lazy: import cycle
         register_executor(ExecutorPair(
             "pallas", bin_host=kops.twc_bin_apply,
-            lb_host=kops.edge_lb_apply))
+            lb_host=kops.edge_lb_apply, in_place=True))
         register_executor(ExecutorPair(
             "merge_path", bin_host=kops.merge_path_no_bins,
             lb_host=kops.merge_path_apply))
@@ -583,8 +591,11 @@ def _run_plan_host(gr: Graph, values, labels, fmask, plan: RoundPlan,
                    bins, lb, stats) -> torch.Tensor:
     """Drive one host round's executor launches from pre-gathered
     bin/LB member arrays.  Every pass reads the round-entry ``values``;
-    ``stats`` is the mutable RoundStats dict or None."""
+    an ``in_place`` pair's passes combine into one private copy of
+    ``labels``.  ``stats`` is the mutable RoundStats dict or None."""
     v = labels.shape[-1]
+    if ex.in_place:
+        labels = labels.clone(memory_format=torch.contiguous_format)
     for spec, entry in zip(plan.bins, bins):
         if entry is None:
             continue

@@ -55,7 +55,27 @@ PR_PULL = Operator("pr_pull", "pull", "add",
                    lambda v, w: v, uses_weight=False)
 
 
+# ``msg`` of each built-in operator as the fused relax kernels take it
+# (``kernels/csrc/relax.cuh``, enum ``Msg``): the index is the enum value
+MSG_KINDS = ("v+w", "v+1", "v", "-1")
+_MSG_KIND = {SSSP_RELAX: 0, BFS_HOP: 1, CC_MIN: 2, KCORE_DEC: 3, PR_PULL: 2}
+
 _PULL_TWINS: dict = {}
+_PUSH_OF: dict = {}                   # pull twin -> its push operator
+
+
+def msg_kind(op: Operator) -> int:
+    """The relax kernels' ``Msg`` value for ``op.msg`` (an index into
+    :data:`MSG_KINDS`); a pull twin takes its push operator's.  Raises
+    for an operator outside the table: the kernels cannot run an
+    arbitrary ``msg`` callable."""
+    kind = _MSG_KIND.get(_PUSH_OF.get(op, op))
+    if kind is None:
+        raise ValueError(f"operator {op.name!r} has no msg kind for the "
+                         f"fused relax kernels (known: "
+                         f"{sorted(o.name for o in _MSG_KIND)} and their "
+                         f"pull twins)")
+    return kind
 
 
 def as_pull(op: Operator) -> Operator:
@@ -69,4 +89,5 @@ def as_pull(op: Operator) -> Operator:
         _PULL_TWINS[op] = Operator(op.name + "@pull", "pull",
                                    op.combine, op.msg, op.uses_weight,
                                    op.wire_narrow)
+        _PUSH_OF[_PULL_TWINS[op]] = op
     return _PULL_TWINS[op]

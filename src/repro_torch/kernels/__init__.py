@@ -1,7 +1,14 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
-* ``twc_gather.twc_bin_map``    — ``csrc/twc_gather.cu`` (CUDA C++);
-* ``edge_lb.edge_lb_map``       — ``csrc/edge_lb.cu`` (CUDA C++);
+* ``relax.twc_bin_relax``       — ``csrc/twc_relax.cu`` (CUDA C++), one
+  degree bin's ALB pass fused: slot -> edge, gather, ``msg``, atomic
+  combine into the labels;
+* ``relax.edge_lb_relax``       — ``csrc/edge_lb_relax.cu`` (CUDA C++),
+  the huge bin's edge-balanced ALB pass fused the same way;
+* ``twc_gather.twc_bin_map``    — ``csrc/twc_gather.cu`` (CUDA C++), the
+  index map of a degree bin (the Pallas kernel's counterpart);
+* ``edge_lb.edge_lb_map``       — ``csrc/edge_lb.cu`` (CUDA C++), the
+  huge bin's index map (the Pallas kernel's counterpart);
 * ``merge_path.merge_path_map`` — ``csrc/merge_path.cu`` (CUDA C++);
 * ``moe_dispatch.positions_in_expert`` — ``csrc/moe_dispatch.cu``
   (CUDA C++), the MoE dispatch plan's arrival ranks;
@@ -10,9 +17,10 @@
   ``csrc/flash_attention_wgmma.cu`` (bf16, head width 64 or 128: TMA
   and ``wgmma``) and ``csrc/flash_attention.cu`` (float32 and other
   head widths: CUDA cores);
-* ``ref``                       — plain PyTorch versions of all five;
-* ``ops``                       — the torch gather/scatter epilogues that
-  make them executors of ``core.balancer``;
+* ``ref``                       — plain PyTorch versions of all seven;
+* ``ops``                       — the executor pairs of
+  ``core.balancer``: the fused relax kernels, and ``merge_path_map``
+  with its torch gather/scatter epilogue;
 * ``build``                     — ``nvcc`` + ``ctypes``, on first use.
 
 Each wrapper keeps a plain-integer launch counter (``fn.launches``),
@@ -25,9 +33,11 @@ from . import flash_attention as _flash   # the module keeps its name
 from .edge_lb import edge_lb_map
 from .merge_path import merge_path_map
 from .moe_dispatch import positions_in_expert
+from .relax import edge_lb_relax, twc_bin_relax
 from .twc_gather import twc_bin_map
 
-KERNELS = {"twc_bin_map": twc_bin_map, "edge_lb_map": edge_lb_map,
+KERNELS = {"twc_bin_relax": twc_bin_relax, "edge_lb_relax": edge_lb_relax,
+           "twc_bin_map": twc_bin_map, "edge_lb_map": edge_lb_map,
            "merge_path_map": merge_path_map,
            "positions_in_expert": positions_in_expert,
            "flash_attention": _flash.flash_attention}

@@ -3,7 +3,10 @@
 Same output contract as ``repro/kernels/ref.py`` (and the CUDA kernels):
 four outputs ``(graph_e, anchor_or_slot, val, mask)`` for the mapping
 kernels, three for the merge-path map ``(graph_e, slot_j, mask)``; the
-arrival rank for ``positions_in_expert_ref``; the attention output for
+labels combined in place for the fused relax kernels
+(``twc_bin_relax_ref``, ``edge_lb_relax_ref``: the index map above plus
+the torch epilogue ``slot_epilogue``); the arrival rank for
+``positions_in_expert_ref``; the attention output for
 ``flash_attention_ref``.  The kernel wrappers call these for CPU
 tensors, and the CUDA kernels are held against them on the card.  The
 differences from the JAX oracles: ``twc_bin_map_ref`` returns exactly
@@ -16,6 +19,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.core.balancer import _apply
 
 
 def edge_lb_map_ref(start_e, row_start, hval, total_edges, n_enum,
@@ -66,6 +71,57 @@ def twc_bin_map_ref(vidx, deg, row_start, val, *, width: int,
     anchor = vidx[:, None].expand(emask.shape)
     v = val[:, None].expand(emask.shape)
     return ge, anchor, v, emask
+
+
+def slot_epilogue(col_idx, edge_w, values, labels, fmask, src, ge, mask,
+                  op):
+    """The torch epilogue of an index map: flat, batch-shared slots, each
+    with its enumerated vertex ``src``, CSR edge ``ge`` and ``mask``.
+    Push gathers value and activity at ``src`` and combines at
+    ``col_idx[ge]``; pull (over the reverse CSR) gathers them at
+    ``col_idx[ge]``, the in-neighbour, and combines at ``src``.  Returns
+    fresh ``[B, V]`` labels (``balancer._apply``)."""
+    v = labels.shape[-1]
+    dst = col_idx[ge]
+    w = edge_w[ge]
+    if op.direction == "push":
+        ssafe = torch.where(src < v, src, 0)
+        live = fmask[:, ssafe]                           # [B, n]
+        cand = op.msg(values[:, ssafe], w[None])
+        return _apply(labels, dst, cand, mask, live, op.combine)
+    live = fmask[:, dst]                                 # [B, n]
+    cand = op.msg(values[:, dst], w[None])
+    return _apply(labels, src, cand, mask, live, op.combine)
+
+
+def twc_bin_relax_ref(values, labels, fmask, col_idx, edge_w, vidx, deg,
+                      row_start, op, *, width: int, chunk=0):
+    """Oracle for relax.twc_bin_relax: ``twc_bin_map_ref`` over the bin,
+    then :func:`slot_epilogue`, written into ``labels``."""
+    ge, anchor, _, mask = twc_bin_map_ref(vidx, deg, row_start, vidx,
+                                          width=width, chunk=chunk,
+                                          sentinel=labels.shape[-1])
+    out = slot_epilogue(col_idx, edge_w, values, labels, fmask,
+                        anchor.reshape(-1), ge.reshape(-1),
+                        mask.reshape(-1), op)
+    return labels.copy_(out)
+
+
+def edge_lb_relax_ref(values, labels, fmask, col_idx, edge_w, hvidx,
+                      start_e, row_start, total_edges, n_enum, op, *,
+                      tile_edges: int = 2048, distribution: str = "cyclic",
+                      num_tiles: int = 64):
+    """Oracle for relax.edge_lb_relax: ``edge_lb_map_ref`` over the huge
+    bin, then :func:`slot_epilogue` with ``src = hvidx[slot]``, written
+    into ``labels``."""
+    ge, j, _, mask = edge_lb_map_ref(start_e, row_start, start_e,
+                                     total_edges, n_enum,
+                                     tile_edges=tile_edges,
+                                     distribution=distribution,
+                                     num_tiles=num_tiles)
+    out = slot_epilogue(col_idx, edge_w, values, labels, fmask, hvidx[j],
+                        ge, mask, op)
+    return labels.copy_(out)
 
 
 def positions_in_expert_ref(flat_expert, num_experts: int):

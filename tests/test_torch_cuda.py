@@ -1,7 +1,8 @@
 """The CUDA kernels of ``repro_torch`` against their plain versions on
 the card (the index kernels exactly: masks equal, masked positions
-equal; attention, both routes, at the tolerances of
-tests/test_kernels_lm.py).  Marked ``gpu``:
+equal; the fused relax kernels exactly for min and int add, within
+``FLOAT_ADD_RTOL`` for float add; attention, both routes, at the
+tolerances of tests/test_kernels_lm.py).  Marked ``gpu``:
 they skip without a CUDA device.  No JAX import, so the file also runs
 on a machine that has only PyTorch:
 
@@ -11,12 +12,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import operators as tops
 from repro_torch.kernels import edge_lb as tlb
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import merge_path as tmp
 from repro_torch.kernels import moe_dispatch as tmd
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import relax as trelax
 from repro_torch.kernels import twc_gather as ttwc
+
+# float32 add on the card sums a vertex's candidates in another order
+# than the plain version, whose index_add_ adds with atomics in a
+# run-dependent order: the bins reduce in a fixed tree, the huge bin
+# with atomics.  Sums of up to a few thousand positive terms.
+FLOAT_ADD_RTOL = 1e-4
+RELAX_OPS = ["SSSP_RELAX", "BFS_HOP", "CC_MIN", "KCORE_DEC", "PR_PULL",
+             "SSSP_RELAX@pull", "BFS_HOP@pull", "CC_MIN@pull"]
 
 
 def _huge(rng, h):
@@ -124,3 +135,123 @@ def test_cuda_flash_attention_matches_plain(cuda_device, s, h, hkv, hd,
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# ---- fused relax kernels ----------------------------------------------------
+
+def _relax_op(name):
+    base, _, pull = name.partition("@")
+    op = getattr(tops, base)
+    return tops.as_pull(op) if pull else op
+
+
+def _relax_graph(dev, v=20_000):
+    """A random CSR with a spread of degrees up to 3000 (col_idx, edge_w,
+    row_ptr on ``dev``; row_ptr and degrees also on the host)."""
+    rng = np.random.default_rng(v)
+    deg = rng.integers(0, 40, v)
+    deg[:12] = [3000, 2500, 2048, 1500, 1025, 1024, 1023, 300, 129, 128, 9,
+                0]
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    e = int(row_ptr[-1])
+    col = torch.from_numpy(rng.integers(0, v, e).astype(np.int32)).to(dev)
+    w = torch.from_numpy(rng.integers(1, 101, e).astype(np.int32)).to(dev)
+    return col, w, row_ptr, deg
+
+
+def _relax_state(dev, name, b, v, seed):
+    rng = np.random.default_rng(seed)
+    fmask = torch.from_numpy(rng.random((b, v)) < 0.6).to(dev)
+    if name == "PR_PULL":
+        lab = (rng.random((b, v)) * 1e-3).astype(np.float32)
+        val = (rng.random((b, v)) * 1e-3).astype(np.float32)
+    else:
+        lab = rng.integers(0, 500, (b, v)).astype(np.int32)
+        lab[rng.random((b, v)) < 0.3] = 1 << 30
+        val = lab.copy()
+    return (torch.from_numpy(val).to(dev), torch.from_numpy(lab).to(dev),
+            fmask)
+
+
+def _assert_relax_equal(name, got, want):
+    if name == "PR_PULL":
+        torch.testing.assert_close(got, want, rtol=FLOAT_ADD_RTOL, atol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", RELAX_OPS)
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_cuda_twc_bin_relax_matches_plain(cuda_device, op, b):
+    """Every width and chunk (host int and device int32), sentinel rows
+    and an empty bin; launches counted."""
+    col, w, row_ptr, deg = _relax_graph(cuda_device)
+    v = len(deg)
+    rng = np.random.default_rng(b)
+    vid = np.concatenate([np.arange(12), rng.integers(12, v, 200),
+                          np.full(60, v)])
+    rng.shuffle(vid)
+    safe = np.where(vid < v, vid, 0)
+    rows = [torch.from_numpy(a.astype(np.int32)).to(cuda_device)
+            for a in (vid, np.where(vid < v, deg[safe], 0),
+                      np.where(vid < v, row_ptr[safe], 0))]
+    val, lab, fm = _relax_state(cuda_device, op, b, v, b)
+    before = trelax.twc_bin_relax.launches
+    launched = 0
+    for width in (8, 128, 1024):
+        for chunk in (0, 1, 2):
+            for ch in (chunk, torch.tensor([chunk], dtype=torch.int32,
+                                           device=cuda_device)):
+                for n in (len(vid), 0):
+                    got = trelax.twc_bin_relax(
+                        val, lab.clone(), fm, col, w, *(r[:n] for r in rows),
+                        _relax_op(op), width=width, chunk=ch)
+                    want = tref.twc_bin_relax_ref(
+                        val, lab.clone(), fm, col, w, *(r[:n] for r in rows),
+                        _relax_op(op), width=width, chunk=chunk)
+                    _assert_relax_equal(op, got, want)
+                    launched += n > 0
+    assert trelax.twc_bin_relax.launches == before + launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", RELAX_OPS)
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("distribution", ["cyclic", "blocked"])
+def test_cuda_edge_lb_relax_matches_plain(cuda_device, op, b, distribution):
+    """One-row huge bins (on and off a tile boundary), several rows with
+    sentinel slots, bucketed and ragged spans, 64 and 7 tiles."""
+    col, w, row_ptr, deg = _relax_graph(cuda_device)
+    v = len(deg)
+    val, lab, fm = _relax_state(cuda_device, op, b, v, b + 7)
+    # the last case has a 3000-slot run of zero-degree slots: a tile
+    # window wider than the kernel's shared-memory stage
+    cases = [[2], [1], [0, 1, 2, 3, 4, 5, 6], list(range(200, 2200)),
+             [1] + [11] * 3000 + [2]]
+    before = trelax.edge_lb_relax.launches
+    for hv in cases:
+        hv = np.array(hv)
+        pad = 0 if len(hv) == 1 else 5
+        hvidx, hdeg, hrow = (np.concatenate([a, np.full(pad, f)])
+                             .astype(np.int32)
+                             for a, f in ((hv, v), (deg[hv], 0),
+                                          (row_ptr[hv], 0)))
+        start_e = (np.cumsum(hdeg) - hdeg).astype(np.int32)
+        total = int(hdeg.sum())
+        t = [torch.from_numpy(a).to(cuda_device)
+             for a in (hvidx, start_e, hrow)]
+        for n_enum in (next_pow2(max(total, 2048)), total):
+            for tiles in (64, 7):
+                kw = dict(distribution=distribution, num_tiles=tiles)
+                got = trelax.edge_lb_relax(val, lab.clone(), fm, col, w, *t,
+                                           total, n_enum, _relax_op(op), **kw)
+                want = tref.edge_lb_relax_ref(val, lab.clone(), fm, col, w,
+                                              *t, total, n_enum,
+                                              _relax_op(op), **kw)
+                _assert_relax_equal(op, got, want)
+    assert trelax.edge_lb_relax.launches == before + 4 * len(cases)
+
+
+def next_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
