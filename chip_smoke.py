@@ -34,8 +34,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    torch-ops pair and scipy / numpy oracles; ``host_transfers`` as the
    drivers count them; median wall times;
 4. each kernel and its plain version timed on the card at the shapes
-   the main path gave it (one ALB sssp and two pagerank rounds for the
-   fused kernels, which are also timed beside the unfused route they
+   the main path gave it (one ALB sssp, one sssp_batch and two pagerank
+   rounds for the fused kernels, which are also timed beside the unfused route they
    replaced, index-map kernel + torch epilogue, and the index-map
    kernels at the same shapes; one merge-path sssp; one prefill and one
    decode step of phase 5), beside the least time the card could take
@@ -253,7 +253,8 @@ def relax_err(got, want) -> float:
 def relax_vs_plain(dev) -> dict:
     """``twc_bin_relax`` and ``edge_lb_relax`` against their plain
     versions on a random CSR (V = 50,000, degrees up to 6,000): every
-    operator and pull twin, B in {1, 3, 8}; bins at W in {8, 128, 1024},
+    operator and pull twin, B in {1, 3, 8}; bins at W in {8, 128, 1024}
+    and 2048 (wider than a pull lane's register slots),
     chunk 0..2 (host int and device int32), sentinel rows and an empty
     bin; huge bins of one row (on and off a 2048-edge tile), several
     rows with sentinel slots, 2,000 rows with zero-degree slots, and a
@@ -315,7 +316,7 @@ def relax_vs_plain(dev) -> dict:
                 lab = rng.integers(0, 500, (b, v)).astype(np.int32)
                 lab[rng.random((b, v)) < 0.3] = 1 << 30
                 lab, val = t32(lab), t32(lab)
-            for width in (8, 128, 1024):
+            for width in (8, 128, 1024, 2048):
                 for chunk in (0, 1, 2):
                     for ch in (chunk, t32([chunk])):
                         for n in (len(vid), 0):
@@ -815,25 +816,17 @@ def twc_unfused(values, labels, fmask, col_idx, edge_w, vidx, deg,
                 row_start, op, *, width, chunk):
     """The route ``twc_bin_relax`` replaced, as ``ops.twc_bin_apply`` ran
     it before the fused kernels (a yardstick the port never calls): the
-    ``twc_bin_map`` kernel, then the torch gather/scatter epilogue into
-    fresh labels."""
-    from repro_torch.core.balancer import _apply
-    from repro_torch.kernels import twc_gather
+    batch-0 value gather, the ``twc_bin_map`` kernel, then the torch
+    epilogue into fresh labels."""
     import torch
+    from repro_torch.kernels import ref, twc_gather
     v = labels.shape[-1]
-    vsafe = torch.where(vidx < v, vidx, 0)
-    val = values[:, vsafe]
+    val = values[0, torch.where(vidx < v, vidx, 0)]
     ge, anchor, _, mask = twc_gather.twc_bin_map(
-        vidx, deg, row_start, val[0], width=width, chunk=chunk, sentinel=v)
-    dst = col_idx[ge]
-    w = edge_w[ge]
-    if op.direction == "push":
-        live = fmask[:, vsafe][:, :, None]
-        cand = op.msg(val[:, :, None], w[None])
-        return _apply(labels, dst, cand, mask, live, op.combine)
-    live = fmask[:, dst]
-    cand = op.msg(values[:, dst], w[None])
-    return _apply(labels, anchor, cand, mask, live, op.combine)
+        vidx, deg, row_start, val, width=width, chunk=chunk, sentinel=v)
+    return ref.slot_epilogue(col_idx, edge_w, values, labels, fmask,
+                             anchor.reshape(-1), ge.reshape(-1),
+                             mask.reshape(-1), op)
 
 
 def lb_unfused(values, labels, fmask, col_idx, edge_w, hvidx, start_e,
@@ -866,28 +859,37 @@ def map_args(name, a, k) -> tuple:
 
 def relax_work(name, a, k) -> tuple:
     """(bytes, operations) one fused pass must do on these inputs, each
-    byte once: the int32 row (bin) or slot (huge bin) inputs; col_idx of
-    the live edges, and edge_w for v + w; one fmask byte per query at
-    each distinct gather vertex; the values read and the labels read and
-    written at each distinct (query, vertex) of a live candidate, so at
-    most the whole [B, V] arrays.  Operations: ~8 integer operations per
-    live (edge, query), plus 4 per step of each huge-bin id's slot
-    search."""
+    byte once.  Reads: of a bin row, vidx alone for a sentinel row,
+    vidx and deg for a row with no edge in this chunk, all three int32
+    inputs otherwise (a huge-bin slot: all three); col_idx of the live
+    edges, and edge_w for v + w; one fmask byte per query at each
+    distinct gather vertex; the value at each distinct live (query,
+    gather vertex); the label at each distinct live (query, target).
+    Writes: a label only where the pass changes it (the plain version's
+    output differs from its input).  So at most the whole [B, V]
+    arrays.  Operations: ~8 integer operations per live (edge, query),
+    plus 4 per step of each huge-bin id's slot search."""
     import torch
     from repro_torch.core.operators import msg_kind
     from repro_torch.kernels import ref
     values, labels, fmask, col_idx = a[:4]
     b, v = labels.shape
     if name == "twc_bin_relax":
-        op = a[8]
+        op, vidx, deg = a[8], a[5], a[6]
         ge, src, _, mask = ref.twc_bin_map_ref(*map_args(name, a, k)[0],
                                                width=k["width"],
                                                chunk=k["chunk"],
                                                sentinel=v)
-        fixed, search = 12 * a[5].shape[0], 0
+        want = ref.twc_bin_relax_ref(values, labels.clone(), *a[2:], **k)
+        real = vidx < v
+        edged = real & (deg > int(k["chunk"]) * k["width"])
+        fixed = 4 * vidx.shape[0] + 4 * int(real.sum()) + \
+            4 * int(edged.sum())
+        search = 0
     else:
         op, hvidx = a[10], a[5]
         ge, j, _, mask = ref.edge_lb_map_ref(*map_args(name, a, k)[0], **k)
+        want = ref.edge_lb_relax_ref(values, labels.clone(), *a[2:], **k)
         src = hvidx[j]
         fixed = 12 * hvidx.shape[0]
         search = int(mask.sum()) * 4 * hvidx.shape[0].bit_length()
@@ -899,7 +901,8 @@ def relax_work(name, a, k) -> tuple:
     nbytes = (fixed + 4 * ge.numel() * (2 if msg_kind(op) == 0 else 1)
               + b * torch.unique(gather).numel()
               + 4 * torch.unique((q + gather)[live]).numel()
-              + 8 * torch.unique((q + scatter)[live]).numel())
+              + 4 * torch.unique((q + scatter)[live]).numel()
+              + 4 * int((want != labels).sum()))
     return nbytes, 8 * int(live.sum()) + search
 
 
@@ -993,18 +996,18 @@ def device_ms_fresh(fn, calls, reps: int = 3) -> float:
 
 def bound(work, calls) -> tuple:
     """(bound ms, "bytes" | "operations", mean bytes) of the mean call."""
-    b = sum(work(a, k)[0] for a, k in calls) / len(calls)
-    o = sum(work(a, k)[1] for a, k in calls) / len(calls)
+    done = [work(a, k) for a, k in calls]
+    b = sum(w[0] for w in done) / len(calls)
+    o = sum(w[1] for w in done) / len(calls)
     t_b, t_o = b / HBM_BYTES_PER_S * 1e3, o / SCALAR_OPS_PER_S * 1e3
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", b
 
 
-def time_relax(name, cs, probe: bool) -> dict:
+def time_relax(name, cs) -> dict:
     """One fused kernel over the recorded calls ``cs``: held against its
     plain version (exact for int labels, ``RELAX_FLOAT_RTOL`` for
     float), then timed beside its plain version, the unfused route it
-    replaced and its bound; with ``probe``, also with ``PROBE_MIN``
-    off."""
+    replaced and its bound."""
     from repro_torch.kernels import ref, relax
     fn = getattr(relax, name)
     plain = {"twc_bin_relax": ref.twc_bin_relax_ref,
@@ -1023,25 +1026,18 @@ def time_relax(name, cs, probe: bool) -> dict:
           rel_err <= RELAX_FLOAT_RTOL,
           f"{name} != plain on main-path inputs: {abs_err}, {rel_err}")
     bms, by, nbytes = bound(lambda a, k: relax_work(name, a, k), cs)
-    out = {"ms": device_ms_fresh(fn, cs),
-           "plain_ms": device_ms_fresh(plain, cs),
-           "unfused_ms": device_ms_fresh(unfused, cs),
-           "bound_ms": bms, "bound_by": by, "max_abs_err": abs_err,
-           "max_rel_err": rel_err, "timed_launches": len(cs),
-           "mean_bytes": nbytes}
-    if probe:
-        relax.PROBE_MIN = False
-        try:
-            out["probe_off_ms"] = device_ms_fresh(fn, cs)
-        finally:
-            relax.PROBE_MIN = True
-    return out
+    return {"ms": device_ms_fresh(fn, cs),
+            "plain_ms": device_ms_fresh(plain, cs),
+            "unfused_ms": device_ms_fresh(unfused, cs),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": abs_err,
+            "max_rel_err": rel_err, "timed_launches": len(cs),
+            "mean_bytes": nbytes}
 
 
-def time_kernels(g, src, errs: dict, launches: dict) -> list:
+def time_kernels(g, src, sources, errs: dict, launches: dict) -> list:
     """Phase 4's rows of the graph kernels.  The fused kernels at the
-    shapes of one ALB sssp (their row) and of two pagerank rounds
-    (``by_run``); the index-map kernels at the same sssp's shapes (no
+    shapes of one ALB sssp (their row), of one sssp_batch (B = 8) and of
+    two pagerank rounds (``by_run``); the index-map kernels at the same sssp's shapes (no
     main path launches them); ``merge_path_map`` at one merge-path
     sssp's."""
     from repro_torch.core.apps import drivers
@@ -1049,6 +1045,8 @@ def time_kernels(g, src, errs: dict, launches: dict) -> list:
     from repro_torch.kernels import edge_lb, merge_path, ref, twc_gather
     kern = BalancerConfig(strategy="alb", use_pallas=True)
     calls = {"sssp": capture_launches(lambda: drivers.sssp(g, src, kern)),
+             "sssp_batch": capture_launches(
+                 lambda: drivers.sssp_batch(g, sources, kern)),
              "pagerank": capture_launches(lambda: drivers.pagerank(
                  g, cfg=kern, max_rounds=2, tol=0.0))}
     mp_calls = capture_launches(lambda: drivers.sssp(
@@ -1063,7 +1061,7 @@ def time_kernels(g, src, errs: dict, launches: dict) -> list:
         by_run = {}
         for run, cs in calls.items():
             check(len(cs[name]) > 0, f"{name}: no launch captured ({run})")
-            by_run[run] = time_relax(name, cs[name], probe=run == "sssp")
+            by_run[run] = time_relax(name, cs[name])
         top = by_run["sssp"]
         rows.append({
             "name": name, "route": "cuda", "source": source,
@@ -1661,7 +1659,7 @@ def main() -> int:
     apps, cfgs = pp.pop("apps"), pp.pop("cfgs")
     launches = {k: mp["launches"][k] + pp["launches"][k]
                 for k in GRAPH_KERNELS + ("twc_bin_map", "edge_lb_map")}
-    rows = time_kernels(g, src, errs, launches)
+    rows = time_kernels(g, src, sources, errs, launches)
     for r in rows:
         print(f"phase 4: {r['name']}: {r['ms']:.4f} ms per launch "
               f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "

@@ -29,7 +29,7 @@ frontier mask): bins, the inspector and the LB deal are planned once on
 the union frontier, and per-query activity is re-gathered per edge.
 
 No round updates its input labels in place.  The torch-ops entries
-scatter into a fresh ``[B, V + _SCRATCH]`` tensor (``_apply``) in every
+scatter into a fresh labels tensor (``scatter.scatter_combine``) in every
 pass; a pair registered ``in_place`` (``pallas``) combines into the
 labels it is given, so the round clones the labels once and every pass
 combines into that copy.  Either way the round-entry ``values`` (which
@@ -46,7 +46,6 @@ The static-shape and fused round modes arrive with a later slice.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -55,6 +54,7 @@ import torch
 from .graph import Graph
 from .frontier import next_bucket, compact, count, union_frontier
 from .operators import Operator, as_pull
+from .scatter import scatter_combine
 
 _WIRE_NAMES = ("identity", "delta", "bitmap")
 _WIRE_NARROW = ("int8", "uint8", "int16", "uint16")
@@ -303,61 +303,6 @@ def _frontier_meta(g: Graph, frontier_idx: torch.Tensor):
     return deg, row_start, valid
 
 
-def combine_neutral(combine: str, dtype: torch.dtype):
-    """Identity element of a combiner: a candidate that can never win a
-    ``min`` (dtype max / +inf) or change an ``add`` (0)."""
-    if combine == "min":
-        if dtype.is_floating_point:
-            return float("inf")
-        return torch.iinfo(dtype).max
-    if combine == "add":
-        return 0
-    raise ValueError(combine)
-
-
-# scratch label columns that absorb the masked slots of a scatter.  One
-# column would put every masked slot (most of a degree bin's tile) on
-# one address, and the scatter's atomics then serialize on it: on an
-# H100, ALB sssp on rmat(22, 16) spent 328 ms in the scatter-min with
-# one column and 10 ms with the slots spread over this many.
-_SCRATCH = 4096
-
-
-def _apply(labels, target, cand, emask, live, combine):
-    """Batched scatter-combine (atomicMin/atomicAdd analog).
-
-    labels : [B, V];  target/emask : batch-shared enumeration shape [S];
-    ``live`` : [B, *S-broadcastable] per-query activity.  Returns a
-    fresh ``[B, V]`` tensor: the scatter runs on a copy of ``labels``
-    widened by ``_SCRATCH`` scratch columns that absorb every masked
-    slot (JAX's ``mode="drop"``), so the caller's labels are never
-    written.
-    """
-    b, v = labels.shape
-    spread = v + (torch.arange(emask.numel(), dtype=torch.int32,
-                               device=emask.device) & (_SCRATCH - 1))
-    tgt = torch.where(emask.reshape(-1), target.reshape(-1), spread)
-    full = live & emask[None]
-    cand = cand.to(labels.dtype)
-    out = torch.empty((b, v + _SCRATCH), dtype=labels.dtype,
-                      device=labels.device)
-    out[:, :v] = labels
-    out[:, v:] = 0
-    if combine == "min":
-        cand = torch.where(full, cand, combine_neutral("min", labels.dtype))
-        with warnings.catch_warnings():
-            # index_reduce_ warns once that its API is in beta
-            warnings.simplefilter("ignore", UserWarning)
-            out.index_reduce_(1, tgt, cand.reshape(b, -1), "amin",
-                              include_self=True)
-    elif combine == "add":
-        cand = torch.where(full, cand, 0)
-        out.index_add_(1, tgt, cand.reshape(b, -1))
-    else:
-        raise ValueError(combine)
-    return out[:, :v]
-
-
 def _bin_pass_impl(g: Graph, values, labels, fmask, vidx, deg, row_start,
                    width: int, op: Operator, chunk):
     """Process one degree bin: each vertex in ``vidx`` contributes its
@@ -376,13 +321,13 @@ def _bin_pass_impl(g: Graph, values, labels, fmask, vidx, deg, row_start,
         live = fmask[:, vsafe][:, :, None]                         # [B,N,1]
         val = values[:, vsafe][:, :, None]                         # [B,N,1]
         cand = op.msg(val, w[None])
-        return _apply(labels, dst, cand, emask, live, op.combine)
+        return scatter_combine(labels, dst, cand, emask, live, op.combine)
     # pull: value AND activity gathered at the in-neighbour (``dst`` in
     # the reverse CSR), candidate scattered at the anchor
     live = fmask[:, dst]                                           # [B,N,W]
     cand = op.msg(values[:, dst], w[None])
     anchor = vidx[:, None].expand(emask.shape)
-    return _apply(labels, anchor, cand, emask, live, op.combine)
+    return scatter_combine(labels, anchor, cand, emask, live, op.combine)
 
 
 def _lb_pass_impl(g: Graph, values, labels, fmask, hidx, hdeg, hrow_start,
@@ -416,12 +361,12 @@ def _lb_pass_impl(g: Graph, values, labels, fmask, hidx, hdeg, hrow_start,
         ssafe = torch.where(src < v, src, 0)
         live = fmask[:, ssafe]                            # [B, n_enum]
         cand = op.msg(values[:, ssafe], w[None])
-        return _apply(labels, dst, cand, emask, live, op.combine)
+        return scatter_combine(labels, dst, cand, emask, live, op.combine)
     # pull: liveness comes from the in-neighbour (``dst`` of the reverse
     # CSR), the anchor ``src`` receives the candidate
     live = fmask[:, dst]                                  # [B, n_enum]
     cand = op.msg(values[:, dst], w[None])
-    return _apply(labels, src, cand, emask, live, op.combine)
+    return scatter_combine(labels, src, cand, emask, live, op.combine)
 
 
 register_executor(ExecutorPair("xla", bin_host=_bin_pass_impl,

@@ -82,7 +82,6 @@ struct Pass {
   const int32_t* edge_w;
   const int32_t* hvidx;
   int32_t nb, v, kind;
-  bool probe;
 };
 
 // One id per lane; every lane of the warp calls it together (pull
@@ -105,8 +104,7 @@ __device__ __forceinline__ void relax_id(const Pass& p,
     for (int32_t b = 0; b < p.nb; ++b) {
       const int64_t o = (int64_t)b * p.v;
       if (fmask[o + s])
-        combine_at<ADD>(labels + o + dst, msg_of(p.kind, values[o + s], w),
-                        p.probe);
+        combine_at<ADD>(labels + o + dst, msg_of(p.kind, values[o + s], w));
     }
   } else {
     // runs of neighbouring lanes with one anchor (key); dead lanes -1
@@ -135,7 +133,7 @@ __device__ __forceinline__ void relax_id(const Pass& p,
           any |= oa;
         }
       }
-      if (head && any) combine_at<ADD>(labels + o + key, c, p.probe);
+      if (head && any) combine_at<ADD>(labels + o + key, c);
     }
   }
 }
@@ -235,11 +233,11 @@ extern "C" int edge_lb_relax_launch(
     const void* edge_w, const void* hvidx, const void* start_e,
     const void* row_start, int h, int total, int w_per, int num_tiles,
     int span, int blocked, int nb, int v, int dtype, int add, int pull,
-    int kind, int probe, void* stream) {
+    int kind, void* stream) {
   if (nb == 0 || span <= 0 || total <= 0 || h <= 0) return 0;
   const Pass p{static_cast<const int32_t*>(col_idx),
                static_cast<const int32_t*>(edge_w),
-               static_cast<const int32_t*>(hvidx), nb, v, kind, probe != 0};
+               static_cast<const int32_t*>(hvidx), nb, v, kind};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LB_RELAX_CALL(T, ADD, PULL)                                          \
   launch<T, ADD, PULL>(p, values, labels, fmask, start_e, row_start, h,      \

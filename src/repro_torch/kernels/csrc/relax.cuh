@@ -48,16 +48,17 @@ __device__ __forceinline__ T combine(T a, T b) {
   else return a < b ? a : b;
 }
 
-// labels[i] = combine(labels[i], c) with an atomic.  With `probe`, a
-// min first reads the label and skips the atomic when c cannot win:
-// labels only fall during a min pass, so even a stale read is >= the
-// current value, and a skipped candidate could never have won.
+// labels[i] = combine(labels[i], c) with an atomic.  A min first reads
+// the label and skips the atomic when c cannot win: labels only fall
+// during a min pass, so even a stale read is >= the current value, and
+// a skipped candidate could never have won.  PERF.md records what the
+// probe saves on sssp's passes.
 template <bool ADD, typename T>
-__device__ __forceinline__ void combine_at(T* p, T c, bool probe) {
+__device__ __forceinline__ void combine_at(T* p, T c) {
   if constexpr (ADD) {
     atomicAdd(p, c);
   } else {
-    if (!probe || c < *p) atomicMin(p, c);
+    if (c < *p) atomicMin(p, c);
   }
 }
 

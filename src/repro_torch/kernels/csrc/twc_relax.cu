@@ -33,12 +33,16 @@
 // The group's first lane loads the row's vidx, deg and row_start and
 // broadcasts them (shuffle, or shared memory for a block); a sentinel
 // row (vid >= V) or a row with deg <= chunk*W leaves before any edge
-// load.  Push loads the row's value and fmask bit once per query, then
-// does one atomic per live (edge, query); with `probe`, a min reads the
-// label first and skips atomics that cannot win.  Pull gathers value
-// and fmask at each in-neighbour, combines the lane's slots in order,
-// reduces the group in a fixed shuffle tree (then the block's warps in
-// order), and one lane combines the row's result into labels[b, vid].
+// load.  Push strides the slots on the outside and the queries inside:
+// each lane reads its col_idx (and weight) once, then does one atomic
+// per live query at dst; the row's value and fmask bit are one address
+// per query for the whole group.  A min reads the label first and
+// skips atomics that cannot win (relax.cuh).  Pull keeps each lane's
+// in-neighbours and weights in registers (up to 4 slots a lane, which
+// covers every ALB bin row), so each query costs only the value and
+// fmask gathers; it combines the lane's slots in order, reduces the
+// group in a fixed shuffle tree (then the block's warps in order), and
+// one lane combines the row's result into labels[b, vid].
 // Under ALB (threshold 1024 = the widest bin's cap) every bin row ends
 // in one pass, so a pull float add (pagerank) writes each row once per
 // query in a fixed order: deterministic.  `chunk` comes from a host
@@ -58,6 +62,10 @@ using relax::msg_of;
 using relax::neutral;
 
 constexpr int kThreads = 256;
+// slots a pull lane keeps in registers: 4 per lane covers a 128-wide
+// row on a warp and a 1024-wide row on a block (8-lane groups take
+// rows of at most 8, so one)
+constexpr int kSlots = 4;
 
 template <typename T, bool ADD, bool PULL, int G>
 __global__ void __launch_bounds__(kThreads) twc_bin_relax_kernel(
@@ -66,7 +74,7 @@ __global__ void __launch_bounds__(kThreads) twc_bin_relax_kernel(
     const int32_t* __restrict__ vidx, const int32_t* __restrict__ deg,
     const int32_t* __restrict__ row_start,
     const int32_t* __restrict__ chunk_ptr, int32_t chunk_host, int32_t n,
-    int32_t width, int32_t nb, int32_t v, int32_t kind, bool probe) {
+    int32_t width, int32_t nb, int32_t v, int32_t kind) {
   const int32_t lane = threadIdx.x % G;
   const int64_t row = (int64_t)blockIdx.x * (kThreads / G) + threadIdx.x / G;
   int32_t vid = v, d = 0, rs = 0;
@@ -97,20 +105,50 @@ __global__ void __launch_bounds__(kThreads) twc_bin_relax_kernel(
   const int32_t base = rs + off0;
   const bool use_w = kind == relax::MSG_ADD_W;
 
+  if constexpr (!PULL) {
+    // slots outside, queries inside: a lane loads its col_idx and
+    // weight once; the row's value and fmask bit sit at one address for
+    // the whole group (a broadcast, from L1 after the first slot)
+    for (int32_t k = lane; k < cnt; k += G) {
+      const int32_t e = base + k;
+      const int32_t dst = __ldg(col_idx + e);
+      const int32_t w = use_w ? __ldg(edge_w + e) : 0;
+      for (int32_t b = 0; b < nb; ++b) {
+        const int64_t o = (int64_t)b * v;
+        if (fmask[o + vid])
+          combine_at<ADD>(labels + o + dst, msg_of(kind, values[o + vid], w));
+      }
+    }
+    return;
+  }
+  // pull: a lane keeps its slots' in-neighbours and weights in
+  // registers when the row fits in kSlots per lane (every row of the
+  // ALB bins), so a query costs no index load; a wider row reloads them
+  // per query.  Both visit a lane's slots in the same order.
+  constexpr int S = G == 8 ? 1 : kSlots;
+  const bool cached = cnt <= S * G;              // uniform in the group
+  int32_t src_r[S], w_r[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int32_t k = lane + s * G;
+    const bool in = cached && k < cnt;
+    src_r[s] = in ? __ldg(col_idx + base + k) : -1;
+    w_r[s] = in && use_w ? __ldg(edge_w + base + k) : 0;
+  }
   for (int32_t b = 0; b < nb; ++b) {
     const int64_t o = (int64_t)b * v;
-    if constexpr (!PULL) {
-      if (!fmask[o + vid]) continue;             // uniform in the group
-      const T val = values[o + vid];
-      for (int32_t k = lane; k < cnt; k += G) {
-        const int32_t e = base + k;
-        const int32_t dst = __ldg(col_idx + e);
-        const int32_t w = use_w ? __ldg(edge_w + e) : 0;
-        combine_at<ADD>(labels + o + dst, msg_of(kind, val, w), probe);
+    T acc = neutral<T, ADD>();
+    int any = 0;
+    if (cached) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        if (src_r[s] >= 0 && fmask[o + src_r[s]]) {
+          acc = combine<ADD>(acc, msg_of(kind, values[o + src_r[s]],
+                                         w_r[s]));
+          any = 1;
+        }
       }
     } else {
-      T acc = neutral<T, ADD>();
-      int any = 0;
       for (int32_t k = lane; k < cnt; k += G) {
         const int32_t e = base + k;
         const int32_t src = __ldg(col_idx + e);
@@ -120,36 +158,36 @@ __global__ void __launch_bounds__(kThreads) twc_bin_relax_kernel(
           any = 1;
         }
       }
-      if constexpr (G <= 32) {
-        unsigned gmask = 0xffffffffu;              // the group's lanes
-        if constexpr (G < 32)
-          gmask = ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
-        for (int s = G / 2; s > 0; s >>= 1) {
-          acc = combine<ADD>(acc, __shfl_down_sync(gmask, acc, s, G));
-          any |= __shfl_down_sync(gmask, any, s, G);
-        }
-        if (lane == 0 && any) combine_at<ADD>(labels + o + vid, acc, probe);
-      } else {
-        __shared__ T red[kThreads / 32];
-        __shared__ int red_any[kThreads / 32];
-        for (int s = 16; s > 0; s >>= 1) {
-          acc = combine<ADD>(acc, __shfl_down_sync(0xffffffffu, acc, s));
-          any |= __shfl_down_sync(0xffffffffu, any, s);
-        }
-        if ((threadIdx.x & 31) == 0) {
-          red[threadIdx.x / 32] = acc;
-          red_any[threadIdx.x / 32] = any;
-        }
-        __syncthreads();
-        if (threadIdx.x == 0) {
-          for (int i = 1; i < kThreads / 32; ++i) {
-            red[0] = combine<ADD>(red[0], red[i]);
-            red_any[0] |= red_any[i];
-          }
-          if (red_any[0]) combine_at<ADD>(labels + o + vid, red[0], probe);
-        }
-        __syncthreads();                         // red is reused for b + 1
+    }
+    if constexpr (G <= 32) {
+      unsigned gmask = 0xffffffffu;              // the group's lanes
+      if constexpr (G < 32)
+        gmask = ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+      for (int s = G / 2; s > 0; s >>= 1) {
+        acc = combine<ADD>(acc, __shfl_down_sync(gmask, acc, s, G));
+        any |= __shfl_down_sync(gmask, any, s, G);
       }
+      if (lane == 0 && any) combine_at<ADD>(labels + o + vid, acc);
+    } else {
+      __shared__ T red[kThreads / 32];
+      __shared__ int red_any[kThreads / 32];
+      for (int s = 16; s > 0; s >>= 1) {
+        acc = combine<ADD>(acc, __shfl_down_sync(0xffffffffu, acc, s));
+        any |= __shfl_down_sync(0xffffffffu, any, s);
+      }
+      if ((threadIdx.x & 31) == 0) {
+        red[threadIdx.x / 32] = acc;
+        red_any[threadIdx.x / 32] = any;
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        for (int i = 1; i < kThreads / 32; ++i) {
+          red[0] = combine<ADD>(red[0], red[i]);
+          red_any[0] |= red_any[i];
+        }
+        if (red_any[0]) combine_at<ADD>(labels + o + vid, red[0]);
+      }
+      __syncthreads();                         // red is reused for b + 1
     }
   }
 }
@@ -159,7 +197,7 @@ int launch(const void* values, void* labels, const void* fmask,
            const void* col_idx, const void* edge_w, const void* vidx,
            const void* deg, const void* row_start, const void* chunk_ptr,
            int chunk_host, int n, int width, int nb, int v, int kind,
-           int probe, cudaStream_t stream) {
+           cudaStream_t stream) {
 #define TWC_RELAX_ARGS                                                    \
   static_cast<const T*>(values), static_cast<T*>(labels),                 \
       static_cast<const bool*>(fmask),                                    \
@@ -168,7 +206,7 @@ int launch(const void* values, void* labels, const void* fmask,
       static_cast<const int32_t*>(vidx), static_cast<const int32_t*>(deg), \
       static_cast<const int32_t*>(row_start),                             \
       static_cast<const int32_t*>(chunk_ptr), chunk_host, n, width, nb, v, \
-      kind, probe != 0
+      kind
   if (width <= 8) {                        // 8 lanes per row
     const unsigned rows = kThreads / 8;
     twc_bin_relax_kernel<T, ADD, PULL, 8>
@@ -193,13 +231,13 @@ extern "C" int twc_bin_relax_launch(
     const void* edge_w, const void* vidx, const void* deg,
     const void* row_start, const void* chunk_ptr, int chunk_host, int n,
     int width, int nb, int v, int dtype, int add, int pull, int kind,
-    int probe, void* stream) {
+    void* stream) {
   if (n == 0 || nb == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TWC_RELAX_CALL(T, ADD, PULL)                                        \
   launch<T, ADD, PULL>(values, labels, fmask, col_idx, edge_w, vidx, deg,   \
                        row_start, chunk_ptr, chunk_host, n, width, nb, v,   \
-                       kind, probe, s)
+                       kind, s)
   if (dtype == 0 && !add) return pull ? TWC_RELAX_CALL(int32_t, false, true)
                                       : TWC_RELAX_CALL(int32_t, false, false);
   if (dtype == 0) return pull ? TWC_RELAX_CALL(int32_t, true, true)

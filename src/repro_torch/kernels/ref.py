@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from repro_torch.core.balancer import _apply
+from repro_torch.core.scatter import scatter_combine
 
 
 def edge_lb_map_ref(start_e, row_start, hval, total_edges, n_enum,
@@ -80,7 +80,7 @@ def slot_epilogue(col_idx, edge_w, values, labels, fmask, src, ge, mask,
     Push gathers value and activity at ``src`` and combines at
     ``col_idx[ge]``; pull (over the reverse CSR) gathers them at
     ``col_idx[ge]``, the in-neighbour, and combines at ``src``.  Returns
-    fresh ``[B, V]`` labels (``balancer._apply``)."""
+    fresh ``[B, V]`` labels (``scatter.scatter_combine``)."""
     v = labels.shape[-1]
     dst = col_idx[ge]
     w = edge_w[ge]
@@ -88,10 +88,10 @@ def slot_epilogue(col_idx, edge_w, values, labels, fmask, src, ge, mask,
         ssafe = torch.where(src < v, src, 0)
         live = fmask[:, ssafe]                           # [B, n]
         cand = op.msg(values[:, ssafe], w[None])
-        return _apply(labels, dst, cand, mask, live, op.combine)
+        return scatter_combine(labels, dst, cand, mask, live, op.combine)
     live = fmask[:, dst]                                 # [B, n]
     cand = op.msg(values[:, dst], w[None])
-    return _apply(labels, src, cand, mask, live, op.combine)
+    return scatter_combine(labels, src, cand, mask, live, op.combine)
 
 
 def twc_bin_relax_ref(values, labels, fmask, col_idx, edge_w, vidx, deg,

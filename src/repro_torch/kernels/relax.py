@@ -38,10 +38,6 @@ from .ref import edge_lb_relax_ref, twc_bin_relax_ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-#: a min pass reads each label before its atomicMin and skips the
-#: atomics that cannot win (``csrc/relax.cuh`` ``combine_at``)
-PROBE_MIN = True
-
 # (labels dtype, combine) pairs the kernels take
 _TAKES = {(torch.int32, "min"), (torch.int32, "add"),
           (torch.float32, "add")}
@@ -60,7 +56,7 @@ def _launcher(source: str, kernel: str, n_ptr: int, n_int: int):
 def _state(kernel: str, values, labels, fmask, col_idx, edge_w,
            op) -> list:
     """Check the batched state and the operator; returns the kernels'
-    trailing ints ``[B, V, dtype, add, pull, msg kind, probe]``."""
+    trailing ints ``[B, V, dtype, add, pull, msg kind]``."""
     if labels.ndim != 2:
         raise ValueError(f"{kernel}: labels must be [B, V]; got "
                          f"{tuple(labels.shape)}")
@@ -88,8 +84,7 @@ def _state(kernel: str, values, labels, fmask, col_idx, edge_w,
     build.check_vec(kernel, "col_idx", col_idx, col_idx.shape[0], dev)
     build.check_vec(kernel, "edge_w", edge_w, col_idx.shape[0], dev)
     return [*labels.shape, int(labels.dtype == torch.float32),
-            int(op.combine == "add"), int(op.direction == "pull"), kind,
-            int(PROBE_MIN)]
+            int(op.combine == "add"), int(op.direction == "pull"), kind]
 
 
 def _launched(kernel: str, err: int) -> None:
@@ -131,7 +126,7 @@ def twc_bin_relax(values: torch.Tensor, labels: torch.Tensor,
         chunk_ptr, chunk_host = None, int(chunk)
     if n == 0 or labels.numel() == 0:
         return labels
-    fn = _launcher("twc_relax", "twc_bin_relax", 9, 10)
+    fn = _launcher("twc_relax", "twc_bin_relax", 9, 9)
     _launched("twc_bin_relax", fn(
         values.data_ptr(), labels.data_ptr(), fmask.data_ptr(),
         col_idx.data_ptr(), edge_w.data_ptr(), vidx.data_ptr(),
@@ -181,7 +176,7 @@ def edge_lb_relax(values: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"edge_lb_relax: {span} ids exceed int32")
     if span == 0 or int(total_edges) == 0 or labels.numel() == 0:
         return labels
-    fn = _launcher("edge_lb_relax", "edge_lb_relax", 8, 13)
+    fn = _launcher("edge_lb_relax", "edge_lb_relax", 8, 12)
     _launched("edge_lb_relax", fn(
         values.data_ptr(), labels.data_ptr(), fmask.data_ptr(),
         col_idx.data_ptr(), edge_w.data_ptr(), hvidx.data_ptr(),

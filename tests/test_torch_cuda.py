@@ -185,7 +185,8 @@ def _assert_relax_equal(name, got, want):
 @pytest.mark.parametrize("b", [1, 3, 8])
 def test_cuda_twc_bin_relax_matches_plain(cuda_device, op, b):
     """Every width and chunk (host int and device int32), sentinel rows
-    and an empty bin; launches counted."""
+    and an empty bin; launches counted.  Width 2048 is wider than a pull
+    lane's register slots (4 a lane on a 256-thread block)."""
     col, w, row_ptr, deg = _relax_graph(cuda_device)
     v = len(deg)
     rng = np.random.default_rng(b)
@@ -199,7 +200,7 @@ def test_cuda_twc_bin_relax_matches_plain(cuda_device, op, b):
     val, lab, fm = _relax_state(cuda_device, op, b, v, b)
     before = trelax.twc_bin_relax.launches
     launched = 0
-    for width in (8, 128, 1024):
+    for width in (8, 128, 1024, 2048):
         for chunk in (0, 1, 2):
             for ch in (chunk, torch.tensor([chunk], dtype=torch.int32,
                                            device=cuda_device)):
