@@ -17,7 +17,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and within ``RELAX_FLOAT_RTOL`` for float add; ``flash_attention``
    within ``FLASH_TOL`` on both routes (wgmma: bf16 at head width 64
    and 128, ragged S included; simt: float32 and other widths), each
-   case counted on its route;
+   case counted on its route; ``moe_plan`` bitwise over T x (E, K) x G
+   x adaptive x (uniform, skewed, tied, NaN-row probabilities), every
+   cluster size the wrapper picks;
 3. the main path at full size: ALB ``sssp``, ``bfs`` and ``sssp_batch``
    (B = 8) on ``rmat(22, 16, seed=0)`` through the kernel pair (one
    fused ``twc_bin_relax`` / ``edge_lb_relax`` launch per pass), with
@@ -32,7 +34,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and merge_path (bitwise equal to push); cc (push and adaptive),
    kcore(10) and pagerank(20 rounds) through both routes, against the
    torch-ops pair and scipy / numpy oracles; ``host_transfers`` as the
-   drivers count them; median wall times;
+   drivers count them; median wall times; phases 3 and 3b assert that
+   no pass of the built-in operators took the ``pallas`` pair's unfused
+   route (``ops.unfused_passes``);
+3c. a user operator (int32 min, ``msg = v + 2w``) through the ``pallas``
+   pair's unfused route (``twc_bin_map`` / ``edge_lb_map`` and the torch
+   epilogue) on the same graph: bitwise equal to the ``xla`` pair and
+   to twice the sssp labels;
 4. each kernel and its plain version timed on the card at the shapes
    the main path gave it (one ALB sssp, one sssp_batch and two pagerank
    rounds for the fused kernels, which are also timed beside the unfused route they
@@ -40,20 +48,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernels at the same shapes; one merge-path sssp; one prefill and one
    decode step of phase 5), beside the least time the card could take
    and, for ``flash_attention``, PyTorch's
-   ``scaled_dot_product_attention``; device profiles of ALB sssp,
+   ``scaled_dot_product_attention``; ``moe_plan`` also beside the route
+   it replaced (the torch plan with the ``positions_in_expert`` kernel)
+   and ``positions_in_expert`` alone; device profiles of ALB sssp,
    sssp_batch, adaptive cc and pagerank;
 5. the LM serving path, after the graph phases' tensors are freed:
    deepseek-moe-16b at its published widths and 28 layers, random bf16
    weights from a seeded generator on the card, 4 requests of 1024
    prompt tokens and 32 greedy tokens, launch counts reset just before
-   and read just after (``positions_in_expert`` 28 x 32,
-   ``flash_attention`` 28, all on its wgmma route); every dispatch plan
-   bitwise equal through
-   the kernel and one-hot routes; prefill logits and first tokens held
+   and read just after (``moe_plan`` 28 x 32, by cluster size,
+   ``positions_in_expert`` 0, ``flash_attention`` 28, all on its wgmma
+   route); every dispatch plan bitwise equal through ``moe_plan`` and
+   its plain version; prefill logits and first tokens held
    against plain attention + one-hot dispatch; a skewed request set
    (one repeated token) whose layer-0 routing the ALB rebalance must
    keep more of; median wall times, syncing calls per decode step and
-   device profiles of one prefill and one decode step;
+   device profiles of one prefill and one decode step (kernel launches
+   of each, and ``moe_plan``'s device time per layer);
 6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
    limit line again, and last the ``{"ok": true, "device": {...}}`` line.
 
@@ -62,6 +73,7 @@ Imports neither ``jax`` nor the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import subprocess
@@ -419,6 +431,77 @@ def lm_kernels_vs_plain(dev) -> dict:
     return {"positions_in_expert": pie_err, "flash_attention": fa_err}
 
 
+# the sweep of moe_plan: T tokens per group, (E, K) as deepseek-moe-16b
+# (64, 6), llama4-scout (16, 1), the SMOKE configs (8, 2) and the
+# kernel's limits (256, 16); G groups
+MOE_T = (1, 4, 33, 1024, 4096)
+MOE_EK = ((8, 2), (16, 1), (64, 6), (256, 16))
+MOE_G = (1, 2, 4)
+
+
+def plan_err(got, want) -> int:
+    """Max |got - want| over the four outputs of a plan, the gates
+    compared as their int32 words (a NaN row compares too): 0 iff the
+    plans are bitwise equal."""
+    import torch
+    err = 0
+    for a, b in zip(got, want):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        check(a.dtype == b.dtype and a.shape == b.shape, "plan dtype/shape")
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return err
+
+
+def moe_plan_vs_plain(dev) -> dict:
+    """``moe_plan`` against ``moe_plan_ref`` bitwise over T x (E, K) x G
+    x adaptive x (uniform, skewed: one expert takes all, exact ties, one
+    row with a NaN); the skewed cases' cap is small enough that the
+    overflow exceeds the free places.  Three more plans of (16, 1) at
+    T = 2048c - 1 reach cluster sizes c = 5, 6 and 7, so every size the
+    wrapper picks is launched.  Returns the max error and the cases."""
+    import torch
+    from repro_torch.kernels import moe_plan, ref
+    rng = np.random.default_rng(4)
+    by_cluster = dict(moe_plan.moe_plan.launches_by_cluster)
+    before = moe_plan.moe_plan.launches
+    sweep = [(t, e, k, g, a, kind) for t in MOE_T for e, k in MOE_EK
+             for g in MOE_G for a in (True, False)
+             for kind in ("uniform", "skewed", "ties", "nan")]
+    sweep += [(2048 * c - 1, 16, 1, 1, True, "uniform") for c in (5, 6, 7)]
+    err, beyond_free = 0, 0
+    for t, e, k, g, adaptive, kind in sweep:
+        x = rng.random((g, t, e)).astype(np.float32)
+        cap = max(int(1.25 * t * k / e), 4)
+        if kind == "skewed":
+            x[..., 0] += 1e4
+            cap = max(cap // 8, 1)
+            beyond_free += e * cap < t * k
+        elif kind == "ties":
+            x = np.round(x * 4) / 4 + 0.25
+            x[..., 1] = x[..., 0]
+        elif kind == "nan":
+            x[g - 1, t // 2, e // 3] = np.nan
+        p = torch.from_numpy(x / x.sum(-1, keepdims=True)).to(dev)
+        kw = dict(top_k=k, cap=cap, groups=g, adaptive=adaptive)
+        err = max(err, plan_err(moe_plan.moe_plan(p, **kw),
+                                ref.moe_plan_ref(p, **kw)))
+    torch.cuda.synchronize()
+    check(err == 0, f"moe_plan != plain: max error {err}")
+    launched = moe_plan.moe_plan.launches - before
+    clusters = {c: moe_plan.moe_plan.launches_by_cluster[c] - n
+                for c, n in by_cluster.items()}
+    check(launched == len(sweep), f"moe_plan: {launched} launches for "
+          f"{len(sweep)} plans")
+    check(all(clusters[c] > 0 for c in range(1, moe_plan.MAX_CLUSTER + 1)),
+          f"moe_plan: cluster sizes launched {clusters}")
+    print(f"phase 2: moe_plan == plain bitwise on {len(sweep)} plans "
+          f"({beyond_free} with the overflow beyond the free places); "
+          f"launches by cluster size {clusters}", flush=True)
+    return {"max_err": err, "cases": len(sweep), "by_cluster": clusters}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -472,6 +555,7 @@ def main_path(dev, scale: int) -> dict:
     from repro_torch.core.apps import drivers
     from repro_torch.core.balancer import BalancerConfig
     from repro_torch.core.graph import highest_out_degree_vertex, rmat
+    from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
     g = rmat(scale, 16, seed=0, device=dev)
@@ -497,11 +581,13 @@ def main_path(dev, scale: int) -> dict:
     kernels.reset_launch_counts()
     res = {name: run(kern) for name, run in runs.items()}
     launches = kernels.launch_counts()
-    print(f"phase 3: kernel launches on the main path: {launches}",
-          flush=True)
+    print(f"phase 3: kernel launches on the main path: {launches}; "
+          f"unfused passes {ops.unfused_passes}", flush=True)
     for name in ("twc_bin_relax", "edge_lb_relax"):
         check(launches[name] > 0, f"{name} was not launched on the main "
               f"path")
+    check(ops.unfused_passes == 0, "a built-in operator took the unfused "
+          "route")
 
     out = {"launches": launches, "V": g.num_vertices, "E": g.num_edges,
            "source": src, "rounds": {}, "seconds": {}, "seconds_plain": {}}
@@ -628,6 +714,7 @@ def pull_path(g, src, sources, res) -> dict:
     from repro_torch.core.apps import drivers
     from repro_torch.core.balancer import BalancerConfig
     from repro_torch.core.graph import symmetrized
+    from repro_torch.kernels import ops
 
     rg, rev_s = timed(g.reverse)
     sym, sym_s = timed(lambda: symmetrized(g))
@@ -678,10 +765,13 @@ def pull_path(g, src, sources, res) -> dict:
     launches = kernels.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"phase 3b: kernel launches on the slice-2 path: {launches}; "
-          f"peak device memory {peak_gb:.2f} GB", flush=True)
+          f"unfused passes {ops.unfused_passes}; peak device memory "
+          f"{peak_gb:.2f} GB", flush=True)
     for name in GRAPH_KERNELS:
         check(launches[name] > 0, f"{name} was not launched on the slice-2 "
               f"path")
+    check(ops.unfused_passes == 0, "a built-in operator took the unfused "
+          "route")
     # the kernel pair on pull rounds: pagerank's rounds are all pulls
     # (PR_PULL over the reverse CSR); adaptive cc's pull rounds served
     # both the bins and the huge bin
@@ -776,6 +866,61 @@ def pull_path(g, src, sources, res) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: an operator the fused kernels do not take
+# ---------------------------------------------------------------------------
+
+def user_op_path(g, src, sssp_labels) -> dict:
+    """A user operator, int32 min with ``msg = v + 2w`` (no msg kind of
+    the fused kernels), from ``src`` to the fixpoint through the
+    ``pallas`` pair and through the ``xla`` pair (``drivers.resume_loop``),
+    counted as one run (launch counts and ``ops.unfused_passes`` reset
+    just before, read just after).  The pair takes its unfused route:
+    the index maps ``twc_bin_map`` / ``edge_lb_map`` and the torch
+    epilogue.  Labels and rounds bitwise equal between the pairs, and
+    equal to twice the sssp labels of phase 3 (INF kept)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.apps import drivers
+    from repro_torch.core.balancer import BalancerConfig
+    from repro_torch.core.frontier import single_source
+    from repro_torch.core.operators import Operator
+    from repro_torch.kernels import ops
+    op = Operator("sssp_double_weight", "push", "min", lambda v, w: v + 2 * w)
+    inf = 1 << 30
+
+    def run(cfg):
+        labels = torch.full((g.num_vertices,), inf, dtype=torch.int32,
+                            device=g.device)
+        labels[src] = 0
+        return drivers.resume_loop(g, labels, single_source(
+            g.num_vertices, src, g.device), cfg, op)
+    kernels.reset_launch_counts()
+    kern = run(BalancerConfig(strategy="alb", use_pallas=True))
+    launches, unfused = kernels.launch_counts(), ops.unfused_passes
+    plain = run(BalancerConfig(strategy="alb"))
+    want = torch.where(sssp_labels < inf, 2 * sssp_labels, inf)
+    print(f"phase 3c: user operator {op.name} (int32 min, msg v + 2w) "
+          f"through the pallas pair: {kern.rounds} rounds, {unfused} "
+          f"unfused passes, launches {launches}; wall {kern.seconds:.5f} s "
+          f"(xla pair {plain.seconds:.5f} s)", flush=True)
+    check(unfused > 0 and launches["twc_bin_map"] > 0 and
+          launches["edge_lb_map"] > 0, "user operator: the unfused route "
+          "was not taken")
+    check(launches["twc_bin_relax"] == 0 and launches["edge_lb_relax"] == 0,
+          "user operator: a fused kernel was launched")
+    check(torch.equal(kern.labels, plain.labels) and
+          kern.rounds == plain.rounds, "user operator: pallas pair != xla "
+          "pair")
+    check(torch.equal(kern.labels, want), "user operator: labels != 2 x "
+          "sssp")
+    print("phase 3c: labels and rounds bitwise equal to the xla pair and "
+          "to 2 x the sssp labels", flush=True)
+    return {"rounds": kern.rounds, "unfused_passes": unfused,
+            "launches": launches, "seconds": kern.seconds,
+            "seconds_xla": plain.seconds}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -801,7 +946,7 @@ def capture_launches(run) -> dict:
         return rec
 
     real = ops._relax, ops._merge_path
-    ops._relax = types.SimpleNamespace(**{
+    ops._relax = types.SimpleNamespace(takes=real[0].takes, **{
         n: recorder(n, getattr(real[0], n)) for n in RELAX_KERNELS})
     ops._merge_path = types.SimpleNamespace(
         merge_path_map=recorder("merge_path_map", real[1].merge_path_map))
@@ -906,16 +1051,18 @@ def relax_work(name, a, k) -> tuple:
     return nbytes, 8 * int(live.sum()) + search
 
 
-def device_ms(fn, calls, reps: int = 3) -> float:
+def device_ms(fn, calls, reps: int = 3,
+              sleep_cycles: int = 2_000_000) -> float:
     """Mean device time per call over ``calls`` (CUDA events).  The
-    stream is held busy while the host enqueues each group of ``reps``
-    calls, so host overhead between launches is not counted."""
+    stream is held busy (``sleep_cycles``: longer for a chain of many
+    small ops) while the host enqueues each group of ``reps`` calls, so
+    host overhead between launches is not counted."""
     import torch
     for a, k in calls:                   # warm-up
         fn(*a, **k)
     pairs = []
     for a, k in calls:
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep_cycles)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -1130,18 +1277,23 @@ def profile_path(runs: dict, wall_s: dict, label: str = "phase 4") -> dict:
         busy_us = sum(v[0] for v in by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
         plain_wall_us = wall_s[name] * 1e6
+        plan = [v for n, v in by_name.items() if "moe_plan" in n]
         out[name] = {
             "profiled_wall_ms": wall_us / 1e3,
             "unprofiled_wall_ms": plain_wall_us / 1e3,
             "device_ms": busy_us / 1e3,
             "busy_share": busy_us / plain_wall_us if busy_us else None,
+            "launches": sum(v[1] for v in by_name.values()),
+            "moe_plan_ms": sum(v[0] for v in plan) / 1e3,
+            "moe_plan_launches": sum(v[1] for v in plan),
             "top": [[n, round(t / 1e3, 4), c] for n, (t, c) in top]}
         print(f"{label}: profiled {name}: device busy "
               f"{busy_us / 1e3:.2f} ms of the unprofiled median wall "
               f"{plain_wall_us / 1e3:.2f} ms "
               + (f"({busy_us / plain_wall_us:.1%})" if busy_us else
                  "(profiler saw no device time: not measured)")
-              + f"; profiled wall {wall_us / 1e3:.2f} ms", flush=True)
+              + f"; profiled wall {wall_us / 1e3:.2f} ms; "
+              f"{out[name]['launches']} kernel launches", flush=True)
         for n, t, c in out[name]["top"]:
             print(f"{label}:   {t:9.3f} ms {c:5d}x {n}", flush=True)
     return out
@@ -1219,8 +1371,9 @@ def moe_inputs(model):
 
 def plans_equal(model, cfg, seen) -> int:
     """Each captured MoE input's dispatch plan through the kernel route
-    and the one-hot route, from the same probs: bitwise equal.  Returns
-    the number of plans compared."""
+    (``moe_plan``) and the plain route (``moe_plan_ref``: one-hot
+    ranks), from the same probs: bitwise equal.  Returns the number of
+    plans compared."""
     import torch
     from repro_torch.models import moe as MOE
     for li, x in seen:
@@ -1402,17 +1555,26 @@ def lm_path(dev, smoke: bool = False) -> dict:
         remove_attn()
     launches = kernels.launch_counts()
     flash_routes = dict(kernels.KERNELS["flash_attention"].launches_by_route)
-    want = {"positions_in_expert": cfg.num_layers * LM_GEN,
+    clusters = {c: n for c, n in
+                kernels.KERNELS["moe_plan"].launches_by_cluster.items() if n}
+    want = {"moe_plan": cfg.num_layers * LM_GEN, "positions_in_expert": 0,
             "flash_attention": cfg.num_layers}
     print(f"phase 5: kernel launches serving {LM_BATCH} x ({LM_PROMPT} + "
           f"{LM_GEN}) tokens: {launches} (expected {want}); "
-          f"flash_attention by route {flash_routes}", flush=True)
+          f"flash_attention by route {flash_routes}; moe_plan by cluster "
+          f"size {clusters}", flush=True)
     for name, n in want.items():
         check(launches[name] == n, f"{name}: {launches[name]} launches on "
               f"the serving path, expected {n}")
     check(flash_routes["wgmma"] == cfg.num_layers,
           f"flash_attention: {flash_routes} on the serving path, expected "
           f"all {cfg.num_layers} on the wgmma route")
+    from repro_torch.kernels.moe_plan import cluster_size
+    slots = cfg.moe.top_k * LM_BATCH
+    want_clusters = {cluster_size(slots * LM_PROMPT): cfg.num_layers,
+                     cluster_size(slots): cfg.num_layers * (LM_GEN - 1)}
+    check(clusters == want_clusters, f"moe_plan: launches by cluster size "
+          f"{clusters}, expected {want_clusters}")
     check(kern["index"] == LM_PROMPT + LM_GEN - 1, "cache index")
     logits = kern["first_logits"]
     check(logits.shape == (LM_BATCH, 1, cfg.padded_vocab) and
@@ -1424,8 +1586,9 @@ def lm_path(dev, smoke: bool = False) -> dict:
     n_plans = plans_equal(model, cfg, seen)
     del seen
 
-    # kernel 4 in the model: one-hot dispatch with the same attention
-    # gives the same plans, so logits and tokens equal bitwise
+    # the plan kernel in the model: the plain plan (one-hot ranks) with
+    # the same attention gives the same plans, so logits and tokens
+    # equal bitwise
     onehot = serve(model, cfg, prompts, LM_GEN, use_pallas_dispatch=False)
     check(torch.equal(onehot["first_logits"], logits) and
           torch.equal(onehot["tokens"], kern["tokens"]),
@@ -1468,9 +1631,19 @@ def lm_path(dev, smoke: bool = False) -> dict:
           f"depth {d1['layers']}: kernel route != plain route: {d1}")
     skew = skewed_layer0(model, cfg, dev)
 
-    runs = [kern] + [serve(model, cfg, prompts, LM_GEN) for _ in range(2)]
+    # the kernel route and, in turns (k r r k k r), the route moe_plan
+    # replaced, on the same card in this call
+    runs, replaced = [kern], []
+    for i in range(5):
+        if i in (2, 3):
+            runs.append(serve(model, cfg, prompts, LM_GEN))
+        else:
+            with replaced_plan_route():
+                replaced.append(serve(model, cfg, prompts, LM_GEN))
     med = {k: float(np.median([r[k] for r in runs]))
            for k in ("prefill_s", "decode_ms_per_step", "tokens_per_s")}
+    med_replaced = {k: float(np.median([r[k] for r in replaced]))
+                    for k in med}
     cache = T.zeros_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
     _, cache = T.prefill(model, cfg, prompts, cache)
     tok = kern["tokens"][:, :1]
@@ -1483,19 +1656,40 @@ def lm_path(dev, smoke: bool = False) -> dict:
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
     wall = {"prefill": med["prefill_s"],
             "decode_step": med["decode_ms_per_step"] / 1e3}
-    prof = profile_path(
-        {"prefill": lambda: T.prefill(model, cfg, prompts, cache),
-         "decode_step": lambda: T.decode_step(model, cfg, tok, cache)},
-        wall, label="phase 5")
+    steps = {"prefill": lambda: T.prefill(model, cfg, prompts, cache),
+             "decode_step": lambda: T.decode_step(model, cfg, tok, cache)}
+    prof = profile_path(steps, wall, label="phase 5")
+    with replaced_plan_route():
+        prof_replaced = profile_path(
+            steps, {"prefill": med_replaced["prefill_s"],
+                    "decode_step": med_replaced["decode_ms_per_step"] / 1e3},
+            label="phase 5, replaced route")
+    print(f"phase 5: the route moe_plan replaced (the torch plan with the "
+          f"positions_in_expert kernel), same call, median of 3 runs in "
+          f"turns: prefill {med_replaced['prefill_s']:.4f} s, decode "
+          f"{med_replaced['decode_ms_per_step']:.3f} ms per step, "
+          f"{med_replaced['tokens_per_s']:.1f} generated tokens per s",
+          flush=True)
+    for name, pr in prof.items():
+        print(f"phase 5: {name}: {pr['launches']} kernel launches "
+              f"(replaced route {prof_replaced[name]['launches']}); "
+              f"moe_plan {pr['moe_plan_launches']} launches, "
+              f"{pr['moe_plan_ms'] / cfg.num_layers * 1e3:.2f} us of device "
+              f"time per layer", flush=True)
     return {"arch": cfg.name, "layers": cfg.num_layers,
             "params": n_params, "weight_bytes": weight_bytes,
             "init_s": init_s, "launches": launches,
             "flash_launches_by_route": flash_routes,
+            "moe_plan_launches_by_cluster": clusters,
             "plans_compared": n_plans, "attn_sublayer_err": attn_err,
             "depth_sweep": depth, "tokens_agree_28_layers": agree,
             "first_tokens": kern["tokens"][:, 0].tolist(),
             "seconds": {k: [r[k] for r in runs] for k in med},
-            "median": med, "syncs_per_decode_step": len(syncs),
+            "median": med, "median_replaced_route": med_replaced,
+            "seconds_replaced_route": {k: [r[k] for r in replaced]
+                                       for k in med},
+            "profile_replaced_route": prof_replaced,
+            "syncs_per_decode_step": len(syncs),
             "sync_sites": sorted(set(syncs)), "skewed": skew,
             "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
             "profile": prof, "model": model, "cfg": cfg, "prompts": prompts,
@@ -1510,7 +1704,7 @@ def capture_lm_launches(model, cfg, prompts, cache, tok) -> dict:
     from repro_torch.models import layers as L
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
-    calls = {"positions_in_expert": [], "flash_attention": []}
+    calls = {"moe_plan": [], "flash_attention": []}
     phase = ["prefill"]
 
     def recorder(name, fn):
@@ -1519,28 +1713,71 @@ def capture_lm_launches(model, cfg, prompts, cache, tok) -> dict:
             return fn(*a, **k)
         return rec
 
-    real = MOE.positions_in_expert, L.flash_attention
-    MOE.positions_in_expert = recorder("positions_in_expert", real[0])
+    real = MOE.moe_plan, L.flash_attention
+    MOE.moe_plan = recorder("moe_plan", real[0])
     L.flash_attention = recorder("flash_attention", real[1])
     try:
         T.prefill(model, cfg, prompts, cache)
         phase[0] = "decode"
         T.decode_step(model, cfg, tok, cache)
     finally:
-        MOE.positions_in_expert, L.flash_attention = real
+        MOE.moe_plan, L.flash_attention = real
     return calls
 
 
+@contextlib.contextmanager
+def replaced_plan_route():
+    """``models.moe`` plans through ``unfused_plan`` inside the block (a
+    yardstick run of the route ``moe_plan`` replaced)."""
+    from repro_torch.models import moe as MOE
+    real = MOE.moe_plan
+    MOE.moe_plan = unfused_plan
+    try:
+        yield
+    finally:
+        MOE.moe_plan = real
+
+
+def unfused_plan(probs, *, top_k, cap, groups, adaptive):
+    """The route ``moe_plan`` replaced (a yardstick the port never
+    calls): ``dispatch_plan``'s torch ops with the ``positions_in_expert``
+    kernel for the ranks, one rank launch per group."""
+    from repro_torch.kernels import moe_dispatch, ref
+    return ref.moe_plan_ref(probs, top_k=top_k, cap=cap, groups=groups,
+                            adaptive=adaptive,
+                            positions=moe_dispatch.positions_in_expert)
+
+
+def plan_work(a, k):
+    """(bytes, operations) of one plan: the float32 probabilities read
+    once and 13 bytes written per slot (flat_expert, pos, gate, keep);
+    one compare-select per probability and top-k round, and ~10 integer
+    operations per slot (rank, overflow rank, search, writes)."""
+    g, t, e = a[0].shape
+    n = g * t * k["top_k"]
+    return 4 * g * t * e + 13 * n, g * t * e * k["top_k"] + 10 * n
+
+
 def time_lm_kernels(lm: dict) -> list:
-    """Rows 4 and 5: each kernel and its plain version on the card at
-    the shapes phase 5 gave it (CUDA events, stream held busy), beside
+    """The LM kernels' rows: each kernel and its plain version on the card
+    at the shapes phase 5 gave it (CUDA events, stream held busy), beside
     the least time the card could take; ``ms`` is the mean per launch
-    over the serving run's mix (one prefill, LM_GEN - 1 decode steps)."""
+    over the serving run's mix (one prefill, LM_GEN - 1 decode steps).
+    ``moe_plan`` also beside the route it replaced (``unfused_plan``,
+    its kernels and the gaps between them on the card) and
+    ``positions_in_expert`` alone; ``positions_in_expert`` is off the
+    main path, so it is timed on the top-k expert ids of the same
+    plans."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, moe_dispatch, ref
+    from repro_torch.kernels import flash_attention, moe_dispatch, moe_plan
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe as MOE
     calls = capture_lm_launches(lm["model"], lm["cfg"], lm["prompts"],
                                 lm["cache"], lm["tok"])
+    calls["positions_in_expert"] = [
+        (ph, (MOE._top_k(a[0][0], k["top_k"])[1].reshape(-1),
+              a[0].shape[-1]), {}) for ph, a, k in calls["moe_plan"]]
     steps = {"prefill": 1, "decode": LM_GEN - 1}
 
     def sdpa(q, k, v, causal=True):
@@ -1561,16 +1798,27 @@ def time_lm_kernels(lm: dict) -> list:
             flops *= 2
         return byts, flops
 
-    table = [("positions_in_expert", moe_dispatch.positions_in_expert,
-              ref.positions_in_expert_ref, None, pie_work,
-              "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+    def abs_err(got, want):
+        return float((got.float() - want.float()).abs().max())
+
+    # name, kernel, plain, library call, work, peak rate of its operations,
+    # error against plain, tolerance, source, TPU kernel replaced
+    table = [("moe_plan", moe_plan.moe_plan, ref.moe_plan_ref, None,
+              plan_work, SCALAR_OPS_PER_S, plan_err, 0,
+              "src/repro_torch/kernels/csrc/moe_plan.cu",
+              "src/repro/kernels/moe_dispatch.py:45"),
+             ("positions_in_expert", moe_dispatch.positions_in_expert,
+              ref.positions_in_expert_ref, None, pie_work, SCALAR_OPS_PER_S,
+              abs_err, 0, "src/repro_torch/kernels/csrc/moe_dispatch.cu",
               "src/repro/kernels/moe_dispatch.py:45"),
              ("flash_attention", flash_attention.flash_attention,
-              ref.flash_attention_ref, sdpa, fa_work,
+              ref.flash_attention_ref, sdpa, fa_work, BF16_FLOPS_PER_S,
+              abs_err, FLASH_TOL["bfloat16"],
               "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
               "src/repro/kernels/flash_attention.py:68")]
     rows = []
-    for name, fn, plain, lib, work, source, replaces in table:
+    for name, fn, plain, lib, work, rate, err_of, tol, source, replaces \
+            in table:
         by_phase = {}
         for ph, a, k in calls[name]:
             by_phase.setdefault(ph, []).append((a, k))
@@ -1578,29 +1826,37 @@ def time_lm_kernels(lm: dict) -> list:
         err = 0.0
         for cs in by_phase.values():   # the kernel against plain, main path
             for a, k in cs:
-                d = (fn(*a, **k).float() - plain(*a, **k).float()).abs()
-                err = max(err, float(d.max()))
-        tol = 0 if name == "positions_in_expert" else FLASH_TOL["bfloat16"]
+                err = max(err, err_of(fn(*a, **k), plain(*a, **k)))
         check(err <= tol, f"{name} != plain on main-path inputs: {err}")
         t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
              "ops": 0.0}
         per_phase = {}
         n_launch = 0
         for ph, cs in by_phase.items():
-            w = steps[ph] * len(cs)          # launches on the serving run
+            w = steps[ph] * len(cs)          # calls on the serving run
             cs = cs[:4]                      # time a few of each shape
             ms = device_ms(fn, cs)
-            pms = device_ms(plain, cs)
+            pms = device_ms(plain, cs, sleep_cycles=20_000_000)
             lms = device_ms(lib, cs) if lib is not None else None
             b = sum(work(a, k)[0] for a, k in cs) / len(cs)
             o = sum(work(a, k)[1] for a, k in cs) / len(cs)
             per_phase[ph] = {"ms": ms, "plain_ms": pms, "library_ms": lms,
-                             "bytes": b, "ops": o, "launches": w,
+                             "bytes": b, "ops": o, "calls": w,
                              "shape": list(cs[0][0][0].shape)}
             if name == "flash_attention":     # which of its two kernels
                 q = cs[0][0][0]
                 per_phase[ph]["kernel_route"] = flash_attention.route(
                     q.dtype, q.shape[-1])
+            if name == "moe_plan":            # beside the route replaced
+                pie = [((MOE._top_k(a[0][0], k["top_k"])[1].reshape(-1),
+                         a[0].shape[-1]), {}) for a, k in cs]
+                per_phase[ph].update({
+                    "unfused_ms": device_ms(unfused_plan, cs,
+                                            sleep_cycles=20_000_000),
+                    "positions_in_expert_ms": device_ms(
+                        moe_dispatch.positions_in_expert, pie),
+                    "cluster": moe_plan.cluster_size(
+                        cs[0][0][0].shape[1] * cs[0][1]["top_k"])})
             n_launch += w
             for key, val in (("ms", ms), ("plain_ms", pms),
                              ("library_ms", lms or 0.0), ("bytes", b),
@@ -1608,7 +1864,7 @@ def time_lm_kernels(lm: dict) -> list:
                 t[key] += w * val
         t = {k: v / n_launch for k, v in t.items()}
         t_b = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_o = t["ops"] / BF16_FLOPS_PER_S * 1e3
+        t_o = t["ops"] / rate * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": lm["launches"][name],
@@ -1653,10 +1909,14 @@ def main() -> int:
     errs = kernel_vs_plain(dev)
     relax_vs_plain(dev)
     lm_kernels_vs_plain(dev)
+    moe_plan_vs_plain(dev)
     mp = main_path(dev, args.scale)
     g, src, sources = mp.pop("graph"), mp.pop("src"), mp.pop("sources")
-    pp = pull_path(g, src, sources, mp.pop("results"))
+    res = mp.pop("results")
+    pp = pull_path(g, src, sources, res)
     apps, cfgs = pp.pop("apps"), pp.pop("cfgs")
+    pp["user_operator"] = user_op_path(g, src, res["sssp"].labels)
+    del res
     launches = {k: mp["launches"][k] + pp["launches"][k]
                 for k in GRAPH_KERNELS + ("twc_bin_map", "edge_lb_map")}
     rows = time_kernels(g, src, sources, errs, launches)
@@ -1696,10 +1956,19 @@ def main() -> int:
         print(f"phase 4: {r['name']} ({'/'.join(routes)}): {r['ms']:.4f} ms "
               f"per launch over the serving mix (plain {r['plain_ms']:.4f} "
               f"ms, library "
-              f"{r['library_ms']} ms, bound {r['bound_ms']:.5f} ms by "
+              f"{r['library_ms']} ms, bound {r['bound_ms']:.7f} ms by "
               f"{r['bound_by']}); max error against plain on main-path "
               f"inputs {r['max_abs_err']}; {r['launches']} launches; by "
               f"phase {r['by_phase']}", flush=True)
+    plan = lm_rows[0]["by_phase"]
+    for ph, t in plan.items():
+        bms = max(t["bytes"] / HBM_BYTES_PER_S,
+                  t["ops"] / SCALAR_OPS_PER_S) * 1e3
+        print(f"phase 4: moe_plan at {ph} (cluster {t['cluster']}): "
+              f"{t['ms']:.4f} ms per launch, bound {bms:.7f} ms; plain "
+              f"{t['plain_ms']:.4f} ms; the route it replaced "
+              f"{t['unfused_ms']:.4f} ms; positions_in_expert alone "
+              f"{t['positions_in_expert_ms']:.4f} ms", flush=True)
     for k in ("model", "cfg", "prompts", "cache", "tok"):
         lm.pop(k)
     print(json.dumps({"lm_path": lm}), flush=True)

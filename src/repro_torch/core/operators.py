@@ -64,6 +64,12 @@ _PULL_TWINS: dict = {}
 _PUSH_OF: dict = {}                   # pull twin -> its push operator
 
 
+def has_msg_kind(op: Operator) -> bool:
+    """Whether ``op`` (or, for a pull twin, its push operator) is in the
+    table of :func:`msg_kind`."""
+    return _PUSH_OF.get(op, op) in _MSG_KIND
+
+
 def msg_kind(op: Operator) -> int:
     """The relax kernels' ``Msg`` value for ``op.msg`` (an index into
     :data:`MSG_KINDS`); a pull twin takes its push operator's.  Raises

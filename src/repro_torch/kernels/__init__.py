@@ -10,26 +10,35 @@
 * ``edge_lb.edge_lb_map``       — ``csrc/edge_lb.cu`` (CUDA C++), the
   huge bin's index map (the Pallas kernel's counterpart);
 * ``merge_path.merge_path_map`` — ``csrc/merge_path.cu`` (CUDA C++);
+* ``moe_plan.moe_plan``          — ``csrc/moe_plan.cu`` (CUDA C++), the
+  whole MoE dispatch plan of a layer (top-k, gates, arrival ranks, ALB
+  rebalance, keep) in one launch, one thread block cluster per group;
 * ``moe_dispatch.positions_in_expert`` — ``csrc/moe_dispatch.cu``
-  (CUDA C++), the MoE dispatch plan's arrival ranks;
+  (CUDA C++), the arrival ranks alone (the Pallas kernel's counterpart;
+  off the main path since ``moe_plan``);
 * ``flash_attention.flash_attention`` — the prefill attention of the LM
   serving path, two CUDA C++ kernels chosen by ``flash_attention.route``:
   ``csrc/flash_attention_wgmma.cu`` (bf16, head width 64 or 128: TMA
   and ``wgmma``) and ``csrc/flash_attention.cu`` (float32 and other
   head widths: CUDA cores);
-* ``ref``                       — plain PyTorch versions of all seven;
+* ``ref``                       — plain PyTorch versions of all eight;
 * ``ops``                       — the executor pairs of
-  ``core.balancer``: the fused relax kernels, and ``merge_path_map``
-  with its torch gather/scatter epilogue;
+  ``core.balancer``: the fused relax kernels (or, for an operator they
+  do not take, the index maps with the torch epilogue, counted in
+  ``ops.unfused_passes``), and ``merge_path_map`` with its torch
+  gather/scatter epilogue;
 * ``build``                     — ``nvcc`` + ``ctypes``, on first use.
 
 Each wrapper keeps a plain-integer launch counter (``fn.launches``),
 incremented only where it launches its kernel; ``flash_attention`` also
-counts each route (``fn.launches_by_route``).
+counts each route (``fn.launches_by_route``), ``moe_plan`` each cluster
+size (``fn.launches_by_cluster``).
 """
 from __future__ import annotations
 
-from . import flash_attention as _flash   # the module keeps its name
+from . import flash_attention as _flash   # the modules keep their names
+from . import moe_plan as _moe_plan
+from . import ops as _ops
 from .edge_lb import edge_lb_map
 from .merge_path import merge_path_map
 from .moe_dispatch import positions_in_expert
@@ -39,6 +48,7 @@ from .twc_gather import twc_bin_map
 KERNELS = {"twc_bin_relax": twc_bin_relax, "edge_lb_relax": edge_lb_relax,
            "twc_bin_map": twc_bin_map, "edge_lb_map": edge_lb_map,
            "merge_path_map": merge_path_map,
+           "moe_plan": _moe_plan.moe_plan,
            "positions_in_expert": positions_in_expert,
            "flash_attention": _flash.flash_attention}
 
@@ -49,7 +59,11 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Zero every launch counter, and ``ops.unfused_passes``."""
     for fn in KERNELS.values():
         fn.launches = 0
-        for r in getattr(fn, "launches_by_route", ()):
-            fn.launches_by_route[r] = 0
+        for by in ("launches_by_route", "launches_by_cluster"):
+            counts = getattr(fn, by, {})
+            for r in counts:
+                counts[r] = 0
+    _ops.unfused_passes = 0

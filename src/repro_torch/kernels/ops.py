@@ -11,7 +11,15 @@ the two pairs differ:
   which maps slots to edges in registers, gathers, applies ``op.msg``
   and combines into ``labels`` with atomics.  The pair is registered
   ``in_place``: its entries write ``labels`` and return it, and the
-  round hands them a private copy, once per round.
+  round hands them a private copy, once per round.  An operator the
+  fused kernels do not take (``relax.takes``: a ``msg`` outside
+  ``operators.msg_kind``'s table, or a combine on a label dtype they do
+  not reduce, such as float32 min) takes the JAX pair's route instead:
+  the index-map kernel (``twc_gather.twc_bin_map`` /
+  ``edge_lb.edge_lb_map``), then the torch epilogue
+  ``ref.slot_epilogue``, copied into ``labels``.  The operator chooses
+  the route before any launch; ``unfused_passes`` counts the passes
+  that took it.
 * ``merge_path`` — ``merge_path_apply``: the index-map kernel
   ``merge_path_map`` plus the torch epilogue ``_slot_apply``, which
   returns fresh labels.  Fusing that epilogue is later work (ROADMAP
@@ -29,9 +37,25 @@ from __future__ import annotations
 
 import torch
 
+from . import edge_lb as _edge_lb
 from . import merge_path as _merge_path
 from . import relax as _relax
+from . import twc_gather as _twc
 from .ref import slot_epilogue
+
+#: passes of the ``pallas`` pair that took the unfused route because the
+#: fused kernels do not take their operator (``kernels.reset_launch_counts``
+#: resets it)
+unfused_passes = 0
+
+
+def _unfused(g, values, labels, fmask, src, ge, mask, op):
+    """The unfused route's epilogue, written into ``labels`` (the pair
+    is ``in_place``)."""
+    global unfused_passes
+    unfused_passes += 1
+    return labels.copy_(slot_epilogue(g.col_idx, g.edge_w, values, labels,
+                                      fmask, src, ge, mask, op))
 
 
 def _slot_apply(g, values, labels, fmask, hvidx, ge, j, mask, op):
@@ -46,8 +70,14 @@ def edge_lb_apply(g, values, labels, fmask, hvidx, hdeg, hrow, total,
                   ecap: int, op, distribution: str, num_tiles: int,
                   tile_edges: int):
     """Host-driven LB entry: one ``edge_lb_relax`` launch, combined into
-    ``labels`` in place."""
+    ``labels`` in place (or the unfused route, for an operator the
+    kernel does not take)."""
     start_e = torch.cumsum(hdeg, 0, dtype=torch.int32) - hdeg
+    if not _relax.takes(op, labels.dtype):
+        ge, j, _, mask = _edge_lb.edge_lb_map(
+            start_e, hrow, start_e, total, ecap, tile_edges=tile_edges,
+            distribution=distribution, num_tiles=num_tiles)
+        return _unfused(g, values, labels, fmask, hvidx[j], ge, mask, op)
     return _relax.edge_lb_relax(
         values, labels, fmask, g.col_idx, g.edge_w, hvidx, start_e, hrow,
         total, ecap, op, tile_edges=tile_edges, distribution=distribution,
@@ -78,7 +108,14 @@ def merge_path_no_bins(*_args, **_kwargs):
 def twc_bin_apply(g, values, labels, fmask, bvidx, bdeg, brow,
                   width: int, op, chunk):
     """Host-driven bin entry: one ``twc_bin_relax`` launch, combined
-    into ``labels`` in place."""
+    into ``labels`` in place (or the unfused route, for an operator the
+    kernel does not take)."""
+    if not _relax.takes(op, labels.dtype):
+        ge, anchor, _, mask = _twc.twc_bin_map(
+            bvidx, bdeg, brow, bvidx, width=width, chunk=chunk,
+            sentinel=labels.shape[-1])
+        return _unfused(g, values, labels, fmask, anchor.reshape(-1),
+                        ge.reshape(-1), mask.reshape(-1), op)
     return _relax.twc_bin_relax(values, labels, fmask, g.col_idx,
                                 g.edge_w, bvidx, bdeg, brow, op,
                                 width=width, chunk=chunk)

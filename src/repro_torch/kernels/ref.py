@@ -6,9 +6,10 @@ kernels, three for the merge-path map ``(graph_e, slot_j, mask)``; the
 labels combined in place for the fused relax kernels
 (``twc_bin_relax_ref``, ``edge_lb_relax_ref``: the index map above plus
 the torch epilogue ``slot_epilogue``); the arrival rank for
-``positions_in_expert_ref``; the attention output for
-``flash_attention_ref``.  The kernel wrappers call these for CPU
-tensors, and the CUDA kernels are held against them on the card.  The
+``positions_in_expert_ref``; the whole MoE dispatch plan for
+``moe_plan_ref``; the attention output for ``flash_attention_ref``.
+The kernel wrappers call these for CPU tensors, and the CUDA kernels
+are held against them on the card.  The
 differences from the JAX oracles: ``twc_bin_map_ref`` returns exactly
 ``[N, W]`` (no padding of N to a TPU vertex tile), and
 ``positions_in_expert_ref`` gives 0 to an out-of-range expert id, as the
@@ -137,6 +138,33 @@ def positions_in_expert_ref(flat_expert, num_experts: int):
     idx = torch.where(valid, flat_expert, 0).to(torch.int64)
     got = torch.gather(pos, 1, idx[:, None])[:, 0]
     return torch.where(valid, got, 0)
+
+
+def moe_plan_ref(probs, *, top_k: int, cap: int, groups: int,
+                 adaptive: bool, positions=positions_in_expert_ref):
+    """Oracle for moe_plan.moe_plan: the dispatch plan of each of
+    ``groups`` groups of ``probs`` (float32 ``[G, Tg, E]``) ->
+    ``(flat_expert, pos, gate_flat, keep)``, each ``[G, Tg*K]``: the
+    stable top-k, the gates over their left-to-right sum (clamped at
+    1e-9), the arrival ranks (``positions``, one call per group), the
+    ALB rebalance when ``adaptive``, then ``keep = pos < cap``.  The
+    math is ``models.moe``'s ``_top_k``, ``_row_sum`` and ``_rebalance``:
+    one copy of it."""
+    from repro_torch.models.moe import _rebalance, _row_sum, _top_k
+    g, tg, e = probs.shape
+    if g != groups:
+        raise ValueError(f"moe_plan_ref: probs has {g} groups, not "
+                         f"{groups}")
+    vals, idx = _top_k(probs, top_k)                      # [G, Tg, K]
+    vals = vals / torch.clamp(_row_sum(vals)[..., None], min=1e-9)
+    flat_expert = idx.reshape(g, tg * top_k)
+    pos = torch.stack([positions(fe, e) for fe in flat_expert])
+    gate_flat = vals.reshape(g, tg * top_k)
+    if adaptive:
+        flat_expert, pos, gate_flat = _rebalance(probs, top_k, cap,
+                                                 flat_expert, pos,
+                                                 gate_flat)
+    return flat_expert, pos, gate_flat, pos < cap
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True):

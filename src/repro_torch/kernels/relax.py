@@ -15,8 +15,11 @@ batch-shared.  ``labels`` is written in place and returned; it must not
 share memory with ``values`` (the round hands the pair a private copy of
 its labels and reads the round-entry values).  The operator's ``msg``
 goes to the kernel as ``operators.msg_kind``; the labels may be int32
-(min or add) or float32 (add).  Anything else raises: there is no
-fallback to the unfused route.
+(min or add) or float32 (add).  :func:`takes` says whether the kernels
+take an operator and a label dtype; the wrappers raise on anything
+else.  The ``pallas`` pair's entries (``kernels/ops.py``) ask
+:func:`takes` first and send any other operator through the unfused
+route, as the JAX pair runs every operator.
 
 For CPU tensors the wrappers compute the plain version
 (``ref.twc_bin_relax_ref`` / ``ref.edge_lb_relax_ref``: the reference
@@ -30,7 +33,7 @@ import functools
 
 import torch
 
-from repro_torch.core.operators import msg_kind
+from repro_torch.core.operators import has_msg_kind, msg_kind
 
 from . import build
 from .ref import edge_lb_relax_ref, twc_bin_relax_ref
@@ -53,6 +56,13 @@ def _launcher(source: str, kernel: str, n_ptr: int, n_int: int):
     return fn
 
 
+def takes(op, labels_dtype: torch.dtype) -> bool:
+    """Whether the fused kernels run ``op`` on labels of ``labels_dtype``:
+    its combine on that dtype is one of ``_TAKES`` and its ``msg`` has a
+    kind (``operators.msg_kind``).  Never raises."""
+    return (labels_dtype, op.combine) in _TAKES and has_msg_kind(op)
+
+
 def _state(kernel: str, values, labels, fmask, col_idx, edge_w,
            op) -> list:
     """Check the batched state and the operator; returns the kernels'
@@ -60,10 +70,12 @@ def _state(kernel: str, values, labels, fmask, col_idx, edge_w,
     if labels.ndim != 2:
         raise ValueError(f"{kernel}: labels must be [B, V]; got "
                          f"{tuple(labels.shape)}")
-    if (labels.dtype, op.combine) not in _TAKES:
-        raise TypeError(f"{kernel}: {labels.dtype} labels with combine "
-                        f"{op.combine!r} are not taken (int32 min, int32 "
-                        f"add, float32 add)")
+    if not takes(op, labels.dtype):
+        if (labels.dtype, op.combine) not in _TAKES:
+            raise TypeError(f"{kernel}: {labels.dtype} labels with "
+                            f"combine {op.combine!r} are not taken (int32 "
+                            f"min, int32 add, float32 add)")
+        msg_kind(op)                     # raises: the msg has no kind
     kind = msg_kind(op)
     dev = labels.device
     for name, t, dtype in (("values", values, labels.dtype),

@@ -16,10 +16,13 @@ the port runs it unconditionally: it is the identity when nothing
 overflows (``fits`` is all false), so the plan is bitwise the same and
 no device-to-host sync is made per layer.
 
-``dispatch_plan(use_pallas_dispatch=True)`` computes the arrival ranks
-with the hand-written kernel ``kernels.moe_dispatch.positions_in_expert``
-(on CUDA tensors; its plain version on CPU tensors), ``False`` with the
-one-hot cumsum.  The expert FFNs are plain batched matrix products.
+``dispatch_plan(use_pallas_dispatch=True)`` computes the whole plan
+(top-k, gates, arrival ranks, rebalance, ``keep``) in ONE launch of the
+hand-written kernel ``kernels.moe_plan.moe_plan`` (on CUDA tensors; its
+plain version on CPU tensors); ``False`` runs the plain version
+``kernels.ref.moe_plan_ref``, whose ranks are the one-hot cumsum.
+Grouped dispatch plans every group in that one launch.  The expert FFNs
+are plain batched matrix products.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.moe_dispatch import positions_in_expert
-from ..kernels.ref import positions_in_expert_ref
+from ..kernels.moe_plan import moe_plan
+from ..kernels.ref import moe_plan_ref, positions_in_expert_ref
 from .layers import COMPUTE_DTYPE, MLP, _matrix
 
 
@@ -85,49 +88,42 @@ def dispatch_plan(probs, m, t, *, use_pallas_dispatch: bool = False):
     probs: float32 ``[T, E]``.  ``flat_expert`` and ``pos`` are int32
     ``[T*K]``, ``gate_flat`` float32, ``keep`` bool; ``cap`` a host int.
     """
-    gate_vals, gate_idx = _top_k(probs, m.top_k)          # [T, K]
-    gate_vals = gate_vals / torch.clamp(_row_sum(gate_vals)[:, None],
-                                        min=1e-9)
     cap = _cap_of(m, t)
-
-    flat_expert = gate_idx.reshape(-1)                    # [T*K] int32
-    if use_pallas_dispatch:
-        pos = positions_in_expert(flat_expert, m.num_experts)
-    else:
-        pos = _positions_in_expert(flat_expert, m.num_experts)
-
-    gate_flat = gate_vals.reshape(-1)
-    if m.adaptive:
-        flat_expert, pos, gate_flat = _rebalance(probs, m, cap, flat_expert,
-                                                 pos, gate_flat)
-    keep = pos < cap
-    return flat_expert, pos, gate_flat, keep, cap
+    plan = moe_plan if use_pallas_dispatch else moe_plan_ref
+    flat_expert, pos, gate_flat, keep = plan(
+        probs[None], top_k=m.top_k, cap=cap, groups=1, adaptive=m.adaptive)
+    return flat_expert[0], pos[0], gate_flat[0], keep[0], cap
 
 
-def _rebalance(probs, m, cap: int, flat_e, pos, gate):
-    """The ALB executor: deal the overflow slots (``pos >= cap``) in
-    order over the free capacity of all experts by exclusive prefix sum
-    + searchsorted (side right: where experts have no free slot, the
+def _rebalance(probs, top_k: int, cap: int, flat_e, pos, gate):
+    """The ALB executor, per group (``probs [G, Tg, E]``; the rest
+    ``[G, Tg*K]``): deal the overflow slots (``pos >= cap``) in order
+    over the free capacity of all experts by exclusive prefix sum +
+    searchsorted (side right: where experts have no free slot, the
     repeated ``start`` values resolve to the last of them).  Rerouted
     slots take the router's probability of the expert they land on.
     Identity when nothing overflows."""
-    e = m.num_experts
+    g, _, e = probs.shape
     overflow = pos >= cap
     kept1 = (~overflow).to(torch.int32)
-    load = torch.zeros((e,), dtype=torch.int32, device=pos.device) \
-        .index_add_(0, flat_e, kept1)
+    load = torch.zeros((g, e), dtype=torch.int32, device=pos.device) \
+        .scatter_add_(1, flat_e.long(), kept1)
     free = cap - load                                     # >= 0
-    start = torch.cumsum(free, 0, dtype=torch.int32) - free   # exclusive
-    total_free = free.sum(dtype=torch.int32)
-    ovf_rank = torch.cumsum(overflow.to(torch.int32), 0,
+    start = torch.cumsum(free, 1, dtype=torch.int32) - free   # exclusive
+    total_free = free.sum(1, keepdim=True, dtype=torch.int32)
+    ovf_rank = torch.cumsum(overflow.to(torch.int32), 1,
                             dtype=torch.int32) - 1
     j = torch.searchsorted(start, ovf_rank, right=True, out_int32=True) - 1
     j = torch.clamp(j, 0, e - 1)
+    jl = j.long()
     fits = overflow & (ovf_rank < total_free)
     new_e = torch.where(fits, j, flat_e)
-    new_pos = torch.where(fits, load[j] + (ovf_rank - start[j]), pos)
-    tok = torch.arange(flat_e.shape[0], device=pos.device) // m.top_k
-    new_gate = torch.where(fits, probs[tok, j].to(gate.dtype), gate)
+    new_pos = torch.where(fits, load.gather(1, jl) + (ovf_rank -
+                                                      start.gather(1, jl)),
+                          pos)
+    grp = torch.arange(g, device=pos.device)[:, None]
+    tok = torch.arange(flat_e.shape[1], device=pos.device) // top_k
+    new_gate = torch.where(fits, probs[grp, tok, jl].to(gate.dtype), gate)
     return new_e, new_pos, new_gate
 
 
@@ -143,7 +139,7 @@ def moe_apply(p, x, cfg, *, use_pallas_dispatch: bool = False):
 
     Grouped (GShard-style) dispatch when ``m.dispatch_groups > 1``:
     positions, capacity and the ALB rebalance are computed per group of
-    ``T / G`` tokens (``_plan_static``).
+    ``T / G`` tokens, all groups in one ``moe_plan`` call.
     """
     m = cfg.moe
     bsz, s, d = x.shape
@@ -166,11 +162,11 @@ def moe_apply(p, x, cfg, *, use_pallas_dispatch: bool = False):
     aux = m.router_aux_weight * e * torch.sum(me * ce)
 
     if g > 1:
-        plans = [_plan_static(pg, m, tg, use_pallas_dispatch)
-                 for pg in probs.reshape(g, tg, e)]
-        flat_expert, pos, gate_flat, keep = (torch.stack(z) for z in
-                                             list(zip(*plans))[:4])
         cap = _cap_of(m, tg)
+        plan = moe_plan if use_pallas_dispatch else moe_plan_ref
+        flat_expert, pos, gate_flat, keep = plan(
+            probs.reshape(g, tg, e), top_k=k, cap=cap, groups=g,
+            adaptive=m.adaptive)
     else:
         flat_expert, pos, gate_flat, keep, cap = dispatch_plan(
             probs, m, t, use_pallas_dispatch=use_pallas_dispatch)
@@ -211,7 +207,3 @@ def moe_apply(p, x, cfg, *, use_pallas_dispatch: bool = False):
 
 def _cap_of(m, t):
     return max(int(m.capacity_factor * t * m.top_k / m.num_experts), 4)
-
-
-def _plan_static(probs, m, t, use_pallas_dispatch: bool = False):
-    return dispatch_plan(probs, m, t, use_pallas_dispatch=use_pallas_dispatch)

@@ -1,8 +1,9 @@
 """The CUDA kernels of ``repro_torch`` against their plain versions on
 the card (the index kernels exactly: masks equal, masked positions
 equal; the fused relax kernels exactly for min and int add, within
-``FLOAT_ADD_RTOL`` for float add; attention, both routes, at the
-tolerances of tests/test_kernels_lm.py).  Marked ``gpu``:
+``FLOAT_ADD_RTOL`` for float add; the fused MoE plan bitwise;
+attention, both routes, at the tolerances of tests/test_kernels_lm.py).
+Marked ``gpu``:
 they skip without a CUDA device.  No JAX import, so the file also runs
 on a machine that has only PyTorch:
 
@@ -17,6 +18,7 @@ from repro_torch.kernels import edge_lb as tlb
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import merge_path as tmp
 from repro_torch.kernels import moe_dispatch as tmd
+from repro_torch.kernels import moe_plan as tmplan
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import relax as trelax
 from repro_torch.kernels import twc_gather as ttwc
@@ -107,6 +109,48 @@ def test_cuda_positions_in_expert_matches_plain(cuda_device, n, e):
         got = tmd.positions_in_expert(t, e)
         want = tref.positions_in_expert_ref(t, e)
         assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def _plan_bits(plan):
+    """The plan with the gates as their int32 words (NaN compares)."""
+    fe, pos, gate, keep = plan
+    return fe, pos, gate.view(torch.int32), keep
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ek", [(8, 2), (16, 1), (64, 6), (256, 16)])
+@pytest.mark.parametrize("t,g", [(1, 1), (4, 1), (33, 4), (1024, 2),
+                                 (4096, 1)])
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_cuda_moe_plan_matches_plain(cuda_device, ek, t, g, adaptive):
+    """Bitwise, on uniform, skewed (one expert takes all, with a cap
+    small enough that the overflow exceeds the free places), tied and
+    NaN-row probabilities; one launch per plan, counted by its cluster
+    size."""
+    e, k = ek
+    rng = np.random.default_rng(e + k + t + g)
+    x = rng.random((g, t, e)).astype(np.float32)
+    skew = x.copy()
+    skew[..., 0] += 1e4
+    ties = np.round(x * 4) / 4 + 0.25
+    ties[..., 1] = ties[..., 0]
+    nan = x.copy()
+    nan[0, t // 2, e // 3] = np.nan
+    cap = max(int(1.25 * t * k / e), 4)
+    for probs, c in ((x, cap), (skew, max(cap // 8, 1)), (ties, cap),
+                     (nan, cap)):
+        p = torch.from_numpy(probs / probs.sum(-1, keepdims=True)) \
+            .to(cuda_device)
+        before = tmplan.moe_plan.launches
+        got = tmplan.moe_plan(p, top_k=k, cap=c, groups=g,
+                              adaptive=adaptive)
+        want = tref.moe_plan_ref(p, top_k=k, cap=c, groups=g,
+                                 adaptive=adaptive)
+        assert tmplan.moe_plan.launches == before + 1
+        for a, b in zip(_plan_bits(got), _plan_bits(want)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert tmplan.moe_plan.launches_by_cluster[
+        tmplan.cluster_size(t * k)] > 0
 
 
 @pytest.mark.gpu

@@ -285,3 +285,119 @@ def test_in_place_round_keeps_caller_tensors(rmat_pair, monkeypatch,
         lt.untyped_storage().data_ptr()
     assert all(val.untyped_storage().data_ptr() ==
                lt.untyped_storage().data_ptr() for val, _ in seen)
+
+
+# ---- operators the fused kernels do not take: the unfused route ------------
+
+def _user_ops(msgs):
+    """The same user operators in both packages (module-level singletons,
+    as operators are): none is in ``operators.msg_kind``'s table."""
+    return {name: (jops.Operator(name, "push", comb, msg),
+                   tops.Operator(name, "push", comb, msg), dtype)
+            for name, (comb, msg, dtype) in msgs.items()}
+
+
+USER_OPS = _user_ops({
+    "int_min_v_plus_2w": ("min", lambda v, w: v + 2 * w, np.int32),
+    "float_min": ("min", lambda v, w: v + w, np.float32),
+    "int_add_own_msg": ("add", lambda v, w: 3 * v - w, np.int32)})
+USER_CASES = [("int_min_v_plus_2w", "push"), ("int_min_v_plus_2w", "pull"),
+              ("float_min", "push"), ("float_min", "pull"),
+              ("int_add_own_msg", "push")]
+
+
+@pytest.fixture(scope="module")
+def road_pair():
+    gj = jg.road_grid(12)
+    return gj, tg.road_grid(12, device="cpu")
+
+
+def _assert_stats_equal(a, b):
+    assert a._fields == b._fields
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y),
+                                          err_msg=f)
+        else:
+            assert x == y, (f, x, y)
+
+
+def _user_state(gv, dtype, b, seed):
+    """Labels (INF / inf where unreached; small for the add), a frontier
+    that holds every vertex of SPECIAL_DEG (the huge bin's rows)."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 1000, (b, gv)).astype(dtype)
+    if dtype == np.float32:
+        labels += rng.random((b, gv)).astype(np.float32)
+    labels[rng.random((b, gv)) < 0.3] = INF if dtype == np.int32 else np.inf
+    frontier = rng.random((b, gv)) < 0.3
+    frontier[:, :len(SPECIAL_DEG)] = True
+    return labels, frontier
+
+
+@pytest.mark.parametrize("op,direction", USER_CASES)
+@pytest.mark.parametrize("graph", ["graphs", "road_pair"])
+def test_pallas_pair_runs_user_operators_as_jax(request, op, direction,
+                                                graph):
+    """``relax`` through the port's ``pallas`` pair with an operator the
+    fused kernels do not take equals JAX's ``pallas`` pair (Pallas in
+    interpret mode) bitwise: labels and every ``RoundStats`` field.  The
+    operator-chosen route is counted, and no fused launch is."""
+    gj, gt = request.getfixturevalue(graph)[:2]
+    jop, top, dtype = USER_OPS[op]
+    assert not trelax.takes(top, torch.from_numpy(np.zeros(1, dtype)).dtype)
+    labels, frontier = _user_state(gj.num_vertices, dtype, 2,
+                                   len(op) + len(direction))
+    kw = dict(strategy="alb", direction=direction, use_pallas=True)
+    out_j = jb.relax(gj, jnp.asarray(labels), jnp.asarray(labels),
+                     jnp.asarray(frontier), jb.BalancerConfig(**kw), jop,
+                     collect_stats=True)
+    tk.reset_launch_counts()
+    lt = torch.from_numpy(labels.copy())
+    out_t = tb.relax(gt, lt, lt, torch.from_numpy(frontier),
+                     tb.BalancerConfig(**kw), top, collect_stats=True)
+    assert tkops.unfused_passes > 0
+    assert set(tk.launch_counts().values()) == {0}
+    np.testing.assert_array_equal(out_t[0].numpy(), np.asarray(out_j[0]))
+    _assert_stats_equal(out_j[1], out_t[1])
+    assert out_t[1].direction == direction
+    np.testing.assert_array_equal(lt.numpy(), labels)
+    assert out_t[1].edges_twc > 0
+    if graph == "graphs" and direction == "push":   # the hubs' out-edges
+        assert out_t[1].lb_invoked
+    tk.reset_launch_counts()
+    assert tkops.unfused_passes == 0
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_builtin_operators_never_take_the_unfused_route(graphs, op):
+    """Every operator of the fused kernels, and the pull twins, on the
+    labels they run on: ``takes`` holds and a round of the ``pallas``
+    pair counts no unfused pass."""
+    _, gt, _ = graphs
+    top = op_pair(op)[1]
+    values, labels, fmask = state(op.partition("@")[0], 2, 9)
+    assert trelax.takes(top, torch.from_numpy(labels).dtype)
+    tk.reset_launch_counts()
+    fr = torch.from_numpy(fmask)
+    fr[:, :len(SPECIAL_DEG)] = True
+    g = gt.reverse() if top.direction == "pull" else gt
+    out, st = tb.relax(g, torch.from_numpy(values), torch.from_numpy(labels),
+                       fr, tb.BalancerConfig(strategy="alb",
+                                             use_pallas=True),
+                       top, collect_stats=True)
+    assert st.edges_twc > 0
+    assert st.lb_invoked or top.direction == "pull"   # hubs: out-edges
+    assert tkops.unfused_passes == 0
+
+
+def test_takes_answers_without_raising():
+    other = tops.Operator("double", "push", "min", lambda v, w: 2 * v)
+    assert not trelax.takes(other, torch.int32)
+    assert not trelax.takes(tops.as_pull(other), torch.int32)
+    assert not trelax.takes(tops.SSSP_RELAX, torch.float32)   # float min
+    assert not trelax.takes(tops.KCORE_DEC, torch.int64)
+    assert trelax.takes(tops.SSSP_RELAX, torch.int32)
+    assert trelax.takes(tops.as_pull(tops.BFS_HOP), torch.int32)
+    assert trelax.takes(tops.PR_PULL, torch.float32)
