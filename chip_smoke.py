@@ -19,7 +19,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and 128, ragged S included; simt: float32 and other widths), each
    case counted on its route; ``moe_plan`` bitwise over T x (E, K) x G
    x adaptive x (uniform, skewed, tied, NaN-row probabilities), every
-   cluster size the wrapper picks;
+   cluster size the wrapper picks; the static round's device-int32
+   entries (``twc_bin_relax`` with its first chunk and pass count on the
+   device, over V rows; ``edge_lb_relax``, ``merge_path_map`` and
+   ``edge_lb_map`` with the total on the device, over a span far past
+   it: total 0, ragged tails, both deals, pass counts 0..k) against
+   their plain versions given the same ints;
 3. the main path at full size: ALB ``sssp``, ``bfs`` and ``sssp_batch``
    (B = 8) on ``rmat(22, 16, seed=0)`` through the kernel pair (one
    fused ``twc_bin_relax`` / ``edge_lb_relax`` launch per pass), with
@@ -41,6 +46,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    pair's unfused route (``twc_bin_map`` / ``edge_lb_map`` and the torch
    epilogue) on the same graph: bitwise equal to the ``xla`` pair and
    to twice the sssp labels;
+3d. the static-shape and fused round modes on the same two graphs:
+   ALB sssp, bfs, sssp_batch, adaptive sssp, adaptive cc(sym),
+   kcore(10) and pagerank(20) through the kernel pair in
+   ``mode="spmd"`` (one replay of a captured round graph a round) and
+   ``mode="fused"`` (one launch of a graph whose WHILE node turns on the
+   card, ``core/graph_loop.py`` with ``csrc/graph_loop.cu``), sssp also
+   fused through merge_path and under ``strategy="twc"`` (the unbounded
+   bin); labels, rounds and per-round frontier stats held against host
+   mode (pagerank at ``PR_RTOL_PAIR``), ``host_transfers`` 0 (fused) or
+   as host (spmd), zero syncing calls between a fused dispatch and its
+   fetch under ``set_sync_debug_mode("error")``; each run's launches
+   counted on the card and held against its rounds x bins, launches
+   recorded by the captures, graphs captured and their seconds, the
+   condition kernel's decisions, medians of 6 walls host / spmd / fused in turns, device profiles of
+   sssp and pagerank in host and spmd mode, and the device span of each
+   fused traversal's one launch (CUDA events);
 4. each kernel and its plain version timed on the card at the shapes
    the main path gave it (one ALB sssp, one sssp_batch and two pagerank
    rounds for the fused kernels, which are also timed beside the unfused route they
@@ -51,7 +72,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``scaled_dot_product_attention``; ``moe_plan`` also beside the route
    it replaced (the torch plan with the ``positions_in_expert`` kernel)
    and ``positions_in_expert`` alone; device profiles of ALB sssp,
-   sssp_batch, adaptive cc and pagerank;
+   sssp_batch, adaptive cc and pagerank; the static entries at phase
+   3d's shapes (one static ALB, twc and merge-path sssp, run eagerly and
+   recorded), and the condition kernel (a 1,000-turn WHILE loop against
+   the same loop driven from the host);
 5. the LM serving path, after the graph phases' tensors are freed:
    deepseek-moe-16b at its published widths and 28 layers, random bf16
    weights from a seeded generator on the card, 4 requests of 1024
@@ -262,6 +286,39 @@ def relax_err(got, want) -> float:
     return float((got.long() - want.long()).abs().max())
 
 
+def relax_graph(dev, rng) -> tuple:
+    """A random CSR of phase 2's fused-kernel sweeps: V = 50,000,
+    degrees up to 6,000.  Returns ``(V, deg, row_ptr, col_idx, edge_w)``,
+    the last two on ``dev``."""
+    import torch
+    v = 50_000
+    deg = rng.integers(0, 40, v)
+    deg[:12] = [6000, 3000, 2048, 1500, 1025, 1024, 1023, 300, 129, 128, 9,
+                0]
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    e = int(row_ptr[-1])
+    col = torch.from_numpy(rng.integers(0, v, e).astype(np.int32)).to(dev)
+    w = torch.from_numpy(rng.integers(1, 101, e).astype(np.int32)).to(dev)
+    return v, deg, row_ptr, col, w
+
+
+def relax_state(dev, rng, opname, b, v) -> tuple:
+    """``(values, labels, fmask)`` of a sweep case: int32 labels with INF
+    entries (values the same), or small float32 ones for PR_PULL."""
+    import torch
+    fm = torch.from_numpy(rng.random((b, v)) < 0.6).to(dev)
+    if opname == "PR_PULL":
+        lab = torch.from_numpy(
+            (rng.random((b, v)) * 1e-3).astype(np.float32)).to(dev)
+        val = torch.from_numpy(
+            (rng.random((b, v)) * 1e-3).astype(np.float32)).to(dev)
+        return val, lab, fm
+    lab = rng.integers(0, 500, (b, v)).astype(np.int32)
+    lab[rng.random((b, v)) < 0.3] = 1 << 30
+    lab = torch.from_numpy(lab).to(dev)
+    return lab.clone(), lab, fm
+
+
 def relax_vs_plain(dev) -> dict:
     """``twc_bin_relax`` and ``edge_lb_relax`` against their plain
     versions on a random CSR (V = 50,000, degrees up to 6,000): every
@@ -277,14 +334,7 @@ def relax_vs_plain(dev) -> dict:
     from repro_torch.core.frontier import next_bucket
     from repro_torch.kernels import ref, relax
     rng = np.random.default_rng(5)
-    v = 50_000
-    deg = rng.integers(0, 40, v)
-    deg[:12] = [6000, 3000, 2048, 1500, 1025, 1024, 1023, 300, 129, 128, 9,
-                0]
-    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
-    e = int(row_ptr[-1])
-    col = torch.from_numpy(rng.integers(0, v, e).astype(np.int32)).to(dev)
-    w = torch.from_numpy(rng.integers(1, 101, e).astype(np.int32)).to(dev)
+    v, deg, row_ptr, col, w = relax_graph(dev, rng)
 
     def t32(a):
         return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
@@ -318,16 +368,7 @@ def relax_vs_plain(dev) -> dict:
     for opname in RELAX_OPS:
         op = relax_op(opname)
         for b in (1, 3, 8):
-            fm = torch.from_numpy(rng.random((b, v)) < 0.6).to(dev)
-            if opname == "PR_PULL":
-                lab = torch.from_numpy(
-                    (rng.random((b, v)) * 1e-3).astype(np.float32)).to(dev)
-                val = torch.from_numpy(
-                    (rng.random((b, v)) * 1e-3).astype(np.float32)).to(dev)
-            else:
-                lab = rng.integers(0, 500, (b, v)).astype(np.int32)
-                lab[rng.random((b, v)) < 0.3] = 1 << 30
-                lab, val = t32(lab), t32(lab)
+            val, lab, fm = relax_state(dev, rng, opname, b, v)
             for width in (8, 128, 1024, 2048):
                 for chunk in (0, 1, 2):
                     for ch in (chunk, t32([chunk])):
@@ -361,6 +402,117 @@ def relax_vs_plain(dev) -> dict:
     print(f"phase 2: fused relax == plain on {cases} cases ({launched} "
           f"launches; min and int add exact, float add within rtol "
           f"{RELAX_FLOAT_RTOL}): {errs}", flush=True)
+    return errs
+
+
+def static_entries_vs_plain(dev) -> dict:
+    """The device-int32 entries of the static-shape round against their
+    plain versions given the same values as host ints, on phase 2's
+    random CSR: ``twc_bin_relax`` over V rows (sentinel ``V`` for
+    non-members, as the static round lays a bin out) with the first
+    chunk and the pass count on the device (0 passes, 1, 2, and every
+    pass a 6,000-degree row needs), without a row bound and with one on
+    the device (V, V / 3: the static round's tile walk), every operator,
+    B in {1, 3};
+    ``edge_lb_relax`` over the static span (every edge of the graph)
+    with the total on the device (0, one row, several, 2,000 rows), both
+    deals, 64 and 7 tiles; ``merge_path_map`` and ``edge_lb_map`` with a
+    device total against a span far past it (total 0, ragged tails,
+    zero-degree runs).  Returns the max errors."""
+    import torch
+    from repro_torch.kernels import edge_lb, merge_path, ref, relax
+    rng = np.random.default_rng(17)
+    v, deg, row_ptr, col, w = relax_graph(dev, rng)
+    e = int(row_ptr[-1])
+
+    def t32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    member = rng.random(v) < 0.2
+    member[:12] = True
+    rows = [t32(np.where(member, a, f)) for a, f in
+            ((np.arange(v), v), (deg, 0), (row_ptr[:-1], 0))]
+    huge = []
+    for hv in ([], [0], list(range(7)), list(range(200, 2200))):
+        m = np.zeros(v, bool)
+        m[hv] = True
+        hvidx, hdeg, hrow = (np.where(m, a, f) for a, f in
+                             ((np.arange(v), v), (deg, 0), (row_ptr[:-1], 0)))
+        huge.append(([t32(hvidx), t32(np.cumsum(hdeg) - hdeg), t32(hrow)],
+                     int(hdeg.sum())))
+    errs = {"twc_bin_relax": {"int": 0.0, "float": 0.0},
+            "edge_lb_relax": {"int": 0.0, "float": 0.0},
+            "merge_path_map": 0, "edge_lb_map": 0}
+    cases = {k: 0 for k in errs}
+
+    def held(name, got, want):
+        kind = "float" if got.dtype.is_floating_point else "int"
+        errs[name][kind] = max(errs[name][kind], relax_err(got, want))
+        cases[name] += 1
+
+    for opname in RELAX_OPS:
+        op = relax_op(opname)
+        for b in (1, 3):
+            val, lab, fm = relax_state(dev, rng, opname, b, v)
+            for width in (8, 128, 1024):
+                most = -(-int(deg.max()) // width)
+                for chunk in (0, 1):
+                    for passes in sorted({0, 1, 2, most - chunk}):
+                        # no row bound (one group a row), and bounds at V
+                        # and at V / 3 (the tile walk of the static round)
+                        for bound in (None, v, v // 3):
+                            held("twc_bin_relax", relax.twc_bin_relax(
+                                val, lab.clone(), fm, col, w, *rows, op,
+                                width=width, chunk=t32(chunk),
+                                passes=t32(passes),
+                                rows=None if bound is None else t32(bound)),
+                                ref.twc_bin_relax_ref(
+                                val, lab.clone(), fm, col, w, *rows, op,
+                                width=width, chunk=chunk, passes=passes,
+                                rows=bound))
+            for t, total in huge:
+                for tiles in (64, 7):
+                    for dist in ("cyclic", "blocked"):
+                        kw = dict(distribution=dist, num_tiles=tiles)
+                        held("edge_lb_relax", relax.edge_lb_relax(
+                            val, lab.clone(), fm, col, w, *t, t32(total),
+                            e, op, **kw),
+                            ref.edge_lb_relax_ref(
+                            val, lab.clone(), fm, col, w, *t, total, e, op,
+                            **kw))
+    for h in (1, 700, 5000):
+        for tile in (128, 2048):
+            hdeg = rng.integers(0, 50, h).astype(np.int32)
+            hdeg[rng.random(h) < 0.3] = 0
+            if h == 1:
+                hdeg[:] = 0                        # total 0
+            start_e = t32(np.cumsum(hdeg) - hdeg)
+            row = t32(rng.integers(0, 1 << 20, h))
+            total = int(hdeg.sum())
+            span = 3 * total + 5 * tile + 17       # ragged, far past it
+            k = merge_path.merge_path_map(start_e, row, t32(total), span,
+                                          tile_edges=tile)
+            p = ref.merge_path_map_ref(start_e, row, total, span,
+                                       tile_edges=tile)
+            check(all(torch.equal(a, b) for a, b in zip(k, p)),
+                  f"merge_path_map (device total) != plain (H={h})")
+            cases["merge_path_map"] += 1
+            for dist in ("cyclic", "blocked"):
+                k = edge_lb.edge_lb_map(start_e, row, row, t32(total), span,
+                                        tile_edges=tile, distribution=dist)
+                p = ref.edge_lb_map_ref(start_e, row, row, total, span,
+                                        tile_edges=tile, distribution=dist)
+                errs["edge_lb_map"] = max(errs["edge_lb_map"],
+                                          masked_err(k, p))
+                cases["edge_lb_map"] += 1
+    torch.cuda.synchronize()
+    for name in ("twc_bin_relax", "edge_lb_relax"):
+        check(errs[name]["int"] == 0 and
+              errs[name]["float"] <= RELAX_FLOAT_RTOL,
+              f"{name} (device int32 entry) != plain: {errs[name]}")
+    check(errs["edge_lb_map"] == 0, "edge_lb_map (device total) != plain")
+    print(f"phase 2: device-int32 entries == plain on {cases} cases (min "
+          f"and int add exact, float add within rtol {RELAX_FLOAT_RTOL}): "
+          f"{errs}", flush=True)
     return errs
 
 
@@ -862,7 +1014,7 @@ def pull_path(g, src, sources, res) -> dict:
             "build_s": {"reverse": rev_s, "symmetrized": sym_s},
             "csr_gb": csr_gb, "sym_edges": sym.num_edges,
             "peak_device_gb": peak_gb, "pagerank_err": pr_err,
-            "apps": apps, "cfgs": cfgs, "median_s": med}
+            "apps": apps, "cfgs": cfgs, "median_s": med, "sym": sym}
 
 
 # ---------------------------------------------------------------------------
@@ -921,6 +1073,284 @@ def user_op_path(g, src, sssp_labels) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the static-shape (spmd) and fused round modes
+# ---------------------------------------------------------------------------
+
+def no_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: any
+    syncing CUDA call torch makes inside raises."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def event_span_ms(fn) -> float:
+    """Device time from the start to the end of ``fn()``'s work, by CUDA
+    events; the stream is held busy while the host enqueues, so host
+    time before the work starts is not counted."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000)
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e)
+
+
+def fused_dispatches(g, sym, src, sources, cfgs, stats: bool) -> dict:
+    """Each fused traversal of phase 3d up to its dispatch, without the
+    final fetch: ``name -> callable`` returning device tensors (the
+    apps' own entries, with the inputs the apps build, and stat rows
+    kept when ``stats``)."""
+    import torch
+    from repro_torch.core import balancer
+    from repro_torch.core import operators as tops
+    from repro_torch.core.apps import drivers
+    from repro_torch.core.frontier import multi_source_state
+    from repro_torch.core.graph import INF
+
+    def single(source):
+        lab = torch.full((g.num_vertices,), int(INF), dtype=torch.int32,
+                         device=g.device)
+        lab[source] = 0
+        return lab, lab == 0
+
+    def traversal(op, state, cfg):
+        return lambda: balancer.run_fused(g if op is not tops.CC_MIN
+                                          else sym, *state, cfg, op,
+                                          collect_stats=stats)[:3]
+    deg = sym.out_degrees()
+    frontier = (deg < KCORE_K) & (deg > 0)
+    rg = g.reverse()
+    outdeg = g.out_degrees().to(torch.float32)
+    inv_out = torch.where(outdeg > 0, 1.0 / torch.clamp(outdeg, min=1.0),
+                          0.0)
+    comp = torch.arange(sym.num_vertices, dtype=torch.int32,
+                        device=sym.device)
+    return {
+        "sssp": traversal(tops.SSSP_RELAX, single(src), cfgs["kernel"]),
+        "bfs": traversal(tops.BFS_HOP, single(src), cfgs["kernel"]),
+        "sssp_batch": traversal(
+            tops.SSSP_RELAX,
+            multi_source_state(g.num_vertices, sources, INF, g.device),
+            cfgs["kernel"]),
+        "sssp_adaptive": traversal(tops.SSSP_RELAX, single(src),
+                                   cfgs["adaptive"]),
+        "cc_adaptive": traversal(tops.CC_MIN,
+                                 (comp, torch.ones_like(comp, dtype=bool)),
+                                 cfgs["adaptive"]),
+        "kcore": lambda: drivers._kcore_fused(
+            sym, deg, frontier, frontier | (deg < KCORE_K), KCORE_K,
+            cfgs["kernel"], 10_000, stats)[:2],
+        "pagerank": lambda: drivers._pagerank_fused(
+            rg, inv_out, outdeg == 0, 0.85, 0.0, cfgs["kernel"], PR_ROUNDS,
+            stats)[:2],
+        "sssp/merge_path": traversal(tops.SSSP_RELAX, single(src),
+                                     cfgs["merge_path"]),
+        "sssp/twc": traversal(tops.SSSP_RELAX, single(src), cfgs["twc"])}
+
+
+def static_path(g, sym, src, sources) -> dict:
+    """Phase 3d: the static-shape round (``mode="spmd"``: one replay of
+    a captured round graph and one counted fetch a round) and the fused
+    traversal (``mode="fused"``: one graph launch whose WHILE node turns
+    on the card) through the kernel pair, on phase 3's graph and its
+    symmetrized form; sssp also fused through merge_path and under
+    ``strategy="twc"`` (the unbounded bin: a device pass count).  Held
+    against host mode.  Launches are counted on the card: the static
+    entries' kernels count their own launches (``csrc/device_count.cuh``,
+    replays and WHILE turns included), reset just before and read just
+    after each spmd or fused run, and held against what the run's rounds
+    need: every bin of the plan and the huge bin once a round (one round
+    more in spmd mode, whose loop learns of convergence from a round on
+    the empty frontier).  The wrappers' own counts say how many launches
+    the captures recorded."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import graph_loop
+    from repro_torch.core.apps import drivers
+    from repro_torch.core.balancer import BalancerConfig, effective_plan
+    from repro_torch.kernels import ops
+
+    kern = BalancerConfig(strategy="alb", use_pallas=True)
+    cfgs = {"kernel": kern,
+            "adaptive": dataclasses.replace(kern, direction="adaptive"),
+            "merge_path": BalancerConfig(strategy="alb",
+                                         backend="merge_path"),
+            "twc": BalancerConfig(strategy="twc", use_pallas=True)}
+    apps = {
+        "sssp": lambda m, st: drivers.sssp(g, src, kern, mode=m,
+                                           collect_stats=st),
+        "bfs": lambda m, st: drivers.bfs(g, src, kern, mode=m,
+                                         collect_stats=st),
+        "sssp_batch": lambda m, st: drivers.sssp_batch(
+            g, sources, kern, mode=m, collect_stats=st),
+        "sssp_adaptive": lambda m, st: drivers.sssp(
+            g, src, cfgs["adaptive"], mode=m, collect_stats=st),
+        "cc_adaptive": lambda m, st: drivers.cc(
+            sym, cfgs["adaptive"], mode=m, collect_stats=st),
+        "kcore": lambda m, st: drivers.kcore(sym, KCORE_K, kern, mode=m,
+                                             collect_stats=st),
+        "pagerank": lambda m, st: drivers.pagerank(
+            g, cfg=kern, max_rounds=PR_ROUNDS, tol=0.0, mode=m,
+            collect_stats=st),
+        "sssp/merge_path": lambda m, st: drivers.sssp(
+            g, src, cfgs["merge_path"], mode=m, collect_stats=st),
+        "sssp/twc": lambda m, st: drivers.sssp(g, src, cfgs["twc"],
+                                               mode=m, collect_stats=st)}
+    cfg_of = {a: cfgs["kernel"] for a in apps}
+    cfg_of.update({"sssp_adaptive": cfgs["adaptive"],
+                   "cc_adaptive": cfgs["adaptive"],
+                   "sssp/merge_path": cfgs["merge_path"],
+                   "sssp/twc": cfgs["twc"]})
+    modes = {a: ("fused",) if "/" in a else ("spmd", "fused") for a in apps}
+    host = {a: apps[a]("host", True) for a in apps}
+
+    def needed(a, m, rounds) -> dict:
+        """Launches a run's rounds need: each bin of the plan and the
+        huge bin once a round."""
+        ran = rounds + (m == "spmd" and a != "pagerank")
+        plan = effective_plan(cfg_of[a])
+        if cfg_of[a].executor == "merge_path":
+            return {"twc_bin_relax": 0, "edge_lb_relax": 0,
+                    "merge_path_map": ran}
+        return {"twc_bin_relax": ran * len(plan.bins),
+                "edge_lb_relax": ran * (plan.lb != "none"),
+                "merge_path_map": 0}
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    kernels.device_launch_counts(reset=True)
+    graph_loop.set_runs(reset=True)
+    caps0, cap_s0 = graph_loop.captures, graph_loop.capture_seconds
+    out, by_run, captured_by_run = {}, {}, {}
+    for a in apps:
+        for m in modes[a]:
+            before = kernels.capture_counts()
+            out[a, m] = apps[a](m, True)
+            after = kernels.capture_counts()
+            on_card = kernels.device_launch_counts(reset=True)
+            by_run[f"{a}/{m}"] = on_card
+            captured_by_run[f"{a}/{m}"] = {
+                k: after[k] - before[k] for k in after
+                if after[k] > before[k]}
+            want = needed(a, m, out[a, m].rounds)
+            check(on_card == want, f"{a}/{m}: launches on the card "
+                  f"{on_card} != {want} for {out[a, m].rounds} rounds")
+    launches = {k: sum(r[k] for r in by_run.values())
+                for k in kernels.DEVICE_COUNTED}
+    captured = kernels.capture_counts()
+    decisions = graph_loop.set_runs(reset=True)
+    captures = graph_loop.captures - caps0
+    capture_s = graph_loop.capture_seconds - cap_s0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"phase 3d: kernel launches on the card by the spmd and fused "
+          f"runs, each run's equal to its rounds x bins: {launches} (by "
+          f"run {by_run}); launches recorded by the captures: {captured}; "
+          f"unfused passes {ops.unfused_passes}; {captures} graphs "
+          f"captured in {capture_s:.2f} s; the condition kernel took "
+          f"{decisions} branch and loop decisions on the card; peak "
+          f"device memory {peak_gb:.2f} GB", flush=True)
+    for name in GRAPH_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched by phase 3d")
+    check(by_run["sssp/twc/fused"]["twc_bin_relax"] > 0,
+          "the twc strategy's unbounded bin did not launch twc_bin_relax")
+    check(ops.unfused_passes == 0, "a built-in operator took the unfused "
+          "route")
+    check(decisions > 0, "the condition kernel never ran")
+
+    # ---- held against host mode ----
+    pr_err = {}
+    for (a, m), r in out.items():
+        h = host[a]
+        if a == "pagerank":
+            got = r.labels.double().cpu().numpy()
+            ref = h.labels.double().cpu().numpy()
+            pr_err[m] = float(np.max(np.abs(got - ref) / ref))
+            check(pr_err[m] <= PR_RTOL_PAIR,
+                  f"pagerank/{m} != host: rel {pr_err[m]}")
+        else:
+            check(torch.equal(r.labels, h.labels), f"{a}/{m}: labels != "
+                  f"host")
+        check(r.rounds == h.rounds and len(r.stats) == len(h.stats),
+              f"{a}/{m}: rounds {r.rounds} != host {h.rounds}")
+        for x, y in zip(h.stats, r.stats):
+            check((x.frontier_size, x.frontier_edges, x.direction) ==
+                  (y.frontier_size, y.frontier_edges, y.direction),
+                  f"{a}/{m}: round stats != host: {x} / {y}")
+        want = 0 if m == "fused" else h.host_transfers
+        check(r.host_transfers == want,
+              f"{a}/{m}: host_transfers {r.host_transfers} != {want}")
+    check("P" in directions(out["sssp_adaptive", "fused"]) and
+          "P" in directions(out["cc_adaptive", "fused"]),
+          "adaptive fused runs took no pull round")
+
+    # ---- zero syncing calls between dispatch and fetch ----
+    dispatch = fused_dispatches(g, sym, src, sources, cfgs, stats=True)
+    for a, fn in dispatch.items():
+        before = graph_loop.captures
+        res = no_syncs(fn)             # raises on any syncing call
+        check(graph_loop.captures == before, f"{a}: captured again")
+        lab, r = res[0], int(res[-1])
+        want = out[a, "fused"]
+        check(r == want.rounds, f"{a}: dispatch rounds {r}")
+        if a != "pagerank":
+            check(torch.equal(lab, want.labels), f"{a}: dispatch labels")
+    print(f"phase 3d: spmd and fused == host mode (labels, rounds, "
+          f"per-round frontier size, edges and direction; pagerank within "
+          f"rtol {PR_RTOL_PAIR}: {pr_err}); fused host_transfers 0, spmd "
+          f"as host; 0 syncing calls between dispatch and fetch of "
+          f"{len(dispatch)} fused traversals under "
+          f"set_sync_debug_mode('error')", flush=True)
+
+    # ---- wall times, host / spmd / fused in turns, one card ----
+    seconds = {f"{a}/{m}": [] for a in apps for m in ("host",) + modes[a]}
+    for i in range(6):
+        for a in apps:
+            ms = ("host",) + modes[a]
+            for m in (ms if i % 2 == 0 else ms[::-1]):
+                seconds[f"{a}/{m}"].append(apps[a](m, False).seconds)
+    med = {k: float(np.median(v)) for k, v in seconds.items()}
+    print(f"phase 3d: median wall seconds of 6 runs each: {med}",
+          flush=True)
+    # the profiler sees only part of a graph's conditional bodies (a
+    # fused run shows about one round's kernels), so a fused traversal's
+    # device time is the span of its one launch between CUDA events
+    dispatch = fused_dispatches(g, sym, src, sources, cfgs, stats=False)
+    span = {a: float(np.median([event_span_ms(fn) for _ in range(6)]))
+            for a, fn in dispatch.items()}
+    busy = {a: span[a] / (med[f"{a}/fused"] * 1e3) for a in span}
+    print(f"phase 3d: device span of each fused traversal (CUDA events "
+          f"around its dispatch, median of 6), ms: {span}; over the "
+          f"median fused wall: {busy}", flush=True)
+    prof = profile_path(
+        {f"{a}/{m}": (lambda a=a, m=m: apps[a](m, False))
+         for a in ("sssp", "pagerank") for m in ("host", "spmd")},
+        med, label="phase 3d")
+    return {"launches": launches, "launches_by_run": by_run,
+            "captured": captured, "captured_by_run": captured_by_run,
+            "captures": captures, "capture_s": capture_s,
+            "condition_decisions": decisions,
+            "rounds": {f"{a}/{m}": r.rounds for (a, m), r in out.items()},
+            "host_transfers": {f"{a}/{m}": r.host_transfers
+                               for (a, m), r in out.items()},
+            "direction_traces": {f"{a}/{m}": directions(r)
+                                 for (a, m), r in out.items()
+                                 if "adaptive" in a},
+            "pagerank_rel_err": pr_err, "peak_device_gb": peak_gb,
+            "seconds": seconds, "median_s": med, "profile": prof,
+            "fused_span_ms": span, "fused_busy": busy}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -958,20 +1388,32 @@ def capture_launches(run) -> dict:
 
 
 def twc_unfused(values, labels, fmask, col_idx, edge_w, vidx, deg,
-                row_start, op, *, width, chunk):
+                row_start, op, *, width, chunk, passes=1):
     """The route ``twc_bin_relax`` replaced, as ``ops.twc_bin_apply`` ran
-    it before the fused kernels (a yardstick the port never calls): the
-    batch-0 value gather, the ``twc_bin_map`` kernel, then the torch
-    epilogue into fresh labels."""
+    it before the fused kernels (a yardstick the port never calls): per
+    pass, the batch-0 value gather, the ``twc_bin_map`` kernel, then the
+    torch epilogue into fresh labels."""
     import torch
     from repro_torch.kernels import ref, twc_gather
     v = labels.shape[-1]
-    val = values[0, torch.where(vidx < v, vidx, 0)]
-    ge, anchor, _, mask = twc_gather.twc_bin_map(
-        vidx, deg, row_start, val, width=width, chunk=chunk, sentinel=v)
-    return ref.slot_epilogue(col_idx, edge_w, values, labels, fmask,
-                             anchor.reshape(-1), ge.reshape(-1),
-                             mask.reshape(-1), op)
+    for c in range(chunk, chunk + passes):
+        val = values[0, torch.where(vidx < v, vidx, 0)]
+        ge, anchor, _, mask = twc_gather.twc_bin_map(
+            vidx, deg, row_start, val, width=width, chunk=c, sentinel=v)
+        labels = ref.slot_epilogue(col_idx, edge_w, values, labels, fmask,
+                                   anchor.reshape(-1), ge.reshape(-1),
+                                   mask.reshape(-1), op)
+    return labels
+
+
+def host_ints(k: dict) -> dict:
+    """A recorded call's keyword arguments with its device scalars (a
+    static entry's ``chunk`` / ``passes``) read as host ints: for the
+    plain and unfused routes, which would read them inside the timed
+    region otherwise."""
+    import torch
+    return {n: int(x) if isinstance(x, torch.Tensor) else x
+            for n, x in k.items()}
 
 
 def lb_unfused(values, labels, fmask, col_idx, edge_w, hvidx, start_e,
@@ -1021,13 +1463,21 @@ def relax_work(name, a, k) -> tuple:
     b, v = labels.shape
     if name == "twc_bin_relax":
         op, vidx, deg = a[8], a[5], a[6]
-        ge, src, _, mask = ref.twc_bin_map_ref(*map_args(name, a, k)[0],
-                                               width=k["width"],
-                                               chunk=k["chunk"],
-                                               sentinel=v)
+        k = host_ints(k)
+        first, width = k.get("chunk", 0), k["width"]
+        ge, src = [vidx[:0]], [vidx[:0]]      # live slots, pass by pass
+        for c in range(first, first + k.get("passes", 1)):
+            rows = (vidx < v) & (deg > c * width)    # rows with an edge
+            m = ref.twc_bin_map_ref(vidx[rows], deg[rows], a[7][rows],
+                                    vidx[rows], width=width, chunk=c,
+                                    sentinel=v)
+            ge.append(m[0][m[3]])
+            src.append(m[1][m[3]])
+        ge, src = torch.cat(ge), torch.cat(src)
+        mask = torch.ones_like(ge, dtype=torch.bool)
         want = ref.twc_bin_relax_ref(values, labels.clone(), *a[2:], **k)
         real = vidx < v
-        edged = real & (deg > int(k["chunk"]) * k["width"])
+        edged = real & (deg > first * width)
         fixed = 4 * vidx.shape[0] + 4 * int(real.sum()) + \
             4 * int(edged.sum())
         search = 0
@@ -1150,21 +1600,44 @@ def bound(work, calls) -> tuple:
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", b
 
 
+def members_only(a, k) -> tuple:
+    """A static round's ``twc_bin_relax`` call (one with ``rows``)
+    reduced to its member rows, for the plain version, the unfused route
+    and the work count: it spans V rows, mostly empty, and those two
+    would build ``[V, W]`` tiles (16 GB at rmat 22 and W = 1024) for
+    rows that add nothing.  Returns the call with host-int keywords, and the bytes the
+    kernel must still read for the empty rows below ``rows`` (their
+    4-byte vidx)."""
+    k = host_ints(k)
+    rows = k.pop("rows", None)
+    if rows is None:                   # a host round's call: as it is
+        return a, k, 0
+    vidx = a[5]
+    n = min(rows, vidx.shape[0])
+    keep = (vidx[:n] < a[1].shape[-1]).nonzero().flatten()
+    sub = tuple(t[keep].contiguous() for t in a[5:8])
+    return a[:5] + sub + a[8:], k, 4 * (n - keep.numel())
+
+
 def time_relax(name, cs) -> dict:
     """One fused kernel over the recorded calls ``cs``: held against its
     plain version (exact for int labels, ``RELAX_FLOAT_RTOL`` for
     float), then timed beside its plain version, the unfused route it
-    replaced and its bound."""
+    replaced and its bound.  A ``twc_bin_relax`` call's plain version,
+    unfused route and work take its member rows (``members_only``)."""
     from repro_torch.kernels import ref, relax
     fn = getattr(relax, name)
     plain = {"twc_bin_relax": ref.twc_bin_relax_ref,
              "edge_lb_relax": ref.edge_lb_relax_ref}[name]
     unfused = {"twc_bin_relax": twc_unfused,
                "edge_lb_relax": lb_unfused}[name]
+    reduced = [members_only(a, k) if name == "twc_bin_relax"
+               else (a, host_ints(k), 0) for a, k in cs]
+    host_cs = [(a, k) for a, k, _ in reduced]
     abs_err, rel_err = 0.0, 0.0
-    for a, k in cs:
+    for (a, k), (ha, hk) in zip(cs, host_cs):
         got = fn(a[0], a[1].clone(), *a[2:], **k)
-        want = plain(a[0], a[1].clone(), *a[2:], **k)
+        want = plain(ha[0], ha[1].clone(), *ha[2:], **hk)
         abs_err = max(abs_err, float((got.double() - want.double())
                                      .abs().max()))
         if got.dtype.is_floating_point:
@@ -1172,21 +1645,51 @@ def time_relax(name, cs) -> dict:
     check((abs_err == 0 or cs[0][0][1].dtype.is_floating_point) and
           rel_err <= RELAX_FLOAT_RTOL,
           f"{name} != plain on main-path inputs: {abs_err}, {rel_err}")
-    bms, by, nbytes = bound(lambda a, k: relax_work(name, a, k), cs)
+    extra = iter([e for _, _, e in reduced])
+    bms, by, nbytes = bound(
+        lambda a, k: tuple(x + y for x, y in zip(relax_work(name, a, k),
+                                                 (next(extra), 0))),
+        host_cs)
     return {"ms": device_ms_fresh(fn, cs),
-            "plain_ms": device_ms_fresh(plain, cs),
-            "unfused_ms": device_ms_fresh(unfused, cs),
+            "plain_ms": device_ms_fresh(plain, host_cs),
+            "unfused_ms": device_ms_fresh(unfused, host_cs),
             "bound_ms": bms, "bound_by": by, "max_abs_err": abs_err,
             "max_rel_err": rel_err, "timed_launches": len(cs),
             "mean_bytes": nbytes}
 
 
+def tile_walk_ms(cs) -> float:
+    """The host round's ``twc_bin_relax`` calls ``cs`` through the static
+    round's row schedule (a resident grid walking tiles of 256 rows,
+    given a device row bound of all N rows) instead of the one group per
+    compacted row that the host round launches: held equal to them
+    (int exact, float add within ``RELAX_FLOAT_RTOL``) and timed, so
+    that the two schedules can be compared on the same rows."""
+    import torch
+    from repro_torch.kernels import relax
+    walk = [(a, {**k, "rows": torch.tensor([a[5].shape[0]],
+                                           dtype=torch.int32,
+                                           device=a[5].device)})
+            for a, k in cs]
+    for (a, k), (_, wk) in zip(cs, walk):
+        want = relax.twc_bin_relax(a[0], a[1].clone(), *a[2:], **k)
+        got = relax.twc_bin_relax(a[0], a[1].clone(), *a[2:], **wk)
+        if got.dtype.is_floating_point:
+            check(relax_err(got, want) <= RELAX_FLOAT_RTOL,
+                  "twc_bin_relax: the tile walk != one group per row")
+        else:
+            check(torch.equal(got, want),
+                  "twc_bin_relax: the tile walk != one group per row")
+    return device_ms_fresh(relax.twc_bin_relax, walk)
+
+
 def time_kernels(g, src, sources, errs: dict, launches: dict) -> list:
     """Phase 4's rows of the graph kernels.  The fused kernels at the
     shapes of one ALB sssp (their row), of one sssp_batch (B = 8) and of
-    two pagerank rounds (``by_run``); the index-map kernels at the same sssp's shapes (no
-    main path launches them); ``merge_path_map`` at one merge-path
-    sssp's."""
+    two pagerank rounds (``by_run``; ``twc_bin_relax`` also through the
+    static round's row schedule, :func:`tile_walk_ms`); the index-map
+    kernels at the same sssp's shapes (no main path launches them);
+    ``merge_path_map`` at one merge-path sssp's."""
     from repro_torch.core.apps import drivers
     from repro_torch.core.balancer import BalancerConfig
     from repro_torch.kernels import edge_lb, merge_path, ref, twc_gather
@@ -1209,6 +1712,8 @@ def time_kernels(g, src, sources, errs: dict, launches: dict) -> list:
         for run, cs in calls.items():
             check(len(cs[name]) > 0, f"{name}: no launch captured ({run})")
             by_run[run] = time_relax(name, cs[name])
+            if name == "twc_bin_relax":
+                by_run[run]["tile_walk_ms"] = tile_walk_ms(cs[name])
         top = by_run["sssp"]
         rows.append({
             "name": name, "route": "cuda", "source": source,
@@ -1250,6 +1755,147 @@ def time_kernels(g, src, sources, errs: dict, launches: dict) -> list:
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "timed_launches": len(cs), "mean_bytes": nbytes})
     return rows
+
+
+def static_calls(g, src, cfg) -> dict:
+    """The kernel launches of one static-shape sssp, run eagerly round by
+    round on the card and recorded with their inputs
+    (:func:`capture_launches`): ``balancer._relax_spmd_impl`` in push
+    direction through a kernel pair has no branch or loop of its own,
+    so it needs no capture; its entries get the device pass count and
+    total as the captured round gives them.  The loop reads each
+    frontier on the host: a measurement harness, not the port's path."""
+    import torch
+    from repro_torch.core import balancer
+    from repro_torch.core.graph import INF
+    from repro_torch.core.operators import SSSP_RELAX
+
+    def run():
+        lab = torch.full((1, g.num_vertices), int(INF), dtype=torch.int32,
+                         device=g.device)
+        lab[0, src] = 0
+        fr = lab == 0
+        while bool(fr.any()):
+            new = balancer._relax_spmd_impl(g, lab, lab, fr, cfg,
+                                            SSSP_RELAX)
+            fr, lab = new < lab, new
+    return capture_launches(run)
+
+
+def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
+    """Phase 4's rows of the static entries, at the shapes of one static
+    ALB sssp (``twc_bin_relax`` over V rows, ``edge_lb_relax`` over an
+    E-id span with the device total), one static twc sssp (its unbounded
+    bin: the device pass count) and one static merge-path sssp
+    (``merge_path_map`` over E ids with the device total), each held
+    against its plain version and timed beside it, the unfused route and
+    its bound.  ``launches``: phase 3d's counts on the card;
+    ``captured``: the launches its captures recorded."""
+    from repro_torch.core.balancer import BalancerConfig
+    from repro_torch.kernels import merge_path, ref
+    alb = static_calls(g, src, BalancerConfig(strategy="alb",
+                                              use_pallas=True))
+    twc = static_calls(g, src, BalancerConfig(strategy="twc",
+                                              use_pallas=True))
+    mp = static_calls(g, src, BalancerConfig(strategy="alb",
+                                             backend="merge_path"))
+    unbounded = [(a, k) for a, k in twc["twc_bin_relax"]
+                 if "passes" in k and hasattr(k["passes"], "device")]
+    check(len(unbounded) > 0, "twc: no launch with a device pass count")
+    rows = []
+    for name, source, replaces, by_run in (
+            ("twc_bin_relax", "src/repro_torch/kernels/csrc/twc_relax.cu",
+             "src/repro/kernels/twc_gather.py:54",
+             {"alb": alb["twc_bin_relax"], "twc_unbounded": unbounded}),
+            ("edge_lb_relax",
+             "src/repro_torch/kernels/csrc/edge_lb_relax.cu",
+             "src/repro/kernels/edge_lb.py:105",
+             {"alb": alb["edge_lb_relax"]})):
+        timed_runs = {}
+        for run, cs in by_run.items():
+            check(len(cs) > 0, f"{name} (static): no launch ({run})")
+            timed_runs[run] = time_relax(name, cs)
+        top = timed_runs["alb"]
+        rows.append({
+            "name": f"{name} (static entry)", "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": launches[name], "captured": captured[name],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in timed_runs.values()),
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by")},
+            "library_ms": None, "unfused_ms": top["unfused_ms"],
+            "timed_launches": top["timed_launches"],
+            "mean_bytes": top["mean_bytes"], "by_run": timed_runs})
+    cs = mp["merge_path_map"]
+    check(len(cs) > 0, "merge_path_map (static): no launch")
+    err = 0
+    for a, k in cs:
+        err = max(err, masked_err(merge_path.merge_path_map(*a, **k),
+                                  ref.merge_path_map_ref(*a, **k)))
+    check(err == 0, "merge_path_map (static) != plain on phase 3d inputs")
+    bms, by, nbytes = bound(mp_work, cs)
+    host_cs = [(a[:2] + (int(a[2]),) + a[3:], k) for a, k in cs]
+    rows.append({
+        "name": "merge_path_map (static entry)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/merge_path.cu",
+        "replaces": "src/repro/kernels/merge_path.py:107",
+        "launches": launches["merge_path_map"],
+        "captured": captured["merge_path_map"], "max_abs_err": err,
+        "ms": device_ms(merge_path.merge_path_map, cs),
+        "plain_ms": device_ms(ref.merge_path_map_ref, host_cs),
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "timed_launches": len(cs), "mean_bytes": nbytes})
+    return rows
+
+
+def time_graph_loop(dev, decisions: int) -> dict:
+    """The condition kernel of ``csrc/graph_loop.cu`` (no TPU
+    counterpart): per decision, the time of a captured WHILE loop of
+    1,000 turns whose body adds one to a device counter, against the
+    same loop driven from the host (one ``.item()`` read a turn, its
+    plain version).  Bound: one byte read and one word written a turn.
+    ``decisions``: phase 3d's count of the kernel's runs on the card."""
+    import torch
+    from repro_torch.core import graph_loop
+
+    class Owner:
+        version = 0
+
+    turns = 1000
+
+    def loop(n):
+        return graph_loop.while_(lambda i: i < n, lambda i: (i + 1,),
+                                 (torch.zeros_like(n),))[0]
+
+    n = torch.tensor(turns, dtype=torch.int32, device=dev)
+    owner = Owner()
+    check(int(graph_loop.run(owner, "loop", loop, n)) == turns,
+          "graph_loop: the WHILE node did not turn 1,000 times")
+    graph_loop.set_runs(reset=True)
+    ms = device_ms(lambda: graph_loop.run(owner, "loop", loop, n),
+                   [((), {})]) / (turns + 1)
+    check(graph_loop.set_runs(reset=True) >= turns, "set_cond runs")
+
+    def plain():
+        i = torch.zeros((), dtype=torch.int32, device=dev)
+        while i.item() < turns:
+            i = i + 1
+    t0 = time.perf_counter()
+    plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / turns
+    bms = 5 / HBM_BYTES_PER_S * 1e3
+    return {"name": "graph_loop set_cond (port-only helper)",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/graph_loop.cu",
+            "replaces": "none: no TPU kernel (the control flow XLA "
+                        "compiles for lax.while_loop / lax.cond, "
+                        "src/repro/core/balancer.py:1022, :1051, :1119, "
+                        ":1181)",
+            "launches": decisions, "max_abs_err": 0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": "bytes",
+            "library_ms": None, "timed_launches": turns + 1}
 
 
 def profile_path(runs: dict, wall_s: dict, label: str = "phase 4") -> dict:
@@ -1908,18 +2554,24 @@ def main() -> int:
 
     errs = kernel_vs_plain(dev)
     relax_vs_plain(dev)
+    static_errs = static_entries_vs_plain(dev)
     lm_kernels_vs_plain(dev)
     moe_plan_vs_plain(dev)
     mp = main_path(dev, args.scale)
     g, src, sources = mp.pop("graph"), mp.pop("src"), mp.pop("sources")
     res = mp.pop("results")
     pp = pull_path(g, src, sources, res)
-    apps, cfgs = pp.pop("apps"), pp.pop("cfgs")
+    apps, cfgs, sym = pp.pop("apps"), pp.pop("cfgs"), pp.pop("sym")
     pp["user_operator"] = user_op_path(g, src, res["sssp"].labels)
     del res
+    sp = static_path(g, sym, src, sources)
     launches = {k: mp["launches"][k] + pp["launches"][k]
                 for k in GRAPH_KERNELS + ("twc_bin_map", "edge_lb_map")}
     rows = time_kernels(g, src, sources, errs, launches)
+    rows += time_static_kernels(g, src, sp["launches"], sp["captured"])
+    rows.append(time_graph_loop(dev, sp["condition_decisions"]))
+    for r in rows[-4:]:
+        r["phase2_err"] = static_errs.get(r["name"].split()[0])
     for r in rows:
         print(f"phase 4: {r['name']}: {r['ms']:.4f} ms per launch "
               f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -1927,7 +2579,8 @@ def main() -> int:
               + (f", unfused route {r['unfused_ms']:.4f} ms"
                  if "unfused_ms" in r else "")
               + f") over {r['timed_launches']} launches of one sssp; "
-              f"{r['launches']} launches on the two main-path runs",
+              f"{r['launches']} launches on its main-path runs (phase 3d "
+              f"for a static entry and the condition kernel)",
               flush=True)
         for run, t in r.get("by_run", {}).items():
             print(f"phase 4:   {r['name']} at {run}'s shapes: {t}",
@@ -1943,9 +2596,11 @@ def main() -> int:
          for a in ("cc_adaptive", "pagerank")}, pp.pop("median_s"))
     print(json.dumps({"main_path": {"scale": args.scale, **mp}}), flush=True)
     print(json.dumps({"pull_path": pp}), flush=True)
+    print(json.dumps({"static_path": sp}), flush=True)
 
     # phase 5 needs the card's memory: free the graph phases' tensors
-    del g, apps, cfgs, kern
+    # (and the programs captured on them)
+    del g, sym, apps, cfgs, kern
     gc.collect()
     torch.cuda.empty_cache()
     lm = lm_path(dev)

@@ -1,20 +1,29 @@
 """The paper's five applications: bfs, sssp, cc, kcore, pagerank.
 
-Port of the host-mode drivers of ``repro/core/apps/drivers.py``.  Each
-driver runs the data-driven round structure of Section 2.1 of the
-paper: process the current worklist, collect the next worklist from
-label changes, repeat until it is empty.  Every round is one
-``balancer.relax`` call, which pays exactly one blocking device->host
-transfer; the empty-frontier probe rides on it, so a min-combine
-traversal (bfs, sssp, cc) or kcore of ``r`` rounds reports
-``host_transfers == r + 1``.  pagerank runs a fixed round structure and
-also blocks on its residual: 2 transfers per round.
+Port of ``repro/core/apps/drivers.py``.  Each driver runs the
+data-driven round structure of Section 2.1 of the paper: process the
+current worklist, collect the next worklist from label changes, repeat
+until it is empty.  ``mode`` selects the round:
 
-The min-combine drivers, ``resume_loop`` and ``step_batch`` take
-``direction="push" | "pull" | "adaptive"``; every driver takes any
-``BalancerConfig.backend``.  Drivers follow the graph's device.
-``mode="spmd"`` / ``"fused"`` (the static-shape and fused round modes)
-are not ported yet.
+* ``"host"`` — ``balancer.relax``: one blocking device->host transfer a
+  round, on which the empty-frontier probe rides, so a min-combine
+  traversal (bfs, sssp, cc) or kcore of ``r`` rounds reports
+  ``host_transfers == r + 1``; pagerank also blocks on its residual, 2
+  transfers a round;
+* ``"spmd"`` — ``balancer.relax_spmd_directed``: the static-shape round,
+  its direction chosen on the device; the loop still fetches liveness
+  (and stats) once a round, counted as in host mode;
+* ``"fused"`` — the whole traversal as one device loop
+  (``balancer.run_fused``, and kcore's and pagerank's own loops here):
+  ``host_transfers == 0``.  On the card it is one launch of a captured
+  graph (``core.graph_loop``).
+
+Labels, rounds and per-round stats of ``spmd`` and ``fused`` are
+bitwise those of ``host`` (pagerank's float add on the card aside: the
+huge bin combines with atomics).  The min-combine drivers,
+``resume_loop`` and ``step_batch`` take ``direction="push" | "pull" |
+"adaptive"``; every driver takes any ``BalancerConfig.backend``.
+Drivers follow the graph's device.
 """
 from __future__ import annotations
 
@@ -25,10 +34,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import graph_loop
 from ..graph import Graph, INF
 from ..frontier import full_frontier, single_source, multi_source_state
 from ..balancer import (BalancerConfig, RoundStats, relax,
-                        host_transfer_count, _note_host_transfer)
+                        relax_spmd_directed, relax_fused_round, run_fused,
+                        fused_stats_host, host_transfer_count,
+                        _fused_stats_init, _note_host_transfer, _put_row,
+                        _unpack_stats)
 from .. import operators as ops
 
 
@@ -44,23 +57,23 @@ class AppResult:
     host_transfers: int = 0
 
 
-def _host_mode(mode: str) -> None:
-    if mode in ("spmd", "fused"):
-        raise NotImplementedError(
-            f"mode={mode!r} is not ported yet (ROADMAP Queue 1 item 5, "
-            f"static-shape and fused round modes)")
-    if mode != "host":
-        raise ValueError(f"unknown round mode {mode!r}")
-
-
 def relax_round(g, values, labels, frontier, cfg, op,
                 collect_stats=False, mode="host", return_active=False):
-    """One balancer round; returns (labels, RoundStats|None) and, with
-    ``return_active=True``, the host ``bool[B]`` liveness of the rows
-    that entered the round."""
-    _host_mode(mode)
-    return relax(g, values, labels, frontier, cfg, op,
-                 collect_stats=collect_stats, return_active=return_active)
+    """One balancer round in ``mode`` ``"host"`` | ``"spmd"``; returns
+    (labels, RoundStats|None) and, with ``return_active=True``, the host
+    ``bool[B]`` liveness of the rows that entered the round.  Both
+    modes honour ``cfg.direction``."""
+    if mode == "host":
+        return relax(g, values, labels, frontier, cfg, op,
+                     collect_stats=collect_stats,
+                     return_active=return_active)
+    if mode != "spmd":
+        raise ValueError(f"unknown round mode {mode!r} (host|spmd — "
+                         f"'fused' is a loop-level mode, not a "
+                         f"single-round one)")
+    return relax_spmd_directed(g, values, labels, frontier, cfg, op,
+                               collect_stats=collect_stats,
+                               return_active=return_active)
 
 
 def step_batch(g, labels, frontier, cfg, op, mode="host",
@@ -117,18 +130,34 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
+def _fused_result(t_sync: int, t0: float, labels, r, st) -> tuple:
+    """``_loop``'s tuple for a fused traversal: after the loop, the
+    caller's fetch (the round count, then the stat rows in one
+    transfer)."""
+    _sync(labels)
+    secs = time.perf_counter() - t0
+    rounds = int(r)
+    return (labels, rounds, secs, fused_stats_host(st, rounds),
+            host_transfer_count() - t_sync)
+
+
 def _loop(g: Graph, values_of, labels, frontier, cfg, op,
           max_rounds: int, collect_stats: bool, next_frontier,
           mode: str = "host"):
     """Generic data-driven loop over ``[V]`` or ``[B, V]`` state with
     explicit current/next worklists: each round propagates
     ``values_of(labels)``, then ``next_frontier(old, new, frontier)``
-    names the next worklist.  Convergence is read from the round's own
-    ``return_active`` liveness (a slice of the one transfer the round
-    pays).  Returns ``(labels, rounds, seconds, stats,
-    host_transfers)``."""
-    _host_mode(mode)
+    names the next worklist.  In host/spmd mode convergence is read from
+    the round's own ``return_active`` liveness (a slice of the one
+    transfer the round pays); ``mode="fused"`` hands the whole loop to
+    ``balancer.run_fused`` (min-combine: ``new < old``).  Returns
+    ``(labels, rounds, seconds, stats, host_transfers)``."""
     t_sync = host_transfer_count()
+    if mode == "fused":
+        t0 = time.perf_counter()
+        labels, _, r, st = run_fused(g, labels, frontier, cfg, op,
+                                     max_rounds, collect_stats)
+        return _fused_result(t_sync, t0, labels, r, st)
     stats = [] if collect_stats else None
     t0 = time.perf_counter()
     rounds = 0
@@ -230,6 +259,49 @@ def cc(g: Graph, cfg: BalancerConfig = BalancerConfig(),
                             mode=mode))
 
 
+def _kcore_loop(g: Graph, deg, frontier, dead_acc, k: int,
+                cfg: BalancerConfig, max_rounds: int, collect_stats: bool):
+    """kcore's whole peeling loop as ONE :func:`graph_loop.while_`: the
+    round is the device-resident ``balancer.relax_fused_round`` and the
+    newly-dead bookkeeping of the host loop moves into the body.
+    Returns ``(in_core, rounds)`` plus the stat rows."""
+    carry = (torch.zeros((), dtype=torch.int32, device=deg.device), deg,
+             dead_acc, frontier)
+    if collect_stats:
+        carry += (_fused_stats_init(max_rounds, 1, cfg.num_tiles,
+                                    deg.device),)
+
+    def cond(r, deg, dead, fr, *rows):
+        return (r < max_rounds) & fr.any()
+
+    def body(r, deg, dead, fr, *rows):
+        new_deg, _, _, _, st = relax_fused_round(
+            g, None, None, deg[None], deg[None], fr[None], cfg,
+            ops.KCORE_DEC, None, collect_stats)
+        new_deg = new_deg[0]
+        newly_dead = (new_deg < k) & ~dead
+        if collect_stats:
+            rows = (_put_row(rows[0], r, st),)
+        return (r + 1, new_deg, dead | newly_dead, newly_dead) + rows
+
+    r, _, dead, _, *rows = graph_loop.while_(cond, body, carry)
+    return ((~dead).to(torch.int32), r, *rows)
+
+
+def _kcore_fused(g: Graph, deg, frontier, dead_acc, k: int,
+                 cfg: BalancerConfig, max_rounds: int, collect_stats: bool):
+    """:func:`_kcore_loop` as one program (one graph launch on the card):
+    ``(in_core, rounds, stats)`` on the device, ``stats`` a
+    ``RoundStatsDev`` of the round rows or None."""
+    in_core, r, *rows = graph_loop.run(
+        g, ("kcore", k, cfg, max_rounds, collect_stats),
+        lambda d, f, da: _kcore_loop(g, d, f, da, k, cfg, max_rounds,
+                                     collect_stats),
+        deg, frontier, dead_acc)
+    return in_core, r, (_unpack_stats(rows[0], cfg.num_tiles) if rows
+                        else None)
+
+
 def kcore(g: Graph, k: int, cfg: BalancerConfig = BalancerConfig(),
           max_rounds: int = 10_000, collect_stats: bool = False,
           mode: str = "host") -> AppResult:
@@ -237,13 +309,20 @@ def kcore(g: Graph, k: int, cfg: BalancerConfig = BalancerConfig(),
 
     Push formulation (integer add): when a vertex dies its neighbours
     lose one degree.  Expects a symmetrized graph."""
-    _host_mode(mode)
     deg = g.out_degrees()
     alive = deg >= k
     frontier = ~alive & (deg > 0)          # initially-dead vertices push
     dead_acc = frontier | ~alive
-    stats = [] if collect_stats else None
     t_sync = host_transfer_count()
+    if mode == "fused":
+        # validate direction x operator as the per-round modes do
+        if cfg.direction != "push":
+            ops.as_pull(ops.KCORE_DEC)     # raises: add-combine op
+        t0 = time.perf_counter()
+        in_core, r, st = _kcore_fused(g, deg, frontier, dead_acc, int(k),
+                                      cfg, max_rounds, collect_stats)
+        return AppResult(*_fused_result(t_sync, t0, in_core, r, st))
+    stats = [] if collect_stats else None
     t0 = time.perf_counter()
     rounds = 0
     while rounds < max_rounds:
@@ -281,6 +360,56 @@ def _pr_round_math(rank, inv_out, sink, acc, damping: float):
     return new_rank, delta
 
 
+def _pagerank_loop(rg: Graph, inv_out, sink, damping: float, tol: float,
+                    cfg: BalancerConfig, max_rounds: int,
+                    collect_stats: bool):
+    """PageRank's whole power iteration as ONE :func:`graph_loop.while_`:
+    the residual check that blocks the host loop every round becomes
+    part of the loop condition on the device.  The arithmetic around the
+    round is :func:`_pr_round_math`, the host loop's, so both modes
+    round alike.  Returns ``(rank, rounds)`` plus the stat rows."""
+    n, dev = inv_out.shape[0], inv_out.device
+    frontier = full_frontier(n, dev)
+    carry = (torch.zeros((), dtype=torch.int32, device=dev),
+             torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev),
+             torch.full((), float("inf"), dtype=torch.float32, device=dev))
+    if collect_stats:
+        carry += (_fused_stats_init(max_rounds, 1, cfg.num_tiles, dev),)
+
+    def cond(r, rank, delta, *rows):
+        return (r < max_rounds) & (delta >= tol)
+
+    def body(r, rank, delta, *rows):
+        contrib, _ = _pr_round_math(rank, inv_out, sink, None, damping)
+        acc = torch.zeros((n,), dtype=torch.float32, device=dev)
+        # pull: gather contrib at in-neighbours, scatter-add at anchor
+        acc, _, _, _, st = relax_fused_round(
+            rg, None, None, contrib[None], acc[None], frontier[None], cfg,
+            ops.PR_PULL, None, collect_stats)
+        new_rank, delta = _pr_round_math(rank, inv_out, sink, acc[0],
+                                         damping)
+        if collect_stats:
+            rows = (_put_row(rows[0], r, st),)
+        return (r + 1, new_rank, delta) + rows
+
+    r, rank, _, *rows = graph_loop.while_(cond, body, carry)
+    return (rank, r, *rows)
+
+
+def _pagerank_fused(rg: Graph, inv_out, sink, damping: float, tol: float,
+                    cfg: BalancerConfig, max_rounds: int,
+                    collect_stats: bool):
+    """:func:`_pagerank_loop` as one program, cached on ``rg``, the graph
+    it reads: ``(rank, rounds, stats)`` on the device."""
+    rank, r, *rows = graph_loop.run(
+        rg, ("pagerank", damping, tol, cfg, max_rounds, collect_stats),
+        lambda io, sk: _pagerank_loop(rg, io, sk, damping, tol, cfg,
+                                      max_rounds, collect_stats),
+        inv_out, sink)
+    return rank, r, (_unpack_stats(rows[0], cfg.num_tiles) if rows
+                     else None)
+
+
 def pagerank(g: Graph, damping: float = 0.85, tol: float = 1e-6,
              cfg: BalancerConfig = BalancerConfig(),
              max_rounds: int = 1000, collect_stats: bool = False,
@@ -290,9 +419,9 @@ def pagerank(g: Graph, damping: float = 0.85, tol: float = 1e-6,
     Each round scatter-adds ``rank * inv_out`` of the in-neighbours at
     every vertex over the reverse CSR (float32 add), and dangling
     vertices (out-degree 0) redistribute their mass uniformly, so
-    ``sum(rank) == 1`` holds on graphs with sinks.  Two counted
-    transfers per round: the round's counts and the residual check."""
-    _host_mode(mode)
+    ``sum(rank) == 1`` holds on graphs with sinks.  Host and spmd mode
+    pay two counted transfers a round (the round's, the residual
+    check); fused mode none."""
     n = g.num_vertices
     if rg is None:
         rg = g.reverse()                   # pull traverses in-edges
@@ -300,10 +429,18 @@ def pagerank(g: Graph, damping: float = 0.85, tol: float = 1e-6,
     inv_out = torch.where(outdeg > 0, 1.0 / torch.clamp(outdeg, min=1.0),
                           0.0)
     sink = outdeg == 0
+    t_sync = host_transfer_count()
+    if mode == "fused":
+        if cfg.direction != "push":
+            ops.as_pull(ops.PR_PULL)       # raises: not a push-min op
+        t0 = time.perf_counter()
+        rank, r, st = _pagerank_fused(rg, inv_out, sink, float(damping),
+                                      float(tol), cfg, max_rounds,
+                                      collect_stats)
+        return AppResult(*_fused_result(t_sync, t0, rank, r, st))
     rank = torch.full((n,), 1.0 / n, dtype=torch.float32, device=g.device)
     frontier = full_frontier(n, g.device)
     stats = [] if collect_stats else None
-    t_sync = host_transfer_count()
     t0 = time.perf_counter()
     rounds = 0
     while rounds < max_rounds:

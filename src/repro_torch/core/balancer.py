@@ -41,7 +41,17 @@ vertex with in-edges is enumerated (binned by in-degree, cached per
 graph by :func:`_pull_enum`), and the executors gather value and
 activity at each in-edge's source and combine at the anchor.
 
-The static-shape and fused round modes arrive with a later slice.
+The static-shape round (:func:`relax_spmd`, ``mode="spmd"`` in the
+drivers) runs the same plan at capacities fixed by the graph (V rows a
+bin, E ids for the LB span) through the same executor entries, given
+the pass count and the huge-bin total as device int32s that they read
+on the device; :func:`relax_fused_round` adds the direction
+choice on the device, and :func:`run_fused` runs a whole min-combine
+traversal as one loop (``mode="fused"``).  Their branches and loops go
+through ``core.graph_loop``: eager Python on CPU tensors, CUDA graph
+conditional nodes on CUDA tensors, so on the card a static round is one
+captured graph and a fused traversal one graph launch, with no host
+read between the dispatch and the caller's fetch.
 """
 from __future__ import annotations
 
@@ -51,10 +61,14 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import graph_loop
 from .graph import Graph
-from .frontier import next_bucket, compact, count, union_frontier
+from .frontier import (next_bucket, compact, count, dirty_mask,
+                       rows_active, union_frontier)
 from .operators import Operator, as_pull
 from .scatter import scatter_combine
+# re-exported here, where ``repro.core.balancer`` defines it
+from .scatter import combine_neutral  # noqa: F401
 
 _WIRE_NAMES = ("identity", "delta", "bitmap")
 _WIRE_NARROW = ("int8", "uint8", "int16", "uint16")
@@ -202,6 +216,21 @@ def resolve_direction(cfg: BalancerConfig, frontier_size: int,
     return "push"
 
 
+def resolve_direction_device(cfg: BalancerConfig, frontier_size,
+                             frontier_edges, num_vertices: int,
+                             num_edges: int) -> torch.Tensor:
+    """:func:`resolve_direction` over device int32 scalars: a bool scalar
+    on their device (True = pull), the branch selector of the fused
+    round.  The same integer thresholds, so the device choice equals
+    the host one (int32 counts, as in the JAX package)."""
+    dev = frontier_size.device
+    if cfg.direction != "adaptive":
+        return torch.full((), cfg.direction == "pull", dtype=torch.bool,
+                          device=dev)
+    return ((frontier_size * cfg.pull_beta >= num_vertices)
+            | (frontier_edges * cfg.pull_alpha >= num_edges))
+
+
 # ---------------------------------------------------------------------------
 # host-sync accounting
 # ---------------------------------------------------------------------------
@@ -226,19 +255,30 @@ def host_transfer_count() -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ExecutorPair:
-    """One backend's host-round implementations of the bin + LB paths.
+    """One backend's implementations of the bin + LB paths.  Each entry
+    serves the host round and the static round alike.
 
     bin_host: (g, values, labels, fmask, bvidx, bdeg, brow, width, op,
-               chunk) -> labels
+               chunk, passes=1, rows=None) -> labels: passes ``chunk ..
+               chunk + passes - 1``; ``chunk`` and ``passes`` are host
+               ints or, in the static round, device int32s (an unbounded
+               bin's pass count), and ``rows``, given by the static
+               round, a device int32 past which every row is empty (an
+               entry may skip them)
     lb_host:  (g, values, labels, fmask, hvidx, hdeg, hrow, total, ecap,
-               op, distribution, num_tiles, tile_edges) -> labels
+               op, distribution, num_tiles, tile_edges) -> labels;
+               ``total`` a host int (host round) or a device int32
+               (static round), and a total of 0 changes nothing
 
     ``values`` / ``labels`` / ``fmask`` are ``[B, V]``; the enumeration
     arguments are batch-shared (union frontier).  With ``in_place`` the
     entries combine into ``labels`` and return it: the round hands them
     a private copy, made once per round, never the caller's labels.
-    The static-shape entries of the JAX pairs arrive with the spmd/fused
-    slice.
+    Given device scalars, an entry never reads them on the host, so a
+    captured round (``core.graph_loop``) can run it.  The JAX package
+    keeps a second, jit-traced entry of each (``bin_jit`` / ``lb_jit``,
+    the ``*_apply_static`` kernels); here one entry takes either kind
+    of scalar, so the pair needs no second one.
     """
     name: str
     bin_host: Callable
@@ -287,6 +327,76 @@ class RoundStats(NamedTuple):
     frontier_edges: int = 0
     host_transfers: int = 0
 
+    @classmethod
+    def from_device(cls, s: "RoundStatsDev") -> "RoundStats":
+        """Host values of a :class:`RoundStatsDev` (CPU tensors: the
+        callers fetch once, then convert)."""
+        return cls(frontier_size=int(s.frontier_size),
+                   edges_twc=int(s.edges_twc), edges_lb=int(s.edges_lb),
+                   lb_invoked=bool(s.lb_invoked),
+                   tile_loads_twc=np.asarray(s.tile_loads_twc,
+                                             dtype=np.int64),
+                   tile_loads_lb=np.asarray(s.tile_loads_lb,
+                                            dtype=np.int64),
+                   mirrors_synced=int(s.mirrors_synced),
+                   bytes_synced=int(s.bytes_synced),
+                   bytes_wire=int(s.bytes_wire),
+                   frontier_per_query=np.asarray(s.frontier_per_query,
+                                                 dtype=np.int64),
+                   direction="pull" if bool(s.is_pull) else "push",
+                   frontier_edges=int(s.frontier_edges))
+
+
+class RoundStatsDev(NamedTuple):
+    """:class:`RoundStats` as device tensors (int32 scalars, bool
+    ``lb_invoked`` / ``is_pull``, int32 ``[num_tiles]`` tile loads and
+    ``[B]`` per-query frontier sizes): what a static round reports
+    without a host read.  The fused loop keeps one row per round in a
+    packed buffer (:func:`_fused_stats_init`); views of it have a
+    leading round axis and int32 flags."""
+    frontier_size: torch.Tensor
+    edges_twc: torch.Tensor
+    edges_lb: torch.Tensor
+    lb_invoked: torch.Tensor
+    tile_loads_twc: torch.Tensor
+    tile_loads_lb: torch.Tensor
+    mirrors_synced: torch.Tensor
+    bytes_synced: torch.Tensor
+    bytes_wire: torch.Tensor
+    frontier_per_query: torch.Tensor
+    frontier_edges: torch.Tensor
+    is_pull: torch.Tensor
+
+
+# the scalar fields of RoundStatsDev, in the packed layout's order; the
+# two [num_tiles] tile loads and the [B] frontier sizes follow
+_STAT_SCALARS = ("frontier_size", "edges_twc", "edges_lb", "lb_invoked",
+                 "mirrors_synced", "bytes_synced", "bytes_wire",
+                 "frontier_edges", "is_pull")
+
+
+def _pack_stats(st: RoundStatsDev) -> torch.Tensor:
+    """One int32 vector of a round's stats (``[..., K]`` for fields with
+    a leading round axis), so that a fetch is one transfer and the fused
+    loop writes one row a round."""
+    lead = st.frontier_size.shape
+    cols = [getattr(st, f).to(torch.int32).reshape(*lead, 1)
+            for f in _STAT_SCALARS]
+    return torch.cat(cols + [st.tile_loads_twc, st.tile_loads_lb,
+                             st.frontier_per_query], dim=-1)
+
+
+def _unpack_stats(p: torch.Tensor, num_tiles: int) -> RoundStatsDev:
+    """Views of a :func:`_pack_stats` vector (or ``[R, K]`` rows) as a
+    :class:`RoundStatsDev`."""
+    k = len(_STAT_SCALARS)
+    fields = {f: p[..., i] for i, f in enumerate(_STAT_SCALARS)}
+    return RoundStatsDev(tile_loads_twc=p[..., k:k + num_tiles],
+                         tile_loads_lb=p[..., k + num_tiles:
+                                         k + 2 * num_tiles],
+                         frontier_per_query=p[..., k + 2 * num_tiles:],
+                         **fields)
+
 
 # ---------------------------------------------------------------------------
 # torch-ops building blocks (the "xla" executor)
@@ -304,12 +414,27 @@ def _frontier_meta(g: Graph, frontier_idx: torch.Tensor):
 
 
 def _bin_pass_impl(g: Graph, values, labels, fmask, vidx, deg, row_start,
-                   width: int, op: Operator, chunk):
+                   width: int, op: Operator, chunk, passes=1, rows=None):
     """Process one degree bin: each vertex in ``vidx`` contributes its
-    edges [chunk*width, chunk*width + width) as an [N, width] tile
-    shared by the whole batch."""
+    edges [c*width, c*width + width) as an [N, width] tile shared by the
+    whole batch, for ``c`` in ``chunk .. chunk + passes - 1``: a Python
+    loop for a host int ``passes``, a :func:`graph_loop.while_` over the
+    chunks for a device int32 (an unbounded bin of the static round).
+    ``chunk`` is a host int or a 0-dim int32 tensor, used as a tensor
+    (never read on the host).  The tile spans all N rows, so ``rows``
+    goes unused."""
+    del rows
+    return graph_loop.repeat(
+        lambda lab, c: _bin_chunk(g, values, lab, fmask, vidx, deg,
+                                  row_start, width, op, c),
+        labels, chunk, passes)
+
+
+def _bin_chunk(g: Graph, values, labels, fmask, vidx, deg, row_start,
+               width: int, op: Operator, chunk):
+    """One pass ``chunk`` of :func:`_bin_pass_impl`."""
     v = labels.shape[-1]
-    off = (int(chunk) * width
+    off = (chunk * width
            + torch.arange(width, dtype=torch.int32,
                           device=vidx.device)[None, :])           # [1,W]
     emask = off < deg[:, None]                                     # [N,W]
@@ -331,11 +456,13 @@ def _bin_pass_impl(g: Graph, values, labels, fmask, vidx, deg, row_start,
 
 
 def _lb_pass_impl(g: Graph, values, labels, fmask, hidx, hdeg, hrow_start,
-                  total_edges: int, ecap: int, op: Operator,
+                  total_edges, ecap: int, op: Operator,
                   distribution: str, num_tiles: int, tile_edges: int = 0):
     """The LB executor (Figure 3, SSSP_LB): edges of the huge vertices
     get ids 0..total_edges-1 by an exclusive prefix sum over their
     degrees; each id maps back to (src, graph edge) by binary search.
+    ``total_edges`` is a host int or a 0-dim int32 tensor (the static
+    round's), compared as a tensor.
     ``distribution`` sets the id -> lane order (cyclic: contiguous;
     blocked: strided by ``w_per``).  ``tile_edges`` is unused here
     (kept for executor signature parity with the kernel pair)."""
@@ -375,20 +502,30 @@ register_executor(ExecutorPair("xla", bin_host=_bin_pass_impl,
 
 def _tile_loads(deg, valid, num_tiles: int):
     """Per-tile edge counts when frontier vertices are dealt to tiles in
-    compacted order (Fig 1/5 instrumentation)."""
+    compacted order (Fig 1/5 instrumentation): slot i goes to tile
+    ``i * num_tiles // f``, so tile t holds the contiguous slots from
+    ``ceil(t * f / num_tiles)`` on, and its load is a difference of one
+    prefix sum (a scatter-add onto 64 addresses would serialize the
+    static round's V slots on them)."""
     f = deg.shape[0]
-    tile = (torch.arange(f, dtype=torch.int32, device=deg.device)
-            * num_tiles) // max(f, 1)
-    return torch.zeros((num_tiles,), dtype=torch.int32,
-                       device=deg.device).index_add_(
-        0, tile, torch.where(valid, deg, 0))
+    bounds = torch.arange(num_tiles + 1, dtype=torch.int64,
+                          device=deg.device) * f
+    first = (bounds + num_tiles - 1) // num_tiles         # [T + 1]
+    csum = torch.zeros((f + 1,), dtype=torch.int64, device=deg.device)
+    csum[1:] = torch.cumsum(torch.where(valid, deg, 0), 0)
+    return (csum[first[1:]] - csum[first[:-1]]).to(torch.int32)
 
 
-def _lb_tile_loads(total: int, num_tiles: int) -> np.ndarray:
-    """Edge-balanced deal: per-tile loads differ by at most one edge
-    (host arithmetic: ``total`` is already on the host)."""
+def _lb_tile_loads(total, num_tiles: int):
+    """Edge-balanced deal: per-tile loads differ by at most one edge.
+    Host arithmetic (int64 numpy) for a host ``total``; int32 on its
+    device for a tensor one."""
+    if not isinstance(total, torch.Tensor):
+        return (total // num_tiles + (np.arange(num_tiles)
+                                      < total % num_tiles)).astype(np.int64)
+    tiles = torch.arange(num_tiles, dtype=torch.int32, device=total.device)
     return (total // num_tiles
-            + (np.arange(num_tiles) < total % num_tiles)).astype(np.int64)
+            + (tiles < total % num_tiles).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -397,7 +534,9 @@ def _lb_tile_loads(total: int, num_tiles: int) -> np.ndarray:
 
 def _gather_bin(mask, fidx, deg, row_start, cap: int, fcap: int, v: int):
     """Compact a bin mask into (vidx, deg, row) at capacity ``cap``
-    (slots past the bin size become out-of-range sentinels)."""
+    (slots past the bin size become out-of-range sentinels).  The
+    counterpart of JAX's ``_gather_bin_impl`` (its jit cache front
+    ``_gather_bin`` has nothing to cache here)."""
     sel = compact(mask, cap)                       # slots into fidx
     take = sel < fcap
     sel_safe = torch.where(take, sel, 0)
@@ -630,3 +769,328 @@ def relax(g: Graph, values: torch.Tensor, labels: torch.Tensor,
     labels = labels if batched else labels[0]
     out = (labels, RoundStats(**stats) if stats is not None else None)
     return out + (active,) if return_active else out
+
+
+# ---------------------------------------------------------------------------
+# static-shape round (the ``spmd`` mode)
+# ---------------------------------------------------------------------------
+
+def _relax_spmd_impl(g: Graph, values, labels, frontier,
+                     cfg: BalancerConfig, op: Operator,
+                     collect_stats: bool = False, return_dirty: bool = False,
+                     emask: Optional[torch.Tensor] = None,
+                     owned: bool = False):
+    """Static-shape ALB round: bins over ``compact(union or emask, V)``
+    at capacity V (sentinel ``V`` for non-members), the LB span at E ids;
+    a bounded bin runs its static passes, an unbounded one (twc's large
+    bin, the vertex strategy) its pass count ``ceil(max_deg / W)``
+    computed on the device, and the LB path always runs with the device
+    total, which is 0 when the huge bin is empty (so it changes
+    nothing, and the stats take ``torch.where`` on ``n_huge > 0``: the
+    JAX package's ``lax.cond`` inspector).  No device value is read on
+    the host, so ``core.graph_loop`` can capture it.
+
+    Returns ``labels``, extended to ``(labels, RoundStatsDev)`` with
+    ``collect_stats`` and/or ``(..., dirty)`` with ``return_dirty``.
+    ``tile_loads_twc`` deals the static V slots to tiles, so it differs
+    from the host round's bucketed deal.  Accepts ``[V]`` or ``[B, V]``
+    state.  ``emask`` (a pull round over the reverse CSR) enumerates
+    the vertices it marks instead of the union frontier.  ``owned``:
+    ``labels`` is a private buffer that an ``in_place`` pair may combine
+    into (the fused round's direction branches share one)."""
+    batched = labels.ndim == 2
+    if not batched:
+        values, labels, frontier = (values[None], labels[None],
+                                    frontier[None])
+    labels_in = labels
+    v = labels.shape[-1]
+    dev = labels.device
+    union = union_frontier(frontier)
+    listed = union if emask is None else emask
+    fidx = compact(listed, v)
+    n_listed = count(listed)           # bin rows past it are all empty
+    deg, row_start, valid = _frontier_meta(g, fidx)
+    ex = get_executor(cfg.executor)
+    plan = effective_plan(cfg)
+    if ex.in_place and not owned:
+        labels = labels.clone(memory_format=torch.contiguous_format)
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    edges_twc, tl_twc = zeros(), zeros(cfg.num_tiles)
+    for spec in plan.bins:
+        mask = spec.mask(deg, valid)
+        bvidx = torch.where(mask, fidx, v)
+        bdeg = torch.where(mask, deg, 0)
+        brow = torch.where(mask, row_start, 0)
+        passes = spec.static_passes()
+        if passes is None:
+            # unbounded bin: a data-dependent pass count (0 when empty)
+            passes = (bdeg.max() + (spec.width - 1)) // spec.width
+        labels = ex.bin_host(g, values, labels, frontier, bvidx, bdeg, brow,
+                            spec.width, op, 0, passes, n_listed)
+        if collect_stats:
+            edges_twc = edges_twc + bdeg.sum(dtype=torch.int32)
+            tl_twc = tl_twc + _tile_loads(bdeg, mask, cfg.num_tiles)
+
+    edges_lb, tl_lb = zeros(), zeros(cfg.num_tiles)
+    lb_invoked = zeros(dtype=torch.bool)
+    if plan.lb != "none":
+        hmask = plan.lb_mask(deg, valid, cfg)
+        hdeg = torch.where(hmask, deg, 0)
+        total = hdeg.sum(dtype=torch.int32)
+        labels = ex.lb_host(g, values, labels, frontier,
+                           torch.where(hmask, fidx, v), hdeg,
+                           torch.where(hmask, row_start, 0), total,
+                           g.num_edges, op, cfg.distribution, cfg.num_tiles,
+                           cfg.lb_tile_edges)
+        lb_invoked = count(hmask) > 0
+        edges_lb = torch.where(lb_invoked, total, 0)
+        tl_lb = torch.where(lb_invoked,
+                            _lb_tile_loads(total, cfg.num_tiles), 0)
+
+    outs = (labels if batched else labels[0],)
+    if collect_stats:
+        outs += (RoundStatsDev(
+            frontier_size=count(union), edges_twc=edges_twc,
+            edges_lb=edges_lb, lb_invoked=lb_invoked,
+            tile_loads_twc=tl_twc, tile_loads_lb=tl_lb,
+            mirrors_synced=zeros(), bytes_synced=zeros(),
+            bytes_wire=zeros(),
+            frontier_per_query=frontier.sum(dim=1, dtype=torch.int32),
+            frontier_edges=zeros(), is_pull=zeros(dtype=torch.bool)),)
+    if return_dirty:
+        dirty = dirty_mask(labels_in, labels)
+        outs += (dirty if batched else dirty[0],)
+    return outs[0] if len(outs) == 1 else outs
+
+
+def relax_spmd(g: Graph, values: torch.Tensor, labels: torch.Tensor,
+               frontier: torch.Tensor, cfg: BalancerConfig, op: Operator,
+               collect_stats: bool = False, return_dirty: bool = False,
+               emask: Optional[torch.Tensor] = None):
+    """:func:`_relax_spmd_impl` as a whole: eagerly on CPU tensors; on
+    CUDA tensors one replay of its captured graph (``core.graph_loop``),
+    cached on ``g`` per version, config, operator, outputs asked for and
+    input shapes.  Results are the caller's own tensors, on the device."""
+    ins = (values, labels, frontier) + (() if emask is None else (emask,))
+
+    def round_(values, labels, frontier, *em):
+        return _relax_spmd_impl(g, values, labels, frontier, cfg, op,
+                                collect_stats, return_dirty,
+                                em[0] if em else None)
+
+    return graph_loop.run(g, ("spmd", cfg, op, collect_stats, return_dirty,
+                              emask is not None), round_, *ins)
+
+
+# ---------------------------------------------------------------------------
+# device-resident planning: the direction chosen on the device, whole
+# traversals as one device loop
+# ---------------------------------------------------------------------------
+
+def relax_fused_round(g: Graph, rg: Optional[Graph],
+                      emask: Optional[torch.Tensor], values, labels,
+                      frontier, cfg: BalancerConfig, op: Operator,
+                      pull_op: Optional[Operator] = None,
+                      collect_stats: bool = False):
+    """One round with the whole inspector on the device: ``n_f`` and
+    ``m_f`` are device scalars, the Beamer rule
+    (:func:`resolve_direction_device`) picks the branch with
+    :func:`graph_loop.cond` (two IF nodes on the card; never both
+    branches merged, since the kernel pair combines into its labels),
+    and each branch is the static round, push on ``g`` or pull on the
+    reverse CSR ``rg`` over its in-degree ``emask``.
+
+    Inputs are batched ``[B, V]``; ``rg`` / ``emask`` / ``pull_op`` may
+    be None for ``push`` configs.  Returns ``(labels, is_pull, n_f,
+    m_f, stats)``, all on the device; ``stats`` is a
+    :class:`RoundStatsDev` with ``frontier_edges`` / ``is_pull`` filled
+    in (None unless ``collect_stats``)."""
+    v = labels.shape[-1]
+    deg = g.out_degrees()
+    union = union_frontier(frontier)
+    nf = count(union)
+    m_f = torch.where(union, deg, 0).sum(dtype=torch.int32)
+    is_pull = resolve_direction_device(cfg, nf, m_f, v, g.num_edges)
+    if cfg.direction == "push":
+        out = _relax_spmd_impl(g, values, labels, frontier, cfg, op,
+                               collect_stats=collect_stats)
+    elif cfg.direction == "pull":
+        out = _relax_spmd_impl(rg, values, labels, frontier, cfg, pull_op,
+                               collect_stats=collect_stats, emask=emask)
+    else:
+        # an in_place pair: both branches combine into one private copy
+        owned = get_executor(cfg.executor).in_place
+        lab = (labels.clone(memory_format=torch.contiguous_format)
+               if owned else labels)
+        out = graph_loop.cond(
+            is_pull,
+            lambda: _relax_spmd_impl(rg, values, lab, frontier, cfg,
+                                     pull_op, collect_stats=collect_stats,
+                                     emask=emask, owned=owned),
+            lambda: _relax_spmd_impl(g, values, lab, frontier, cfg, op,
+                                     collect_stats=collect_stats,
+                                     owned=owned))
+    if collect_stats:
+        labels_out, st = out
+        st = st._replace(frontier_edges=m_f, is_pull=is_pull)
+    else:
+        labels_out, st = out, None
+    return labels_out, is_pull, nf, m_f, st
+
+
+def _pull_side(g: Graph, cfg: BalancerConfig, op: Operator):
+    """``(pull_op, rg, emask)`` of a direction-aware round: None for push
+    configs, else the pull twin (which validates the operator) and the
+    cached reverse CSR with its in-degree mask (one-time set-up)."""
+    if cfg.direction == "push":
+        return None, None, None
+    pull_op = as_pull(op)
+    pe = _pull_enum(g, cfg)
+    return pull_op, pe.rg, pe.emask
+
+
+def _directed_round(g, rg, emask, values, labels, frontier, cfg, op,
+                    pull_op, collect_stats):
+    """One device-directed round, plus what a host loop observes packed
+    in one int32 vector: each row's entering liveness, then the packed
+    stats (with ``collect_stats``)."""
+    labels_out, _, _, _, st = relax_fused_round(
+        g, rg, emask, values, labels, frontier, cfg, op, pull_op,
+        collect_stats)
+    seen = [rows_active(frontier).to(torch.int32)]
+    if collect_stats:
+        seen.append(_pack_stats(st))
+    return labels_out, torch.cat(seen)
+
+
+def relax_spmd_directed(g: Graph, values, labels, frontier,
+                        cfg: BalancerConfig, op: Operator,
+                        collect_stats: bool = False,
+                        return_active: bool = False):
+    """Direction-aware static round: the round primitive of
+    ``mode="spmd"`` in the drivers.  The direction is chosen on the
+    device (:func:`relax_fused_round`), so deciding costs no transfer;
+    the caller pays ONE counted fetch a round, and only when it asks to
+    observe liveness or stats.  On CUDA tensors the round is one replay
+    of its captured graph.
+
+    Returns ``(labels, RoundStats|None)``, plus a host ``bool[B]``
+    liveness vector (``bool[1]`` un-batched) with ``return_active``."""
+    batched = labels.ndim == 2
+    if not batched:
+        values, labels, frontier = (values[None], labels[None],
+                                    frontier[None])
+    pull_op, rg, emask = _pull_side(g, cfg, op)
+    labels_out, seen = graph_loop.run(
+        g, ("directed", cfg, op, collect_stats),
+        lambda val, lab, fr: _directed_round(g, rg, emask, val, lab, fr,
+                                             cfg, op, pull_op,
+                                             collect_stats),
+        values, labels, frontier)
+    st = active = None
+    if collect_stats or return_active:
+        seen = seen.cpu()              # ONE blocking sync for the loop
+        _note_host_transfer()
+        b = labels.shape[0]
+        active = seen[:b].numpy() > 0
+        if collect_stats:
+            st = RoundStats.from_device(_unpack_stats(
+                seen[b:], cfg.num_tiles))._replace(host_transfers=1)
+    labels_out = labels_out if batched else labels_out[0]
+    result = (labels_out, st)
+    return result + (active,) if return_active else result
+
+
+def _fused_stats_init(max_rounds: int, b: int, num_tiles: int,
+                      device) -> torch.Tensor:
+    """Zeroed per-round stat rows of a fused traversal: one int32
+    ``[max_rounds, K]`` buffer in the :func:`_pack_stats` layout (the
+    JAX package's ``RoundStatsDev`` of ``[max_rounds]`` buffers;
+    :func:`_unpack_stats` gives it that shape as views)."""
+    return torch.zeros((max_rounds, len(_STAT_SCALARS) + 2 * num_tiles + b),
+                       dtype=torch.int32, device=device)
+
+
+def _put_row(rows: torch.Tensor, r: torch.Tensor,
+             st: RoundStatsDev) -> torch.Tensor:
+    """Write round ``r``'s stats (``r`` a device scalar) into ``rows``,
+    in place; returns ``rows``."""
+    return rows.index_copy_(0, r.reshape(1).long(), _pack_stats(st)[None])
+
+
+def _run_fused_loop(g: Graph, rg, emask, labels, frontier,
+                    cfg: BalancerConfig, op: Operator, pull_op,
+                    max_rounds: int, collect_stats: bool):
+    """The fused min-combine loop: ONE :func:`graph_loop.while_` whose
+    body is :func:`relax_fused_round` plus the ``new < old`` frontier
+    update, writing stats row ``r`` on the device; the condition
+    ``(r < max_rounds) & any(frontier)`` is evaluated on the device.
+    Returns ``(r, labels, frontier)`` plus the stat rows with
+    ``collect_stats``."""
+    carry = (torch.zeros((), dtype=torch.int32, device=labels.device),
+             labels, frontier)
+    if collect_stats:
+        carry += (_fused_stats_init(max_rounds, labels.shape[0],
+                                    cfg.num_tiles, labels.device),)
+
+    def cond(r, lab, fr, *rows):
+        return (r < max_rounds) & fr.any()
+
+    def body(r, lab, fr, *rows):
+        new, _, _, _, st = relax_fused_round(g, rg, emask, lab, lab, fr,
+                                             cfg, op, pull_op,
+                                             collect_stats)
+        if collect_stats:
+            rows = (_put_row(rows[0], r, st),)
+        return (r + 1, new, new < lab) + rows
+
+    return graph_loop.while_(cond, body, carry)
+
+
+def run_fused(g: Graph, labels: torch.Tensor, frontier: torch.Tensor,
+              cfg: BalancerConfig, op: Operator, max_rounds: int = 10_000,
+              collect_stats: bool = False):
+    """A whole min-combine traversal as ONE device loop, with zero
+    per-round host syncs: bins, the inspector and the direction rule
+    run on the device (:func:`relax_fused_round`).  On CUDA tensors the
+    loop is one launch of a captured graph whose WHILE node turns on the
+    card; the only transfers are the dispatch and whatever the caller
+    fetches.  Accepts ``[V]`` or ``[B, V]`` state.  The one-time pull
+    enumeration is built before dispatch and cached on ``g``.
+
+    Returns ``(labels, frontier, rounds, stats)``: ``rounds`` a device
+    scalar, ``stats`` the device stat rows as a :class:`RoundStatsDev`
+    of ``[max_rounds, ...]`` views (None unless ``collect_stats``);
+    materialize them with :func:`fused_stats_host`."""
+    if op.combine != "min":
+        raise ValueError(f"run_fused drives min-combine loops; got "
+                         f"{op.name} (combine={op.combine!r})")
+    batched = labels.ndim == 2
+    lab = labels if batched else labels[None]
+    fr = frontier if batched else frontier[None]
+    pull_op, rg, emask = _pull_side(g, cfg, op)
+    max_rounds = int(max_rounds)
+    r, lab, fr, *rows = graph_loop.run(
+        g, ("fused", cfg, op, max_rounds, collect_stats),
+        lambda la, f: _run_fused_loop(g, rg, emask, la, f, cfg, op,
+                                      pull_op, max_rounds, collect_stats),
+        lab, fr)
+    st = _unpack_stats(rows[0], cfg.num_tiles) if collect_stats else None
+    if not batched:
+        lab, fr = lab[0], fr[0]
+    return lab, fr, r, st
+
+
+def fused_stats_host(st: Optional[RoundStatsDev], rounds: int):
+    """A fused traversal's stat rows as the usual ``List[RoundStats]``:
+    ONE transfer for the whole traversal, after it converged.
+    ``rounds`` selects the filled rows; fused rounds report
+    ``host_transfers=0``."""
+    if st is None:
+        return None
+    rows = _pack_stats(st)[:rounds].cpu()
+    t = st.tile_loads_twc.shape[-1]
+    return [RoundStats.from_device(_unpack_stats(row, t)) for row in rows]

@@ -41,10 +41,29 @@ def count(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum(dtype=torch.int32)
 
 
+def dirty_mask(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Per-label "touched this round" bitvector (Gluon's dirty set);
+    elementwise, so a batched ``[B, V]`` pair gives a per-query mask."""
+    return new != old
+
+
+def dirty_vertices(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Per-**vertex** dirty mask: a vertex is dirty when its label changed
+    in any query of the batch."""
+    d = new != old
+    return d if d.ndim == 1 else d.any(dim=0)
+
+
 def union_frontier(frontier: torch.Tensor) -> torch.Tensor:
     """Dense union of a batch of frontiers: ``[B, V] -> [V]`` (identity
     on an un-batched ``[V]`` mask)."""
     return frontier if frontier.ndim == 1 else frontier.any(dim=0)
+
+
+def rows_active(frontier: torch.Tensor) -> torch.Tensor:
+    """Per-slot liveness ``bool[B]`` of a batched frontier: row b is
+    active while any of its vertices is on the worklist."""
+    return frontier.any(dim=-1)
 
 
 def full_frontier(num_vertices: int, device) -> torch.Tensor:

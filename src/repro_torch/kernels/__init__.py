@@ -21,6 +21,9 @@
   ``csrc/flash_attention_wgmma.cu`` (bf16, head width 64 or 128: TMA
   and ``wgmma``) and ``csrc/flash_attention.cu`` (float32 and other
   head widths: CUDA cores);
+* ``csrc/graph_loop.cu``        — no TPU kernel: the conditional graph
+  nodes (IF, WHILE) and their condition kernel, for
+  ``core.graph_loop``'s device control flow;
 * ``ref``                       — plain PyTorch versions of all eight;
 * ``ops``                       — the executor pairs of
   ``core.balancer``: the fused relax kernels (or, for an operator they
@@ -32,7 +35,11 @@
 Each wrapper keeps a plain-integer launch counter (``fn.launches``),
 incremented only where it launches its kernel; ``flash_attention`` also
 counts each route (``fn.launches_by_route``), ``moe_plan`` each cluster
-size (``fn.launches_by_cluster``).
+size (``fn.launches_by_cluster``).  The graph kernels' wrappers count a
+call made while a CUDA graph is being captured in ``fn.captured``
+instead: the graph launches the kernel, as often as it runs, so the
+kernels of the static-shape round (``DEVICE_COUNTED``) count their
+launches on the card (:func:`device_launch_counts`).
 """
 from __future__ import annotations
 
@@ -58,10 +65,36 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+#: kernels that count their own launches on the card, by source
+DEVICE_COUNTED = {"twc_bin_relax": "twc_relax",
+                  "edge_lb_relax": "edge_lb_relax",
+                  "merge_path_map": "merge_path"}
+
+
+def capture_counts() -> dict:
+    """Calls of each graph kernel's wrapper recorded into a CUDA graph
+    since the last :func:`reset_launch_counts`."""
+    return {name: fn.captured for name, fn in KERNELS.items()
+            if hasattr(fn, "captured")}
+
+
+def device_launch_counts(reset: bool = False) -> dict:
+    """Launches of each ``DEVICE_COUNTED`` kernel counted on the card
+    (graph replays and WHILE turns included) since the last reset (CUDA
+    only; reads the card, so it syncs)."""
+    from . import build
+    return {name: build.device_launches(src, reset)
+            for name, src in DEVICE_COUNTED.items()}
+
+
 def reset_launch_counts() -> None:
-    """Zero every launch counter, and ``ops.unfused_passes``."""
+    """Zero every launch counter (``launches``, ``captured``, the
+    per-route and per-cluster counts), and ``ops.unfused_passes``; the
+    device counts are reset by :func:`device_launch_counts`."""
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "captured"):
+            fn.captured = 0
         for by in ("launches_by_route", "launches_by_cluster"):
             counts = getattr(fn, by, {})
             for r in counts:

@@ -11,7 +11,11 @@ reaches the CUDA driver's tensor-map encoder through the runtime).
 Nothing is built when this module is imported: :func:`load_all` builds
 on first use, one ``nvcc`` process per source, all started together, and
 :func:`load` is its one-source case.  :func:`check_vec` holds the input
-checks every wrapper makes before it hands raw pointers to a kernel.
+checks every wrapper makes before it hands raw pointers to a kernel, and
+:func:`scalar_arg` those of a scalar that is a host int or a device int32.
+:func:`count_launch` keeps a wrapper's counts, and :func:`device_launches`
+reads the launches a source's kernels counted on the card
+(``csrc/device_count.cuh``).
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -95,6 +101,20 @@ def check_vec(kernel: str, name: str, t, n: int, device,
                          f"{t.device}")
 
 
+def scalar_arg(kernel: str, name: str, x, device) -> tuple:
+    """A kernel's int32 scalar argument as ``(pointer, host value)``: a
+    host int gives ``(None, x)``; a one-element int32 tensor on
+    ``device`` gives ``(its address, 0)``, which the kernel reads on the
+    card (no host read, so a captured round can take it)."""
+    if not isinstance(x, torch.Tensor):
+        return None, int(x)
+    if x.dtype != torch.int32 or x.numel() != 1 or x.device != device:
+        raise ValueError(f"{kernel}: a tensor {name} must be one int32 on "
+                         f"{device}; got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    return x.data_ptr(), 0
+
+
 def load_all(names=None) -> dict:
     """The loaded library of ``csrc/<name>.cu`` for each of ``names``
     (default: every source).  Sources without an up-to-date library are
@@ -120,3 +140,30 @@ def load_all(names=None) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     return load_all([name])[name]
+
+
+def count_launch(fn) -> None:
+    """Count one launch of wrapper ``fn`` where it launches its kernel:
+    ``fn.launches``, or ``fn.captured`` while the current stream is being
+    captured into a CUDA graph, where the call only records the kernel
+    (the graph launches it each time it runs, and the kernel counts
+    those launches on the card: :func:`device_launches`)."""
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured += 1
+    else:
+        fn.launches += 1
+
+
+def device_launches(name: str, reset: bool = False) -> int:
+    """Launches of ``csrc/<name>.cu``'s kernels counted on the card since
+    the last reset, those of graph replays included (a source that
+    includes ``device_count.cuh``; reads device memory, so it syncs)."""
+    fn = load(name).device_launches
+    fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_ulonglong(0)
+    err = fn(ctypes.byref(n), int(reset))
+    if err != 0:
+        raise RuntimeError(f"{name}: reading the device launch count "
+                           f"failed with CUDA error {err}")
+    return n.value

@@ -36,13 +36,16 @@ namespace {
 __global__ void edge_lb_map_kernel(const int32_t* __restrict__ start_e,
                                    const int32_t* __restrict__ row_start,
                                    const uint32_t* __restrict__ hval,
-                                   int32_t h, int32_t total, int32_t w_per,
+                                   const int32_t* __restrict__ total_ptr,
+                                   int32_t h, int32_t total_host,
+                                   int32_t w_per,
                                    int32_t num_tiles, int32_t span,
                                    int32_t n_pad, int32_t blocked,
                                    int32_t* __restrict__ ge,
                                    int32_t* __restrict__ slot,
                                    uint32_t* __restrict__ val_out,
                                    bool* __restrict__ mask) {
+  const int32_t total = total_ptr != nullptr ? *total_ptr : total_host;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        i < n_pad; i += stride) {
@@ -68,8 +71,10 @@ __global__ void edge_lb_map_kernel(const int32_t* __restrict__ start_e,
 
 }  // namespace
 
+// total_ptr: null, or one int32 on the device that replaces `total`
 extern "C" int edge_lb_map_launch(const void* start_e, const void* row_start,
-                                  const void* hval, int h, int total,
+                                  const void* hval, const void* total_ptr,
+                                  int h, int total,
                                   int w_per, int num_tiles, int span,
                                   int n_pad, int blocked, void* ge,
                                   void* slot, void* val_out, void* mask,
@@ -82,7 +87,8 @@ extern "C" int edge_lb_map_launch(const void* start_e, const void* row_start,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(start_e),
       static_cast<const int32_t*>(row_start),
-      static_cast<const uint32_t*>(hval), h, total, w_per, num_tiles, span,
+      static_cast<const uint32_t*>(hval),
+      static_cast<const int32_t*>(total_ptr), h, total, w_per, num_tiles, span,
       n_pad, blocked, static_cast<int32_t*>(ge),
       static_cast<int32_t*>(slot), static_cast<uint32_t*>(val_out),
       static_cast<bool*>(mask));

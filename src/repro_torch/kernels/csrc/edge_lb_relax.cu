@@ -49,10 +49,20 @@
 // shares: each warp first reduces every run of lanes with one anchor
 // into its first lane (shuffles), and only that lane does the atomic.
 // So a float add here is order-dependent (atomics), as index_add_ is.
+// `total` comes from the host or, when `total_ptr` is non-null, from one
+// int32 on the device: the static-shape round (JAX's edge_lb_apply_static,
+// src/repro/kernels/ops.py:52) enumerates a span of E ids and knows its
+// total only on the card.  The grid then comes from the span alone, a
+// few blocks per SM that walk the tiles (cyclic) or ids (blocked) below
+// the total they read, so a round whose huge bin is empty (total 0)
+// costs one launch whose blocks exit at once.  A grid of span / 2048
+// blocks would cost the card that many block launches every round.
 // The kernel allocates nothing and launches on the caller's stream.
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_count.cuh"
 #include "relax.cuh"
 
 namespace {
@@ -138,56 +148,80 @@ __device__ __forceinline__ void relax_id(const Pass& p,
   }
 }
 
+// `lim` = min(span, total), the live ids [0, lim): from the host, or
+// read here from the device total (`total_ptr`).  A block takes tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ...: one tile when the host sized
+// the grid to lim, a grid-stride walk over [0, lim) when the grid was
+// sized from the static span alone.
 template <typename T, bool ADD, bool PULL>
 __global__ void __launch_bounds__(kThreads) edge_lb_relax_cyclic(
     Pass p, const T* __restrict__ values, T* labels,
     const bool* __restrict__ fmask, const int32_t* __restrict__ start_e,
-    const int32_t* __restrict__ row_start, int32_t h, int32_t lim) {
+    const int32_t* __restrict__ row_start, int32_t h, int32_t lim_host,
+    const int32_t* __restrict__ total_ptr, int32_t span) {
   __shared__ int32_t stage[kStage];
   __shared__ int32_t window[2];
-  const int32_t t_lo = (int32_t)blockIdx.x * kTile;   // < lim by the grid
-  const int32_t t_last = min(lim, t_lo + kTile) - 1;
-  if (threadIdx.x == 0 || threadIdx.x == 32) {
-    const int32_t x = threadIdx.x == 0 ? t_lo : t_last;
-    const int32_t j = upper_bound(start_e, 0, h, x) - 1;
-    window[threadIdx.x == 0 ? 0 : 1] = min(max(j, 0), h - 1);
-  }
-  __syncthreads();
-  const int32_t lo_j = window[0];
-  const int32_t win = window[1] - lo_j + 1;
-  const bool staged = win <= kStage;
-  if (staged)
-    for (int32_t i = threadIdx.x; i < win; i += kThreads)
-      stage[i] = __ldg(start_e + lo_j + i);
-  __syncthreads();
-  const int32_t* sw = staged ? stage : start_e + lo_j;
-  for (int32_t k = threadIdx.x; k < kTile; k += kThreads) {
-    const int32_t eid = t_lo + k;
-    const bool live = eid <= t_last;
-    int32_t j = 0, e = 0;
-    if (live) {
-      const int32_t r = max(upper_bound(sw, 0, win, eid) - 1, 0);
-      j = lo_j + r;
-      e = __ldg(row_start + j) + (eid - sw[r]);
+  device_count::count_launch();
+  const int32_t lim =
+      total_ptr != nullptr ? max(0, min(span, *total_ptr)) : lim_host;
+  for (int64_t t0 = (int64_t)blockIdx.x * kTile; t0 < lim;
+       t0 += (int64_t)gridDim.x * kTile) {
+    const int32_t t_lo = (int32_t)t0;
+    const int32_t t_last =
+        (int32_t)(t0 + kTile < lim ? t0 + kTile : (int64_t)lim) - 1;
+    if (threadIdx.x == 0 || threadIdx.x == 32) {
+      const int32_t x = threadIdx.x == 0 ? t_lo : t_last;
+      const int32_t j = upper_bound(start_e, 0, h, x) - 1;
+      window[threadIdx.x == 0 ? 0 : 1] = min(max(j, 0), h - 1);
     }
-    relax_id<T, ADD, PULL>(p, values, labels, fmask, live, j, e);
+    __syncthreads();
+    const int32_t lo_j = window[0];
+    const int32_t win = window[1] - lo_j + 1;
+    const bool staged = win <= kStage;
+    if (staged)
+      for (int32_t i = threadIdx.x; i < win; i += kThreads)
+        stage[i] = __ldg(start_e + lo_j + i);
+    __syncthreads();
+    const int32_t* sw = staged ? stage : start_e + lo_j;
+    for (int32_t k = threadIdx.x; k < kTile; k += kThreads) {
+      const int32_t eid = t_lo + k;
+      const bool live = eid <= t_last;
+      int32_t j = 0, e = 0;
+      if (live) {
+        const int32_t r = max(upper_bound(sw, 0, win, eid) - 1, 0);
+        j = lo_j + r;
+        e = __ldg(row_start + j) + (eid - sw[r]);
+      }
+      relax_id<T, ADD, PULL>(p, values, labels, fmask, live, j, e);
+    }
+    __syncthreads();                 // the next tile rewrites the stage
   }
 }
 
+// The total comes from the host or from the device (`total_ptr`).  A
+// live id i has eid >= i / T, so i / T < min(total, w_per): no id at or
+// past T * min(total, w_per) is live, and the walk stops there.
 template <typename T, bool ADD, bool PULL>
 __global__ void __launch_bounds__(kThreads) edge_lb_relax_blocked(
     Pass p, const T* __restrict__ values, T* labels,
     const bool* __restrict__ fmask, const int32_t* __restrict__ start_e,
-    const int32_t* __restrict__ row_start, int32_t h, int32_t total,
-    int32_t w_per, int32_t num_tiles, int32_t span) {
+    const int32_t* __restrict__ row_start, int32_t h, int32_t total_host,
+    const int32_t* __restrict__ total_ptr, int32_t w_per,
+    int32_t num_tiles, int32_t span) {
+  device_count::count_launch();
+  const int32_t total = total_ptr != nullptr ? *total_ptr : total_host;
+  const int64_t live_rows = max(0, min(total, w_per));
+  const int64_t lim = (int64_t)num_tiles * live_rows < span
+                          ? (int64_t)num_tiles * live_rows
+                          : (int64_t)span;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   // the loop bound is block-uniform, so whole warps run each step
-  for (int64_t base = (int64_t)blockIdx.x * kThreads; base < span;
+  for (int64_t base = (int64_t)blockIdx.x * kThreads; base < lim;
        base += stride) {
     const int64_t eid0 = base + threadIdx.x;
     int32_t j = 0, e = 0;
     bool live = false;
-    if (eid0 < span) {
+    if (eid0 < lim) {
       const int32_t i = (int32_t)eid0;
       const int32_t eid = (i % num_tiles) * w_per + i / num_tiles;
       live = eid < total;
@@ -203,45 +237,58 @@ __global__ void __launch_bounds__(kThreads) edge_lb_relax_blocked(
 template <typename T, bool ADD, bool PULL>
 int launch(const Pass& p, const void* values, void* labels,
            const void* fmask, const void* start_e, const void* row_start,
-           int h, int total, int w_per, int num_tiles, int span, int blocked,
-           cudaStream_t stream) {
+           const void* total_ptr, int h, int total, int w_per,
+           int num_tiles, int span, int blocked, cudaStream_t stream) {
   const T* val = static_cast<const T*>(values);
   T* lab = static_cast<T*>(labels);
   const bool* fm = static_cast<const bool*>(fmask);
   const int32_t* se = static_cast<const int32_t*>(start_e);
   const int32_t* rs = static_cast<const int32_t*>(row_start);
+  const int32_t* tp = static_cast<const int32_t*>(total_ptr);
+  // a device total: the grid comes from the static span alone, a few
+  // blocks per SM that walk the live ids (an empty huge bin costs one
+  // short launch, not span / 2048 blocks that each exit)
+  const int64_t resident = (int64_t)relax::sm_count() * 8;
   if (blocked) {
     int64_t blocks = ((int64_t)span + kThreads - 1) / kThreads;
-    if (blocks > (1 << 20)) blocks = 1 << 20;    // grid-stride beyond this
+    blocks = std::min<int64_t>(blocks,
+                               tp != nullptr ? resident : (int64_t)1 << 20);
+    if (blocks == 0) return 0;
     edge_lb_relax_blocked<T, ADD, PULL><<<(unsigned)blocks, kThreads, 0,
                                           stream>>>(
-        p, val, lab, fm, se, rs, h, total, w_per, num_tiles, span);
+        p, val, lab, fm, se, rs, h, total, tp, w_per, num_tiles, span);
   } else {
-    const int32_t lim = min(span, total);          // live ids: [0, lim)
-    const unsigned blocks = (unsigned)((lim + kTile - 1) / kTile);
-    edge_lb_relax_cyclic<T, ADD, PULL><<<blocks, kThreads, 0, stream>>>(
-        p, val, lab, fm, se, rs, h, lim);
+    const int32_t lim = tp != nullptr ? span : std::min(span, total);
+    int64_t blocks = ((int64_t)lim + kTile - 1) / kTile;
+    if (tp != nullptr) blocks = std::min(blocks, resident);
+    if (blocks == 0) return 0;
+    edge_lb_relax_cyclic<T, ADD, PULL><<<(unsigned)blocks, kThreads, 0,
+                                         stream>>>(
+        p, val, lab, fm, se, rs, h, lim, tp, span);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 int32, 1 float32; add: 0 min, 1 add (float32 takes add only)
+// dtype: 0 int32, 1 float32; add: 0 min, 1 add (float32 takes add only).
+// total_ptr: null, or one int32 on the device that replaces `total`.
 extern "C" int edge_lb_relax_launch(
     const void* values, void* labels, const void* fmask, const void* col_idx,
     const void* edge_w, const void* hvidx, const void* start_e,
-    const void* row_start, int h, int total, int w_per, int num_tiles,
-    int span, int blocked, int nb, int v, int dtype, int add, int pull,
-    int kind, void* stream) {
-  if (nb == 0 || span <= 0 || total <= 0 || h <= 0) return 0;
+    const void* row_start, const void* total_ptr, int h, int total,
+    int w_per, int num_tiles, int span, int blocked, int nb, int v,
+    int dtype, int add, int pull, int kind, void* stream) {
+  if (nb == 0 || span <= 0 || h <= 0) return 0;
+  if (total_ptr == nullptr && total <= 0) return 0;
   const Pass p{static_cast<const int32_t*>(col_idx),
                static_cast<const int32_t*>(edge_w),
                static_cast<const int32_t*>(hvidx), nb, v, kind};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LB_RELAX_CALL(T, ADD, PULL)                                          \
-  launch<T, ADD, PULL>(p, values, labels, fmask, start_e, row_start, h,      \
-                       total, w_per, num_tiles, span, blocked, s)
+  launch<T, ADD, PULL>(p, values, labels, fmask, start_e, row_start,         \
+                       total_ptr, h, total, w_per, num_tiles, span, blocked, \
+                       s)
   if (dtype == 0 && !add) return pull ? LB_RELAX_CALL(int32_t, false, true)
                                       : LB_RELAX_CALL(int32_t, false, false);
   if (dtype == 0) return pull ? LB_RELAX_CALL(int32_t, true, true)

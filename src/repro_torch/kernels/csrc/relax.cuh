@@ -62,4 +62,12 @@ __device__ __forceinline__ void combine_at(T* p, T c) {
   }
 }
 
+// SMs of the current device: grids sized to keep a few blocks on each
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
+}
+
 }  // namespace relax

@@ -47,11 +47,25 @@
 // in one pass, so a pull float add (pagerank) writes each row once per
 // query in a fixed order: deterministic.  `chunk` comes from a host
 // integer or, when `chunk_ptr` is non-null, from one int32 on the
-// device.  The kernel allocates nothing and launches on the caller's
-// stream.
+// device, and so does the number of passes (`passes_ptr`): a launch
+// runs chunks chunk .. chunk + passes - 1 of each row, in order.  The
+// static-shape round gives an unbounded bin (twc's large bin, the
+// vertex strategy) its pass count ceil(max_deg / W) this way, computed
+// on the device, so the bin costs one launch a round and no host read.
+// The static round also lays every bin out over V rows, member or
+// sentinel, in frontier order, and hands the kernel the frontier count
+// as `rows_ptr` (rows past it are sentinels).  Then a resident grid
+// walks rows [0, *rows_ptr) in tiles of 256: one coalesced load of the
+// tile's vid and deg, a ballot, the tile's members listed in shared
+// memory, and the block's groups take them in turn.  Launching one
+// group per row instead would cost a pass 4 M sentinel groups at rmat
+// 22 (one block each for W = 1024: about 1.2 ms a launch on an H100).
+// The kernel allocates nothing and launches on the caller's stream.
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_count.cuh"
 #include "relax.cuh"
 
 namespace {
@@ -67,15 +81,182 @@ constexpr int kThreads = 256;
 // rows of at most 8, so one)
 constexpr int kSlots = 4;
 
+// One bin row's passes chunk0 .. chunk0 + passes - 1, by its group of
+// G lanes (`lane` = this thread's place in the group); every lane of the
+// group calls it together, and for G == kThreads the whole block.
+template <typename T, bool ADD, bool PULL, int G>
+__device__ __forceinline__ void relax_row(
+    const T* __restrict__ values, T* labels, const bool* __restrict__ fmask,
+    const int32_t* __restrict__ col_idx, const int32_t* __restrict__ edge_w,
+    int32_t vid, int32_t d, int32_t rs, int32_t lane, int32_t chunk0,
+    int32_t passes, int32_t width, int32_t nb, int32_t v, int32_t kind) {
+  if (vid >= v) return;                        // uniform in the group
+  const bool use_w = kind == relax::MSG_ADD_W;
+  // passes chunk0 .. chunk0 + passes - 1, in order, as that many
+  // launches of one pass would run them: a pass reads only the round's
+  // values and fmask, never a label it wrote, so the row's later chunks
+  // see what they would see in a later launch
+  for (int32_t p = 0; p < passes; ++p) {
+    const int32_t off0 = (chunk0 + p) * width;
+    if (d <= off0) return;                     // uniform in the group
+    const int32_t cnt = min(width, d - off0);
+    const int32_t base = rs + off0;
+
+    if constexpr (!PULL) {
+      // slots outside, queries inside: a lane loads its col_idx and
+      // weight once; the row's value and fmask bit sit at one address
+      // for the whole group (a broadcast, from L1 after the first slot)
+      for (int32_t k = lane; k < cnt; k += G) {
+        const int32_t e = base + k;
+        const int32_t dst = __ldg(col_idx + e);
+        const int32_t w = use_w ? __ldg(edge_w + e) : 0;
+        for (int32_t b = 0; b < nb; ++b) {
+          const int64_t o = (int64_t)b * v;
+          if (fmask[o + vid])
+            combine_at<ADD>(labels + o + dst,
+                            msg_of(kind, values[o + vid], w));
+        }
+      }
+    } else {
+      // pull: a lane keeps its slots' in-neighbours and weights in
+      // registers when the chunk fits in kSlots per lane (every chunk of
+      // the ALB bins), so a query costs no index load; a wider chunk
+      // reloads them per query.  Both visit a lane's slots in the same
+      // order, and the row's result for the chunk is combined into
+      // labels[b, vid] by one lane: the row is the only writer of its
+      // anchor (the bins are disjoint), so with several passes a float
+      // add still sums chunk by chunk in the order of separate launches.
+      constexpr int S = G == 8 ? 1 : kSlots;
+      const bool cached = cnt <= S * G;          // uniform in the group
+      int32_t src_r[S], w_r[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int32_t k = lane + s * G;
+        const bool in = cached && k < cnt;
+        src_r[s] = in ? __ldg(col_idx + base + k) : -1;
+        w_r[s] = in && use_w ? __ldg(edge_w + base + k) : 0;
+      }
+      for (int32_t b = 0; b < nb; ++b) {
+        const int64_t o = (int64_t)b * v;
+        T acc = neutral<T, ADD>();
+        int any = 0;
+        if (cached) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            if (src_r[s] >= 0 && fmask[o + src_r[s]]) {
+              acc = combine<ADD>(acc, msg_of(kind, values[o + src_r[s]],
+                                             w_r[s]));
+              any = 1;
+            }
+          }
+        } else {
+          for (int32_t k = lane; k < cnt; k += G) {
+            const int32_t e = base + k;
+            const int32_t src = __ldg(col_idx + e);
+            if (fmask[o + src]) {
+              const int32_t w = use_w ? __ldg(edge_w + e) : 0;
+              acc = combine<ADD>(acc, msg_of(kind, values[o + src], w));
+              any = 1;
+            }
+          }
+        }
+        if constexpr (G <= 32) {
+          unsigned gmask = 0xffffffffu;          // the group's lanes
+          if constexpr (G < 32)
+            gmask = ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+          for (int s = G / 2; s > 0; s >>= 1) {
+            acc = combine<ADD>(acc, __shfl_down_sync(gmask, acc, s, G));
+            any |= __shfl_down_sync(gmask, any, s, G);
+          }
+          if (lane == 0 && any) combine_at<ADD>(labels + o + vid, acc);
+        } else {
+          __shared__ T red[kThreads / 32];
+          __shared__ int red_any[kThreads / 32];
+          for (int s = 16; s > 0; s >>= 1) {
+            acc = combine<ADD>(acc, __shfl_down_sync(0xffffffffu, acc, s));
+            any |= __shfl_down_sync(0xffffffffu, any, s);
+          }
+          if ((threadIdx.x & 31) == 0) {
+            red[threadIdx.x / 32] = acc;
+            red_any[threadIdx.x / 32] = any;
+          }
+          __syncthreads();
+          if (threadIdx.x == 0) {
+            for (int i = 1; i < kThreads / 32; ++i) {
+              red[0] = combine<ADD>(red[0], red[i]);
+              red_any[0] |= red_any[i];
+            }
+            if (red_any[0]) combine_at<ADD>(labels + o + vid, red[0]);
+          }
+          __syncthreads();                     // red is reused for b + 1
+        }
+      }
+    }
+  }
+}
+
 template <typename T, bool ADD, bool PULL, int G>
 __global__ void __launch_bounds__(kThreads) twc_bin_relax_kernel(
     const T* __restrict__ values, T* labels, const bool* __restrict__ fmask,
     const int32_t* __restrict__ col_idx, const int32_t* __restrict__ edge_w,
     const int32_t* __restrict__ vidx, const int32_t* __restrict__ deg,
     const int32_t* __restrict__ row_start,
-    const int32_t* __restrict__ chunk_ptr, int32_t chunk_host, int32_t n,
-    int32_t width, int32_t nb, int32_t v, int32_t kind) {
+    const int32_t* __restrict__ chunk_ptr,
+    const int32_t* __restrict__ passes_ptr,
+    const int32_t* __restrict__ rows_ptr, int32_t chunk_host,
+    int32_t passes_host, int32_t n, int32_t width, int32_t nb, int32_t v,
+    int32_t kind) {
+  device_count::count_launch();
   const int32_t lane = threadIdx.x % G;
+  const int32_t chunk0 = chunk_ptr != nullptr ? *chunk_ptr : chunk_host;
+  const int32_t passes = passes_ptr != nullptr ? *passes_ptr : passes_host;
+#define TWC_ROW_ARGS values, labels, fmask, col_idx, edge_w
+#define TWC_PASS_ARGS lane, chunk0, passes, width, nb, v, kind
+  if (rows_ptr != nullptr) {
+    // the static round's layout: rows [0, *rows_ptr) of a V-row bin, most
+    // of them sentinels.  A resident grid walks them in tiles of kThreads
+    // rows: one coalesced load of each row's vid and deg, a ballot, and
+    // the tile's members (a row with an edge in its first pass) listed in
+    // shared memory, which the block's groups then take in turn.
+    __shared__ int32_t s_rows[kThreads];
+    __shared__ int32_t s_at[kThreads / 32 + 1];
+    const int32_t limit = *rows_ptr;
+    const int64_t rows = limit < 0 ? 0 : (limit < n ? limit : n);
+    const int warp = threadIdx.x / 32, wl = threadIdx.x & 31;
+    for (int64_t t0 = (int64_t)blockIdx.x * kThreads; t0 < rows;
+         t0 += (int64_t)gridDim.x * kThreads) {
+      const int64_t r = t0 + threadIdx.x;
+      const bool member = r < rows && passes > 0 &&
+                          __ldg(vidx + r) < v &&
+                          __ldg(deg + r) > chunk0 * width;
+      const unsigned bal = __ballot_sync(0xffffffffu, member);
+      if (wl == 0) s_at[warp] = __popc(bal);
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        int32_t sum = 0;
+        for (int w = 0; w < kThreads / 32; ++w) {
+          const int32_t c = s_at[w];
+          s_at[w] = sum;
+          sum += c;
+        }
+        s_at[kThreads / 32] = sum;
+      }
+      __syncthreads();
+      if (member)
+        s_rows[s_at[warp] + __popc(bal & ((1u << wl) - 1u))] = (int32_t)r;
+      __syncthreads();
+      const int32_t found = s_at[kThreads / 32];
+      for (int32_t i = threadIdx.x / G; i < found; i += kThreads / G) {
+        const int32_t row = s_rows[i];         // uniform in the group
+        relax_row<T, ADD, PULL, G>(TWC_ROW_ARGS, __ldg(vidx + row),
+                                   __ldg(deg + row), __ldg(row_start + row),
+                                   TWC_PASS_ARGS);
+      }
+      __syncthreads();                 // the next tile rewrites the list
+    }
+    return;
+  }
+  // the host round's layout: compacted members, one group per row
   const int64_t row = (int64_t)blockIdx.x * (kThreads / G) + threadIdx.x / G;
   int32_t vid = v, d = 0, rs = 0;
   if constexpr (G == kThreads) {
@@ -98,105 +279,17 @@ __global__ void __launch_bounds__(kThreads) twc_bin_relax_kernel(
     d = __shfl_sync(0xffffffffu, d, first);
     rs = __shfl_sync(0xffffffffu, rs, first);
   }
-  const int32_t chunk = chunk_ptr != nullptr ? *chunk_ptr : chunk_host;
-  const int32_t off0 = chunk * width;
-  if (vid >= v || d <= off0) return;           // uniform in the group
-  const int32_t cnt = min(width, d - off0);
-  const int32_t base = rs + off0;
-  const bool use_w = kind == relax::MSG_ADD_W;
-
-  if constexpr (!PULL) {
-    // slots outside, queries inside: a lane loads its col_idx and
-    // weight once; the row's value and fmask bit sit at one address for
-    // the whole group (a broadcast, from L1 after the first slot)
-    for (int32_t k = lane; k < cnt; k += G) {
-      const int32_t e = base + k;
-      const int32_t dst = __ldg(col_idx + e);
-      const int32_t w = use_w ? __ldg(edge_w + e) : 0;
-      for (int32_t b = 0; b < nb; ++b) {
-        const int64_t o = (int64_t)b * v;
-        if (fmask[o + vid])
-          combine_at<ADD>(labels + o + dst, msg_of(kind, values[o + vid], w));
-      }
-    }
-    return;
-  }
-  // pull: a lane keeps its slots' in-neighbours and weights in
-  // registers when the row fits in kSlots per lane (every row of the
-  // ALB bins), so a query costs no index load; a wider row reloads them
-  // per query.  Both visit a lane's slots in the same order.
-  constexpr int S = G == 8 ? 1 : kSlots;
-  const bool cached = cnt <= S * G;              // uniform in the group
-  int32_t src_r[S], w_r[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int32_t k = lane + s * G;
-    const bool in = cached && k < cnt;
-    src_r[s] = in ? __ldg(col_idx + base + k) : -1;
-    w_r[s] = in && use_w ? __ldg(edge_w + base + k) : 0;
-  }
-  for (int32_t b = 0; b < nb; ++b) {
-    const int64_t o = (int64_t)b * v;
-    T acc = neutral<T, ADD>();
-    int any = 0;
-    if (cached) {
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        if (src_r[s] >= 0 && fmask[o + src_r[s]]) {
-          acc = combine<ADD>(acc, msg_of(kind, values[o + src_r[s]],
-                                         w_r[s]));
-          any = 1;
-        }
-      }
-    } else {
-      for (int32_t k = lane; k < cnt; k += G) {
-        const int32_t e = base + k;
-        const int32_t src = __ldg(col_idx + e);
-        if (fmask[o + src]) {
-          const int32_t w = use_w ? __ldg(edge_w + e) : 0;
-          acc = combine<ADD>(acc, msg_of(kind, values[o + src], w));
-          any = 1;
-        }
-      }
-    }
-    if constexpr (G <= 32) {
-      unsigned gmask = 0xffffffffu;              // the group's lanes
-      if constexpr (G < 32)
-        gmask = ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
-      for (int s = G / 2; s > 0; s >>= 1) {
-        acc = combine<ADD>(acc, __shfl_down_sync(gmask, acc, s, G));
-        any |= __shfl_down_sync(gmask, any, s, G);
-      }
-      if (lane == 0 && any) combine_at<ADD>(labels + o + vid, acc);
-    } else {
-      __shared__ T red[kThreads / 32];
-      __shared__ int red_any[kThreads / 32];
-      for (int s = 16; s > 0; s >>= 1) {
-        acc = combine<ADD>(acc, __shfl_down_sync(0xffffffffu, acc, s));
-        any |= __shfl_down_sync(0xffffffffu, any, s);
-      }
-      if ((threadIdx.x & 31) == 0) {
-        red[threadIdx.x / 32] = acc;
-        red_any[threadIdx.x / 32] = any;
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        for (int i = 1; i < kThreads / 32; ++i) {
-          red[0] = combine<ADD>(red[0], red[i]);
-          red_any[0] |= red_any[i];
-        }
-        if (red_any[0]) combine_at<ADD>(labels + o + vid, red[0]);
-      }
-      __syncthreads();                         // red is reused for b + 1
-    }
-  }
+  relax_row<T, ADD, PULL, G>(TWC_ROW_ARGS, vid, d, rs, TWC_PASS_ARGS);
+#undef TWC_ROW_ARGS
+#undef TWC_PASS_ARGS
 }
 
 template <typename T, bool ADD, bool PULL>
 int launch(const void* values, void* labels, const void* fmask,
            const void* col_idx, const void* edge_w, const void* vidx,
            const void* deg, const void* row_start, const void* chunk_ptr,
-           int chunk_host, int n, int width, int nb, int v, int kind,
+           const void* passes_ptr, const void* rows_ptr, int chunk_host,
+           int passes_host, int n, int width, int nb, int v, int kind,
            cudaStream_t stream) {
 #define TWC_RELAX_ARGS                                                    \
   static_cast<const T*>(values), static_cast<T*>(labels),                 \
@@ -205,19 +298,30 @@ int launch(const void* values, void* labels, const void* fmask,
       static_cast<const int32_t*>(edge_w),                                \
       static_cast<const int32_t*>(vidx), static_cast<const int32_t*>(deg), \
       static_cast<const int32_t*>(row_start),                             \
-      static_cast<const int32_t*>(chunk_ptr), chunk_host, n, width, nb, v, \
-      kind
+      static_cast<const int32_t*>(chunk_ptr),                             \
+      static_cast<const int32_t*>(passes_ptr),                            \
+      static_cast<const int32_t*>(rows_ptr), chunk_host, passes_host, n,   \
+      width, nb, v, kind
+  // the static layout: a resident grid of tiles of kThreads rows
+  const unsigned tiles =
+      rows_ptr == nullptr
+          ? 0u
+          : (unsigned)std::min<int64_t>(((int64_t)n + kThreads - 1) / kThreads,
+                                        (int64_t)relax::sm_count() * 8);
   if (width <= 8) {                        // 8 lanes per row
     const unsigned rows = kThreads / 8;
     twc_bin_relax_kernel<T, ADD, PULL, 8>
-        <<<(n + rows - 1) / rows, kThreads, 0, stream>>>(TWC_RELAX_ARGS);
+        <<<rows_ptr ? tiles : (n + rows - 1) / rows, kThreads, 0, stream>>>(
+            TWC_RELAX_ARGS);
   } else if (width <= 128) {               // a warp per row
     const unsigned rows = kThreads / 32;
     twc_bin_relax_kernel<T, ADD, PULL, 32>
-        <<<(n + rows - 1) / rows, kThreads, 0, stream>>>(TWC_RELAX_ARGS);
+        <<<rows_ptr ? tiles : (n + rows - 1) / rows, kThreads, 0, stream>>>(
+            TWC_RELAX_ARGS);
   } else {                                 // a block per row
     twc_bin_relax_kernel<T, ADD, PULL, kThreads>
-        <<<(unsigned)n, kThreads, 0, stream>>>(TWC_RELAX_ARGS);
+        <<<rows_ptr ? tiles : (unsigned)n, kThreads, 0, stream>>>(
+            TWC_RELAX_ARGS);
   }
 #undef TWC_RELAX_ARGS
   return (int)cudaGetLastError();
@@ -229,15 +333,15 @@ int launch(const void* values, void* labels, const void* fmask,
 extern "C" int twc_bin_relax_launch(
     const void* values, void* labels, const void* fmask, const void* col_idx,
     const void* edge_w, const void* vidx, const void* deg,
-    const void* row_start, const void* chunk_ptr, int chunk_host, int n,
-    int width, int nb, int v, int dtype, int add, int pull, int kind,
-    void* stream) {
+    const void* row_start, const void* chunk_ptr, const void* passes_ptr,
+    const void* rows_ptr, int chunk_host, int passes_host, int n, int width,
+    int nb, int v, int dtype, int add, int pull, int kind, void* stream) {
   if (n == 0 || nb == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TWC_RELAX_CALL(T, ADD, PULL)                                        \
   launch<T, ADD, PULL>(values, labels, fmask, col_idx, edge_w, vidx, deg,   \
-                       row_start, chunk_ptr, chunk_host, n, width, nb, v,   \
-                       kind, s)
+                       row_start, chunk_ptr, passes_ptr, rows_ptr,          \
+                       chunk_host, passes_host, n, width, nb, v, kind, s)
   if (dtype == 0 && !add) return pull ? TWC_RELAX_CALL(int32_t, false, true)
                                       : TWC_RELAX_CALL(int32_t, false, false);
   if (dtype == 0) return pull ? TWC_RELAX_CALL(int32_t, true, true)

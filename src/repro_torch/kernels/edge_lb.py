@@ -31,7 +31,7 @@ _I = ctypes.c_int
 def _lib():
     lib = build.load("edge_lb")
     fn = lib.edge_lb_map_launch
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _P, _P, _P, _P, _P]
     fn.restype = _I
     return fn
@@ -44,7 +44,8 @@ def edge_lb_map(start_e: torch.Tensor, row_start: torch.Tensor,
     """Run the LB mapping over ``n_enum`` edge ids.
 
     ``start_e``/``row_start`` are int32 ``[H]`` (H >= 1), ``hval`` int32
-    or float32 ``[H]``; ``total_edges`` is a host int.  Returns flat
+    or float32 ``[H]``; ``total_edges`` is a host int or a one-element
+    int32 tensor on the device (read there).  Returns flat
     ``(graph_e, slot_j,
     src_val, mask)`` of length ``ceil(w_per * num_tiles / tile_edges) *
     tile_edges``; ``mask`` is bool.
@@ -66,6 +67,8 @@ def edge_lb_map(start_e: torch.Tensor, row_start: torch.Tensor,
                                num_tiles=num_tiles)
     if dev.type != "cuda":
         raise ValueError(f"edge_lb_map runs on cuda or cpu, not {dev}")
+    total_ptr, total_host = build.scalar_arg("edge_lb_map", "total_edges",
+                                             total_edges, dev)
     w_per = -(-n_enum // num_tiles)
     span = w_per * num_tiles
     n_pad = -(-span // tile_edges) * tile_edges
@@ -78,15 +81,15 @@ def edge_lb_map(start_e: torch.Tensor, row_start: torch.Tensor,
     if n_pad == 0:
         return ge, slot, val_out, mask
     err = _lib()(start_e.data_ptr(), row_start.data_ptr(), hval.data_ptr(),
-                 h, int(total_edges), w_per, num_tiles, span, n_pad,
+                 total_ptr, h, total_host, w_per, num_tiles, span, n_pad,
                  int(distribution == "blocked"), ge.data_ptr(),
                  slot.data_ptr(), val_out.data_ptr(), mask.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"edge_lb_map: kernel launch failed with CUDA "
                            f"error {err}")
-    edge_lb_map.launches += 1
+    build.count_launch(edge_lb_map)
     return ge, slot, val_out, mask
 
 
-edge_lb_map.launches = 0
+edge_lb_map.launches = edge_lb_map.captured = 0

@@ -31,7 +31,7 @@ _I = ctypes.c_int
 def _lib():
     lib = build.load("merge_path")
     fn = lib.merge_path_map_launch
-    fn.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
     fn.restype = _I
     return fn
 
@@ -42,7 +42,8 @@ def merge_path_map(start_e: torch.Tensor, row_start: torch.Tensor,
 
     ``start_e``/``row_start`` are int32 ``[H]`` (H >= 1): the exclusive
     degree prefix sum and the CSR row starts of the frontier members;
-    ``total_edges`` is a host int, and ids at or past it are masked.
+    ``total_edges`` is a host int or a one-element int32 tensor on the
+    device (read there), and ids at or past it are masked.
     ``tile_edges`` must be a positive multiple of 128, as in the TPU
     kernel.  Returns flat ``(graph_e, slot_j, mask)`` of length
     ``max(1, ceil(ecap / tile_edges)) * tile_edges``; ``mask`` is bool,
@@ -62,6 +63,8 @@ def merge_path_map(start_e: torch.Tensor, row_start: torch.Tensor,
                                   tile_edges=tile_edges)
     if dev.type != "cuda":
         raise ValueError(f"merge_path_map runs on cuda or cpu, not {dev}")
+    total_ptr, total_host = build.scalar_arg("merge_path_map",
+                                             "total_edges", total_edges, dev)
     n_tiles = max(1, -(-ecap // tile_edges))
     n = n_tiles * tile_edges
     if n >= 1 << 31:
@@ -69,15 +72,15 @@ def merge_path_map(start_e: torch.Tensor, row_start: torch.Tensor,
     ge = torch.empty((n,), dtype=torch.int32, device=dev)
     slot = torch.empty_like(ge)
     mask = torch.empty((n,), dtype=torch.bool, device=dev)
-    err = _lib()(start_e.data_ptr(), row_start.data_ptr(), h,
-                 int(total_edges), tile_edges, n_tiles, ge.data_ptr(),
+    err = _lib()(start_e.data_ptr(), row_start.data_ptr(), total_ptr, h,
+                 total_host, tile_edges, n_tiles, ge.data_ptr(),
                  slot.data_ptr(), mask.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"merge_path_map: kernel launch failed with "
                            f"CUDA error {err}")
-    merge_path_map.launches += 1
+    build.count_launch(merge_path_map)
     return ge, slot, mask
 
 
-merge_path_map.launches = 0
+merge_path_map.launches = merge_path_map.captured = 0

@@ -25,6 +25,14 @@ the two pairs differ:
   returns fresh labels.  Fusing that epilogue is later work (ROADMAP
   Queue 2).
 
+Each entry serves the host round and the static round (``relax_spmd``,
+``run_fused``) alike, as the registry's ``bin_host`` and ``lb_host``:
+the pass count and the huge-bin total may be device int32 tensors that
+the kernels read on the card, so a captured round never reads them on
+the host.  They stand for the JAX package's
+``twc_bin_apply_static`` / ``edge_lb_apply_static`` /
+``merge_path_apply_static`` too.
+
 Entries are batched: ``values`` / ``labels`` / ``fmask`` are ``[B, V]``
 while the enumeration is batch-shared, so each kernel runs ONCE per
 pass for the whole batch and reads per-query values and activity
@@ -36,6 +44,8 @@ the in-neighbour — and combines at the enumerated vertex.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import graph_loop
 
 from . import edge_lb as _edge_lb
 from . import merge_path as _merge_path
@@ -69,9 +79,10 @@ def _slot_apply(g, values, labels, fmask, hvidx, ge, j, mask, op):
 def edge_lb_apply(g, values, labels, fmask, hvidx, hdeg, hrow, total,
                   ecap: int, op, distribution: str, num_tiles: int,
                   tile_edges: int):
-    """Host-driven LB entry: one ``edge_lb_relax`` launch, combined into
-    ``labels`` in place (or the unfused route, for an operator the
-    kernel does not take)."""
+    """LB entry of both rounds: one ``edge_lb_relax`` launch, combined
+    into ``labels`` in place (or the unfused route, for an operator the
+    kernel does not take).  ``total`` is a host int or, in the static
+    round, a device int32 the kernels read on the card."""
     start_e = torch.cumsum(hdeg, 0, dtype=torch.int32) - hdeg
     if not _relax.takes(op, labels.dtype):
         ge, j, _, mask = _edge_lb.edge_lb_map(
@@ -87,10 +98,11 @@ def edge_lb_apply(g, values, labels, fmask, hvidx, hdeg, hrow, total,
 def merge_path_apply(g, values, labels, fmask, hvidx, hdeg, hrow, total,
                      ecap: int, op, distribution: str, num_tiles: int,
                      tile_edges: int):
-    """Host-driven merge-path entry, signature-compatible with the LB
-    entries (``effective_plan`` routes the whole frontier here).  The
-    equal-work deal is contiguous by construction, so ``distribution``
-    and ``num_tiles`` do not apply."""
+    """Merge-path entry of both rounds, signature-compatible with the LB
+    entries (``effective_plan`` routes the whole frontier here); ``total``
+    is a host int or a device int32.  The equal-work deal is contiguous
+    by construction, so ``distribution`` and ``num_tiles`` do not
+    apply."""
     del distribution, num_tiles
     start_e = torch.cumsum(hdeg, 0, dtype=torch.int32) - hdeg
     ge, j, mask = _merge_path.merge_path_map(start_e, hrow, total, ecap,
@@ -106,16 +118,24 @@ def merge_path_no_bins(*_args, **_kwargs):
 
 
 def twc_bin_apply(g, values, labels, fmask, bvidx, bdeg, brow,
-                  width: int, op, chunk):
-    """Host-driven bin entry: one ``twc_bin_relax`` launch, combined
-    into ``labels`` in place (or the unfused route, for an operator the
-    kernel does not take)."""
+                  width: int, op, chunk, passes=1, rows=None):
+    """Bin entry of both rounds: passes ``chunk .. chunk + passes - 1``
+    (host ints, or a device int32 ``passes``: an unbounded bin of the
+    static round) in one ``twc_bin_relax`` launch, combined into
+    ``labels`` in place; ``rows`` (the static round's device frontier
+    count, past which every row is empty) lets the kernel skip the
+    rest.  An operator the kernel does not take runs the passes one by
+    one through the unfused route (a ``graph_loop.while_`` over them for
+    a device count)."""
     if not _relax.takes(op, labels.dtype):
-        ge, anchor, _, mask = _twc.twc_bin_map(
-            bvidx, bdeg, brow, bvidx, width=width, chunk=chunk,
-            sentinel=labels.shape[-1])
-        return _unfused(g, values, labels, fmask, anchor.reshape(-1),
-                        ge.reshape(-1), mask.reshape(-1), op)
+        def one(lab, c):
+            ge, anchor, _, mask = _twc.twc_bin_map(
+                bvidx, bdeg, brow, bvidx, width=width, chunk=c,
+                sentinel=labels.shape[-1])
+            return _unfused(g, values, lab, fmask, anchor.reshape(-1),
+                            ge.reshape(-1), mask.reshape(-1), op)
+        return graph_loop.repeat(one, labels, chunk, passes)
     return _relax.twc_bin_relax(values, labels, fmask, g.col_idx,
                                 g.edge_w, bvidx, bdeg, brow, op,
-                                width=width, chunk=chunk)
+                                width=width, chunk=chunk, passes=passes,
+                                rows=rows)

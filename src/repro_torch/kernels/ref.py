@@ -48,7 +48,9 @@ def edge_lb_map_ref(start_e, row_start, hval, total_edges, n_enum,
 def merge_path_map_ref(start_e, row_start, total_edges, ecap: int,
                        *, tile_edges: int = 2048):
     """Oracle for merge_path.merge_path_map: ids ``0..n-1`` with ``n =
-    max(1, ceil(ecap / tile_edges)) * tile_edges``; ``j`` is the last
+    max(1, ceil(ecap / tile_edges)) * tile_edges`` (``total_edges`` an
+    int or a one-element int32 tensor, as in every oracle here that
+    takes a total); ``j`` is the last
     slot with ``start_e <= id`` (searchsorted-right).  Where an id is
     masked (``id >= total_edges``) both ``graph_e`` and ``slot_j`` are
     0, as the CUDA kernel writes them."""
@@ -96,16 +98,31 @@ def slot_epilogue(col_idx, edge_w, values, labels, fmask, src, ge, mask,
 
 
 def twc_bin_relax_ref(values, labels, fmask, col_idx, edge_w, vidx, deg,
-                      row_start, op, *, width: int, chunk=0):
-    """Oracle for relax.twc_bin_relax: ``twc_bin_map_ref`` over the bin,
-    then :func:`slot_epilogue`, written into ``labels``."""
-    ge, anchor, _, mask = twc_bin_map_ref(vidx, deg, row_start, vidx,
-                                          width=width, chunk=chunk,
-                                          sentinel=labels.shape[-1])
-    out = slot_epilogue(col_idx, edge_w, values, labels, fmask,
-                        anchor.reshape(-1), ge.reshape(-1),
-                        mask.reshape(-1), op)
-    return labels.copy_(out)
+                      row_start, op, *, width: int, chunk=0, passes=1,
+                      rows=None):
+    """Oracle for relax.twc_bin_relax: for each pass ``c`` in ``chunk ..
+    chunk + passes - 1`` (ints, or one-element int32 tensors, read on
+    the host), ``twc_bin_map_ref`` over the rows with an edge in that
+    pass, in bin order, then :func:`slot_epilogue`, written into
+    ``labels``.  Rows at or past ``rows`` (when given) are empty.
+    Leaving out the rows without an edge drops only masked slots, which
+    combine nothing: the static round's V-row bins cost what their
+    members need."""
+    v = labels.shape[-1]
+    member = vidx < v
+    if rows is not None:
+        member &= torch.arange(vidx.shape[0], device=vidx.device) < rows
+    first = int(chunk)
+    for c in range(first, first + int(passes)):
+        at = torch.nonzero(member & (deg > c * width)).reshape(-1)
+        ge, anchor, _, mask = twc_bin_map_ref(vidx[at], deg[at],
+                                              row_start[at], vidx[at],
+                                              width=width, chunk=c,
+                                              sentinel=v)
+        labels.copy_(slot_epilogue(col_idx, edge_w, values, labels, fmask,
+                                   anchor.reshape(-1), ge.reshape(-1),
+                                   mask.reshape(-1), op))
+    return labels
 
 
 def edge_lb_relax_ref(values, labels, fmask, col_idx, edge_w, hvidx,

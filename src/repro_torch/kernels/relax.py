@@ -109,13 +109,19 @@ def twc_bin_relax(values: torch.Tensor, labels: torch.Tensor,
                   fmask: torch.Tensor, col_idx: torch.Tensor,
                   edge_w: torch.Tensor, vidx: torch.Tensor,
                   deg: torch.Tensor, row_start: torch.Tensor, op, *,
-                  width: int, chunk=0) -> torch.Tensor:
-    """Combine pass ``chunk`` of one degree bin into ``labels``.
+                  width: int, chunk=0, passes=1, rows=None) -> torch.Tensor:
+    """Combine passes ``chunk .. chunk + passes - 1`` of one degree bin
+    into ``labels``, in order (one pass by default).
 
     Bin row ``r`` (``vidx``/``deg``/``row_start``: int32 ``[N]``;
     ``vidx >= V`` marks an empty slot) contributes its CSR edges
-    ``[chunk*width, chunk*width + width)``.  ``chunk`` is a host int or
-    a one-element int32 tensor on the device.  Returns ``labels``.
+    ``[c*width, c*width + width)`` in pass ``c``.  ``chunk`` and
+    ``passes`` are each a host int or a one-element int32 tensor on the
+    device, which the kernel reads there.  ``rows``, a one-element int32
+    tensor on the device, limits the bin to rows ``[0, rows)``: the
+    static round's layout, whose rows past the frontier count are empty;
+    the kernel then walks them on a grid of a few blocks per SM and skips
+    empty rows a tile at a time.  Returns ``labels``.
     """
     ints = _state("twc_bin_relax", values, labels, fmask, col_idx, edge_w,
                   op)
@@ -125,26 +131,28 @@ def twc_bin_relax(values: torch.Tensor, labels: torch.Tensor,
     if dev.type == "cpu":
         return twc_bin_relax_ref(values, labels, fmask, col_idx, edge_w,
                                  vidx, deg, row_start, op, width=width,
-                                 chunk=chunk)
+                                 chunk=chunk, passes=passes, rows=rows)
     if dev.type != "cuda":
         raise ValueError(f"twc_bin_relax runs on cuda or cpu, not {dev}")
-    if isinstance(chunk, torch.Tensor):
-        if (chunk.dtype != torch.int32 or chunk.numel() != 1
-                or chunk.device != dev):
-            raise ValueError("twc_bin_relax: a tensor chunk must be one "
-                             f"int32 on {dev}")
-        chunk_ptr, chunk_host = chunk.data_ptr(), 0
-    else:
-        chunk_ptr, chunk_host = None, int(chunk)
+    chunk_ptr, chunk_host = build.scalar_arg("twc_bin_relax", "chunk",
+                                             chunk, dev)
+    passes_ptr, passes_host = build.scalar_arg("twc_bin_relax", "passes",
+                                               passes, dev)
+    rows_ptr = None
+    if rows is not None:
+        if not isinstance(rows, torch.Tensor):
+            raise ValueError("twc_bin_relax: rows is a device int32")
+        rows_ptr, _ = build.scalar_arg("twc_bin_relax", "rows", rows, dev)
     if n == 0 or labels.numel() == 0:
         return labels
-    fn = _launcher("twc_relax", "twc_bin_relax", 9, 9)
+    fn = _launcher("twc_relax", "twc_bin_relax", 11, 10)
     _launched("twc_bin_relax", fn(
         values.data_ptr(), labels.data_ptr(), fmask.data_ptr(),
         col_idx.data_ptr(), edge_w.data_ptr(), vidx.data_ptr(),
-        deg.data_ptr(), row_start.data_ptr(), chunk_ptr, chunk_host, n,
-        width, *ints, torch.cuda.current_stream(dev).cuda_stream))
-    twc_bin_relax.launches += 1
+        deg.data_ptr(), row_start.data_ptr(), chunk_ptr, passes_ptr,
+        rows_ptr, chunk_host, passes_host, n, width, *ints,
+        torch.cuda.current_stream(dev).cuda_stream))
+    build.count_launch(twc_bin_relax)
     return labels
 
 
@@ -159,10 +167,12 @@ def edge_lb_relax(values: torch.Tensor, labels: torch.Tensor,
 
     ``hvidx``/``start_e``/``row_start`` are int32 ``[H]`` (H >= 1):
     the huge vertices, the exclusive prefix sum of their degrees and
-    their CSR row starts; ``total_edges`` is a host int.  The ids are
-    enumerated and dealt exactly as ``edge_lb.edge_lb_map`` deals them
-    (span ``ceil(n_enum / num_tiles) * num_tiles``); ``tile_edges`` only
-    pads the plain version's enumeration.  Returns ``labels``.
+    their CSR row starts; ``total_edges`` is a host int or a one-element
+    int32 tensor on the device (ids at or past it do nothing, so a
+    total of 0 does nothing).  The ids are enumerated and dealt exactly
+    as ``edge_lb.edge_lb_map`` deals them (span
+    ``ceil(n_enum / num_tiles) * num_tiles``); ``tile_edges`` only pads
+    the plain version's enumeration.  Returns ``labels``.
     """
     h, dev = start_e.shape[0], labels.device
     if h < 1:
@@ -182,22 +192,25 @@ def edge_lb_relax(values: torch.Tensor, labels: torch.Tensor,
                                  num_tiles=num_tiles)
     if dev.type != "cuda":
         raise ValueError(f"edge_lb_relax runs on cuda or cpu, not {dev}")
+    total_ptr, total_host = build.scalar_arg("edge_lb_relax", "total_edges",
+                                             total_edges, dev)
     w_per = -(-n_enum // num_tiles)
     span = w_per * num_tiles
     if span >= 1 << 31:
         raise ValueError(f"edge_lb_relax: {span} ids exceed int32")
-    if span == 0 or int(total_edges) == 0 or labels.numel() == 0:
+    if span == 0 or labels.numel() == 0 or (total_ptr is None
+                                            and total_host == 0):
         return labels
-    fn = _launcher("edge_lb_relax", "edge_lb_relax", 8, 12)
+    fn = _launcher("edge_lb_relax", "edge_lb_relax", 9, 12)
     _launched("edge_lb_relax", fn(
         values.data_ptr(), labels.data_ptr(), fmask.data_ptr(),
         col_idx.data_ptr(), edge_w.data_ptr(), hvidx.data_ptr(),
-        start_e.data_ptr(), row_start.data_ptr(), h, int(total_edges),
+        start_e.data_ptr(), row_start.data_ptr(), total_ptr, h, total_host,
         w_per, num_tiles, span, int(distribution == "blocked"), *ints,
         torch.cuda.current_stream(dev).cuda_stream))
-    edge_lb_relax.launches += 1
+    build.count_launch(edge_lb_relax)
     return labels
 
 
-twc_bin_relax.launches = 0
-edge_lb_relax.launches = 0
+twc_bin_relax.launches = twc_bin_relax.captured = 0
+edge_lb_relax.launches = edge_lb_relax.captured = 0

@@ -56,14 +56,8 @@ def twc_bin_map(vidx: torch.Tensor, deg: torch.Tensor,
                                chunk=chunk, sentinel=sentinel)
     if dev.type != "cuda":
         raise ValueError(f"twc_bin_map runs on cuda or cpu, not {dev}")
-    if isinstance(chunk, torch.Tensor):
-        if (chunk.dtype != torch.int32 or chunk.numel() != 1
-                or chunk.device != dev):
-            raise ValueError("twc_bin_map: a tensor chunk must be one "
-                             f"int32 on {dev}")
-        chunk_ptr, chunk_host = chunk.data_ptr(), 0
-    else:
-        chunk_ptr, chunk_host = None, int(chunk)
+    chunk_ptr, chunk_host = build.scalar_arg("twc_bin_map", "chunk", chunk,
+                                             dev)
     ge = torch.empty((n, width), dtype=torch.int32, device=dev)
     mask = torch.empty((n, width), dtype=torch.bool, device=dev)
     # constant along each row: stride-0 views, as in the plain version
@@ -78,8 +72,8 @@ def twc_bin_map(vidx: torch.Tensor, deg: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"twc_bin_map: kernel launch failed with CUDA "
                            f"error {err}")
-    twc_bin_map.launches += 1
+    build.count_launch(twc_bin_map)
     return ge, anchor, val_out, mask
 
 
-twc_bin_map.launches = 0
+twc_bin_map.launches = twc_bin_map.captured = 0

@@ -115,13 +115,16 @@ def test_labels_match_independent_oracle(rmat_pair):
 
 
 def test_driver_modes_of_later_slices_raise(rmat_pair):
+    """Every driver raises ValueError on a mode it does not know; the
+    static-shape and fused modes of the later slice run."""
     _, gt, src = rmat_pair
-    for mode in ("spmd", "fused"):
+    for mode in ("warp", "Fused", ""):
         for run in (lambda: td.sssp(gt, src, mode=mode),
+                    lambda: td.bfs(gt, src, mode=mode),
                     lambda: td.cc(gt, mode=mode),
                     lambda: td.kcore(gt, 3, mode=mode),
-                    lambda: td.pagerank(gt, mode=mode)):
-            with pytest.raises(NotImplementedError):
+                    lambda: td.pagerank(gt, mode=mode, max_rounds=2)):
+            with pytest.raises(ValueError, match="unknown round mode"):
                 run()
-    with pytest.raises(ValueError):
-        td.bfs(gt, src, mode="warp")
+    for mode in ("spmd", "fused"):
+        assert td.bfs(gt, src, mode=mode).rounds > 0

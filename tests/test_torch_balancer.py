@@ -160,15 +160,21 @@ def test_resolve_direction_matches():
 
 
 def test_later_slices_raise_not_implemented(graphs):
-    """The static-shape and fused round modes are a later slice."""
+    """relax_round runs host and spmd rounds; "fused" is a loop-level
+    mode and any other name is unknown: both raise ValueError."""
     from repro_torch.core.apps import drivers as td
     _, gt = graphs
     lab = torch.zeros((1, gt.num_vertices), dtype=torch.int32)
     fr = torch.ones_like(lab, dtype=torch.bool)
-    for mode in ("spmd", "fused"):
-        with pytest.raises(NotImplementedError, match=mode):
+    for mode in ("fused", "warp"):
+        with pytest.raises(ValueError, match="unknown round mode"):
             td.relax_round(gt, lab, lab, fr, tb.BalancerConfig(),
                            tops.BFS_HOP, mode=mode)
+    host = td.relax_round(gt, lab, lab, fr, tb.BalancerConfig(),
+                          tops.BFS_HOP, mode="host")
+    spmd = td.relax_round(gt, lab, lab, fr, tb.BalancerConfig(),
+                          tops.BFS_HOP, mode="spmd")
+    assert torch.equal(host[0], spmd[0])
 
 
 # ---- direction x backend ---------------------------------------------------

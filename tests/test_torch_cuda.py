@@ -300,3 +300,336 @@ def test_cuda_edge_lb_relax_matches_plain(cuda_device, op, b, distribution):
 
 def next_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length()
+
+
+# ---- device-int32 entries of the static-shape round ----------------------
+
+def _dev_int(x, dev):
+    return torch.tensor([x], dtype=torch.int32, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", RELAX_OPS)
+@pytest.mark.parametrize("b", [1, 3])
+def test_cuda_twc_bin_relax_device_passes_match_plain(cuda_device, op, b):
+    """A pass count read on the card, 0 to 4 passes from chunk 0 or 1
+    (width 1024 against degrees up to 3000), V rows with sentinels as
+    the static round gives them, with and without a device row bound:
+    the same labels as that many passes of the plain version."""
+    col, w, row_ptr, deg = _relax_graph(cuda_device)
+    v = len(deg)
+    rng = np.random.default_rng(b + 20)
+    member = rng.random(v) < 0.2
+    member[:12] = True
+    vid = np.where(member, np.arange(v), v)
+    rows = [torch.from_numpy(a.astype(np.int32)).to(cuda_device)
+            for a in (vid, np.where(member, deg, 0),
+                      np.where(member, row_ptr[:-1], 0))]
+    val, lab, fm = _relax_state(cuda_device, op, b, v, b + 3)
+    for width in (8, 128, 1024):
+        for chunk in (0, 1):
+            for passes in (0, 1, 2, 4):
+                # no row bound, and the static round's: all rows, a third
+                for bound in (None, v, v // 3):
+                    got = trelax.twc_bin_relax(
+                        val, lab.clone(), fm, col, w, *rows, _relax_op(op),
+                        width=width, chunk=_dev_int(chunk, cuda_device),
+                        passes=_dev_int(passes, cuda_device),
+                        rows=(None if bound is None
+                              else _dev_int(bound, cuda_device)))
+                    want = tref.twc_bin_relax_ref(
+                        val, lab.clone(), fm, col, w, *rows, _relax_op(op),
+                        width=width, chunk=chunk, passes=passes, rows=bound)
+                    _assert_relax_equal(op, got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", RELAX_OPS)
+@pytest.mark.parametrize("distribution", ["cyclic", "blocked"])
+def test_cuda_edge_lb_relax_device_total_matches_plain(cuda_device, op,
+                                                       distribution):
+    """A total read on the card over the static span (every edge of the
+    graph): total 0, one huge row, a ragged tail; the same labels as the
+    plain version given the same total."""
+    col, w, row_ptr, deg = _relax_graph(cuda_device)
+    v = len(deg)
+    e = int(row_ptr[-1])
+    val, lab, fm = _relax_state(cuda_device, op, 2, v, 11)
+    for hv in ([], [0], [0, 1, 2, 3, 4, 5, 6], list(range(12, 3000))):
+        member = np.zeros(v, bool)
+        member[hv] = True
+        hvidx, hdeg, hrow = (np.where(member, a, f).astype(np.int32)
+                             for a, f in ((np.arange(v), v), (deg, 0),
+                                          (row_ptr[:-1], 0)))
+        start_e = (np.cumsum(hdeg) - hdeg).astype(np.int32)
+        total = int(hdeg.sum())
+        t = [torch.from_numpy(a).to(cuda_device)
+             for a in (hvidx, start_e, hrow)]
+        for tiles in (64, 7):
+            kw = dict(distribution=distribution, num_tiles=tiles)
+            got = trelax.edge_lb_relax(val, lab.clone(), fm, col, w, *t,
+                                       _dev_int(total, cuda_device), e,
+                                       _relax_op(op), **kw)
+            want = tref.edge_lb_relax_ref(val, lab.clone(), fm, col, w, *t,
+                                          total, e, _relax_op(op), **kw)
+            _assert_relax_equal(op, got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_edges", [128, 2048])
+def test_cuda_index_maps_device_total_match_plain(cuda_device, tile_edges):
+    """merge_path_map and edge_lb_map with the total read on the card,
+    over a span much wider than the total (the static round's E): total
+    0, a ragged tail, zero-degree runs; every output equal."""
+    rng = np.random.default_rng(tile_edges + 1)
+    for h, total_cut in ((1, 0), (700, None), (5000, None)):
+        deg = rng.integers(0, 50, h).astype(np.int32)
+        deg[rng.random(h) < 0.3] = 0
+        if total_cut == 0:
+            deg[:] = 0
+        start_e = (np.cumsum(deg) - deg).astype(np.int32)
+        row = rng.integers(0, 1 << 20, h).astype(np.int32)
+        total = int(deg.sum())
+        ecap = 3 * total + 5 * tile_edges + 17
+        se, rs = (torch.from_numpy(a).to(cuda_device) for a in (start_e, row))
+        got = tmp.merge_path_map(se, rs, _dev_int(total, cuda_device), ecap,
+                                 tile_edges=tile_edges)
+        want = tref.merge_path_map_ref(se, rs, total, ecap,
+                                       tile_edges=tile_edges)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        for dist in ("cyclic", "blocked"):
+            got = tlb.edge_lb_map(se, rs, rs, _dev_int(total, cuda_device),
+                                  ecap, tile_edges=tile_edges,
+                                  distribution=dist)
+            want = tref.edge_lb_map_ref(se, rs, rs, total, ecap,
+                                        tile_edges=tile_edges,
+                                        distribution=dist)
+            assert torch.equal(got[3], want[3])
+            for a, b in zip(got[:3], want[:3]):
+                assert torch.equal(a[got[3]], b[want[3]])
+
+
+@pytest.mark.gpu
+def test_cuda_graph_loop_program_matches_eager(cuda_device):
+    """A captured program with a WHILE node around two IF nodes, and a
+    nested WHILE in one branch, against the same function run eagerly
+    on the CPU; a second call with the same key captures nothing."""
+    from repro_torch.core import graph_loop as gl
+
+    def fn(x, n):
+        def cond_fn(i, acc):
+            return i < n
+
+        def body(i, acc):
+            odd = (i % 2) == 1
+
+            def inner():
+                def c2(j, a):
+                    return j < 3
+
+                def b2(j, a):
+                    return j + 1, a * 2 + 1
+                return gl.while_(c2, b2, (torch.zeros_like(i), acc))[1]
+            acc = gl.cond(odd, inner, lambda: acc - i.to(acc.dtype))
+            return i + 1, acc
+        i, acc = gl.while_(cond_fn, body, (torch.zeros_like(n), x))
+        return acc, i
+
+    class Owner:
+        version = 0
+
+    owner = Owner()
+    x = torch.arange(-5, 5, dtype=torch.int64)
+    for steps in (0, 1, 6):
+        n = torch.tensor(steps, dtype=torch.int32)
+        want = fn(x, n)
+        before = gl.captures
+        got = gl.run(owner, "t", fn, x.to(cuda_device), n.to(cuda_device))
+        assert gl.captures == before + (steps == 0)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_cuda_device_launch_counts(cuda_device):
+    """The static entries' kernels count their launches on the card: an
+    eager launch adds one there and to the wrapper's ``launches``; a
+    captured one adds one to ``captured`` only, and then one on the card
+    per replay."""
+    from repro_torch import kernels as tk
+    from repro_torch.core import graph_loop as gl
+    col, w, row_ptr, deg = _relax_graph(cuda_device)
+    v = len(deg)
+    rows = [torch.from_numpy(a.astype(np.int32)).to(cuda_device)
+            for a in (np.arange(v), deg, row_ptr[:-1])]
+    val, lab, fm = _relax_state(cuda_device, "SSSP_RELAX", 1, v, 3)
+    passes, n = _dev_int(24, cuda_device), _dev_int(v, cuda_device)
+
+    def one(lab):
+        return trelax.twc_bin_relax(val, lab, fm, col, w, *rows,
+                                    _relax_op("SSSP_RELAX"), width=128,
+                                    passes=passes, rows=n)
+
+    class Owner:
+        version = 0
+
+    tk.reset_launch_counts()
+    tk.device_launch_counts(reset=True)
+    want = one(lab.clone())
+    assert trelax.twc_bin_relax.launches == 1
+    assert tk.device_launch_counts(reset=True)["twc_bin_relax"] == 1
+    owner = Owner()
+    for _ in range(3):
+        assert torch.equal(gl.run(owner, "one", one, lab), want)
+    assert trelax.twc_bin_relax.launches == 1
+    assert tk.capture_counts()["twc_bin_relax"] == 1
+    assert tk.device_launch_counts(reset=True) == {
+        "twc_bin_relax": 3, "edge_lb_relax": 0, "merge_path_map": 0}
+
+
+@pytest.mark.gpu
+def test_cuda_graph_loop_cache_is_bounded(cuda_device):
+    """Three times as many distinct programs on one graph as it keeps:
+    at most ``MAX_PROGRAMS`` stay cached, the least recently used goes
+    first, and the memory of the evicted ones goes back (reserved memory
+    after a trim stays at the level of one full cache)."""
+    from repro_torch.core import graph_loop as gl
+
+    class Owner:
+        version = 0
+
+    owner = Owner()
+    cap = gl.MAX_PROGRAMS
+    x = torch.ones(1 << 20, device=cuda_device)    # 4 MB a temporary
+
+    def fill(keys):
+        for k in keys:
+            got = gl.run(owner, k, lambda t, k=k: (t + k) * 2, x)
+            assert torch.equal(got, (x + k) * 2)
+        torch.cuda.synchronize(cuda_device)
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(cuda_device)
+
+    full = fill(range(cap))
+    assert len(owner._programs) == cap
+    before = gl.captures
+    fill([0])                         # a hit: key 0 becomes the newest
+    assert gl.captures == before
+    fill([cap])                       # evicts key 1, the oldest
+    assert 0 in [k[1] for k in owner._programs]
+    assert 1 not in [k[1] for k in owner._programs]
+    again = fill(range(cap + 1, 3 * cap))
+    assert len(owner._programs) == cap
+    assert again <= full + (16 << 20), (again, full)
+
+
+# ---- the static-shape round and the fused loop on the card ---------------
+
+def _card_and_host_graph(dev, scale=11):
+    from repro_torch.core import graph as tg
+    gc = tg.rmat(scale, 8, seed=4, device=dev)
+    gh = tg.Graph.from_numpy(gc.row_ptr.cpu(), gc.col_idx.cpu(),
+                             gc.edge_w.cpu(), device="cpu")
+    return gc, gh
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["xla", "pallas", "merge_path"])
+@pytest.mark.parametrize("strategy", ["twc", "alb"])
+def test_cuda_captured_round_matches_eager(cuda_device, backend, strategy):
+    """relax_spmd_directed on the card (one replay of a captured graph
+    with the direction's IF nodes, and twc's device pass count) against
+    the same round run eagerly on the CPU, at a sparse and a dense
+    frontier, B = 2: labels, stats and liveness equal."""
+    from repro_torch.core import balancer as tb
+    gc, gh = _card_and_host_graph(cuda_device)
+    cfg = tb.BalancerConfig(strategy=strategy, backend=backend,
+                            threshold=64, direction="adaptive")
+    v = gh.num_vertices
+    rng = np.random.default_rng(5)
+    for density in (0.01, 0.5):
+        lab = rng.integers(0, 500, (2, v)).astype(np.int32)
+        fr = rng.random((2, v)) < density
+        fr[:, 0] = True
+        outs = [tb.relax_spmd_directed(g, torch.from_numpy(lab).to(d),
+                                       torch.from_numpy(lab).to(d),
+                                       torch.from_numpy(fr).to(d), cfg,
+                                       tops.SSSP_RELAX, collect_stats=True,
+                                       return_active=True)
+                for g, d in ((gc, cuda_device), (gh, "cpu"))]
+        (lc, sc, ac), (lh, sh, ah) = outs
+        assert torch.equal(lc.cpu(), lh)
+        np.testing.assert_array_equal(ac, ah)
+        for f in sh._fields:
+            np.testing.assert_array_equal(np.asarray(getattr(sc, f)),
+                                          np.asarray(getattr(sh, f)),
+                                          err_msg=f)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_loop_matches_host(cuda_device):
+    """Fused traversals on the card (one graph launch each) against host
+    mode on the card: labels, rounds and per-round frontier stats equal
+    (pagerank within FLOAT_ADD_RTOL: its huge bin adds with atomics);
+    no host transfer; a second call with the same key captures
+    nothing."""
+    from repro_torch.core import balancer as tb
+    from repro_torch.core import graph as tg
+    from repro_torch.core import graph_loop as gl
+    from repro_torch.core.apps import drivers as td
+    g, _ = _card_and_host_graph(cuda_device, scale=12)
+    sym = tg.symmetrized(g)
+    kern = tb.BalancerConfig(use_pallas=True, threshold=64)
+    ada = tb.BalancerConfig(use_pallas=True, threshold=64,
+                            direction="adaptive")
+    runs = [lambda m: td.sssp(g, 0, ada, mode=m, collect_stats=True),
+            lambda m: td.sssp(g, 0, tb.BalancerConfig(
+                strategy="twc", use_pallas=True), mode=m,
+                collect_stats=True),
+            lambda m: td.sssp(g, 0, tb.BalancerConfig(
+                backend="merge_path"), mode=m, collect_stats=True),
+            lambda m: td.sssp_batch(g, [0, 1, 2, 3], ada, mode=m),
+            lambda m: td.cc(sym, ada, mode=m, collect_stats=True),
+            lambda m: td.kcore(sym, 6, kern, mode=m, collect_stats=True),
+            lambda m: td.pagerank(g, cfg=kern, mode=m, max_rounds=12)]
+    for i, run in enumerate(runs):
+        host, fused = run("host"), run("fused")
+        if i == len(runs) - 1:
+            torch.testing.assert_close(fused.labels, host.labels,
+                                       rtol=FLOAT_ADD_RTOL, atol=0)
+        else:
+            assert torch.equal(fused.labels, host.labels)
+        assert fused.rounds == host.rounds > 0
+        assert fused.host_transfers == 0
+        for a, b in zip(host.stats or (), fused.stats or ()):
+            assert (a.frontier_size, a.frontier_edges, a.direction) == \
+                (b.frontier_size, b.frontier_edges, b.direction)
+        before = gl.captures
+        again = run("fused")
+        assert gl.captures == before
+        assert again.rounds == fused.rounds
+
+
+@pytest.mark.gpu
+def test_cuda_captured_round_user_operator(cuda_device):
+    """An operator the fused kernels do not take (``msg = v + 2w``)
+    through the ``pallas`` pair's static round on the card: its
+    unbounded bin's chunks are a WHILE node around ``twc_bin_map`` with
+    a device chunk, its huge bin ``edge_lb_map`` with a device total;
+    labels equal to the same round run eagerly on the CPU."""
+    from repro_torch.core import balancer as tb
+    gc, gh = _card_and_host_graph(cuda_device)
+    op = tops.Operator("v_plus_2w", "push", "min", lambda v, w: v + 2 * w)
+    v = gh.num_vertices
+    rng = np.random.default_rng(8)
+    lab = rng.integers(0, 500, (2, v)).astype(np.int32)
+    fr = rng.random((2, v)) < 0.3
+    for strategy in ("twc", "alb"):
+        cfg = tb.BalancerConfig(strategy=strategy, use_pallas=True,
+                                threshold=64)
+        got, want = (tb.relax_spmd(g, torch.from_numpy(lab).to(d),
+                                   torch.from_numpy(lab).to(d),
+                                   torch.from_numpy(fr).to(d), cfg, op)
+                     for g, d in ((gc, cuda_device), (gh, "cpu")))
+        assert torch.equal(got.cpu(), want)

@@ -163,8 +163,8 @@ def test_kernel_sources_present():
     from repro_torch.kernels import build
     assert build.sources() == ["edge_lb", "edge_lb_relax",
                                "flash_attention", "flash_attention_wgmma",
-                               "merge_path", "moe_dispatch", "moe_plan",
-                               "twc_gather", "twc_relax"]
+                               "graph_loop", "merge_path", "moe_dispatch",
+                               "moe_plan", "twc_gather", "twc_relax"]
 
 
 def test_build_cache_key_covers_headers(tmp_path, monkeypatch):
