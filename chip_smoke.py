@@ -62,6 +62,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    condition kernel's decisions, medians of 6 walls host / spmd / fused in turns, device profiles of
    sssp and pagerank in host and spmd mode, and the device span of each
    fused traversal's one launch (CUDA events);
+3e. streaming updates on the same two graphs made streaming
+   (``streaming_graph``: V 4,194,312 padded, Ecap 2**27; the symmetrized
+   form 2**28): sssp and bfs from the hub and cc kept by
+   ``stream_update`` across two traces of 8 batches of 4096 updates
+   (insert-only; mixed: inserts, deletes, reweights, no-ops) through the
+   kernel pair in host and fused mode (sssp also spmd); after every
+   batch the labels bitwise against a from-scratch run on the mutated
+   graph (a fallback's rounds against that run's), after the mixed trace
+   sssp's CSR against a numpy rebuild and its labels against scipy;
+   per batch apply and repair seconds, rounds, seeds, captures, the
+   kernels' launches on the card, syncing calls and peak memory; no
+   capture in host mode, as many per batch after the first in spmd /
+   fused mode, the last batch's peak within 10% of the first's, no
+   program replayed on a superseded graph version;
+3f. the query service on phase 3e's streaming graph (8 slots, a 32-entry
+   cache) in host, spmd and fused mode: 64 queries (48 sssp, 16 bfs, a
+   quarter repeats) with two mixed update batches applied while queries
+   are in flight; every result bitwise against a standalone run on the
+   graph version its query ran on, ``host_transfers`` as the JAX engine
+   counts them; queries per second, rounds-in-system p50 / p95, syncing
+   calls per step, captures, device busy share; then a fleet of two
+   replicas on the card (one throttled, so hedges fire) serving 32
+   queries, bitwise against standalone runs, its routing trace replayed
+   exactly; the fused kernels' launches counted on the card in each of
+   3e and 3f, and nothing built after phase 1;
 4. each kernel and its plain version timed on the card at the shapes
    the main path gave it (one ALB sssp, one sssp_batch and two pagerank
    rounds for the fused kernels, which are also timed beside the unfused route they
@@ -1351,6 +1376,574 @@ def static_path(g, sym, src, sources) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: streaming updates with incremental repair
+# ---------------------------------------------------------------------------
+
+STREAM_CAP = 4096             # update slots a batch
+STREAM_BATCHES = 8            # batches a trace
+STREAM_MODES = {"sssp": ("host", "spmd", "fused"), "bfs": ("host", "fused"),
+                "cc": ("host", "fused")}
+
+
+def stream_traces(g, seed: int, mirror: bool) -> dict:
+    """Phase 3e's two update traces over the real vertices of ``g`` (a
+    streaming graph), from ``numpy.random.default_rng(seed)``:
+    ``insert-only`` (STREAM_BATCHES batches of STREAM_CAP inserts,
+    weights 1..100) and ``mixed`` (60% inserts, 20% deletes of existing
+    edges, 10% reweights of existing edges, 10% no-ops: deletes of absent
+    edges and re-inserts of existing edges at a worse weight).  With
+    ``mirror`` every update is followed by its reverse, so a symmetrized
+    graph stays symmetric."""
+    from repro_torch.core import streaming as ts
+    rng = np.random.default_rng(seed)
+    nv = ts.real_vertices(g)
+    rp = g.row_ptr.cpu().numpy().astype(np.int64)
+    ci, ew = g.col_idx.cpu().numpy(), g.edge_w.cpu().numpy()
+    k = STREAM_CAP // 2 if mirror else STREAM_CAP
+
+    def batch(op, u, v, w):
+        if mirror:
+            op, w = np.repeat(op, 2), np.repeat(w, 2)
+            u, v = np.stack([u, v], 1).ravel(), np.stack([v, u], 1).ravel()
+        return ts.UpdateBatch(*(np.asarray(a).astype(np.int32)
+                                for a in (op, u, v, w)))
+
+    def fresh():
+        return (rng.integers(0, nv, k), rng.integers(0, nv, k),
+                rng.integers(1, 101, k))
+
+    out = {"insert-only": [], "mixed": []}
+    for _ in range(STREAM_BATCHES):
+        out["insert-only"].append(batch(np.full(k, ts.OP_INSERT), *fresh()))
+    for _ in range(STREAM_BATCHES):
+        r = rng.random(k)
+        u, v, w = fresh()
+        e = rng.integers(0, int(rp[-1]), k)          # existing edges
+        eu, ev = np.searchsorted(rp, e, side="right") - 1, ci[e]
+        delete, reweight = (r >= 0.6) & (r < 0.8), (r >= 0.8) & (r < 0.9)
+        absent, worse = (r >= 0.9) & (r < 0.95), r >= 0.95
+        op = np.full(k, ts.OP_INSERT)
+        op[delete | absent] = ts.OP_DELETE
+        op[reweight] = ts.OP_REWEIGHT
+        on_edge = delete | reweight | worse
+        u[on_edge], v[on_edge] = eu[on_edge], ev[on_edge]
+        w[worse] = ew[e[worse]] + rng.integers(1, 101, int(worse.sum()))
+        w[delete | absent] = 0
+        out["mixed"].append(batch(op, u, v, w))
+    return out
+
+
+def numpy_rebuild(g0, batches, vp: int, ecap: int) -> list:
+    """The CSR arrays after ``batches`` applied to ``g0`` (the graph the
+    streaming graph was made from), rebuilt on the host without the
+    port: the batches replayed in slot order (insert keeps the minimum,
+    delete of an absent edge and reweight of one are no-ops) into a dict
+    over the keys they touch, on top of ``g0``'s sorted edge keys; the
+    live edges then put in (src, dst) order by a stable sort of
+    ``src * vp + dst`` (the order of ``np.lexsort((dst, src))``) and
+    padded to ``(vp, ecap)`` with the sentinel ``vp - 1`` and INF."""
+    rp = g0.row_ptr.cpu().numpy().astype(np.int64)
+    n = int(rp[-1])
+    src = np.repeat(np.arange(len(rp) - 1, dtype=np.int64), np.diff(rp))
+    key = src * vp + g0.col_idx[:n].cpu().numpy()
+    w = g0.edge_w[:n].cpu().numpy().astype(np.int64)
+    del src
+    overlay = {}
+    for b in batches:
+        live = b.op != 0
+        tk = np.unique(b.src[live].astype(np.int64) * vp + b.dst[live])
+        pos = np.minimum(np.searchsorted(key, tk), n - 1)
+        cur = {int(t): overlay.get(int(t), int(w[p]) if key[p] == t
+                                   else None)
+               for t, p in zip(tk, pos)}
+        for o, u, v, x in zip(b.op.tolist(), b.src.tolist(),
+                              b.dst.tolist(), b.w.tolist()):
+            t = u * vp + v
+            if o == 1:
+                cur[t] = x if cur[t] is None else min(cur[t], x)
+            elif o == 2:
+                cur[t] = None
+            elif o == 3 and cur[t] is not None:
+                cur[t] = x
+        overlay.update(cur)
+    ok = np.fromiter(overlay, np.int64, len(overlay))
+    pos = np.minimum(np.searchsorted(key, ok), n - 1)
+    keep = np.ones(n, bool)
+    keep[pos[key[pos] == ok]] = False
+    added = [(t, x) for t, x in overlay.items() if x is not None]
+    key = np.concatenate([key[keep], np.array([t for t, _ in added],
+                                              np.int64)])
+    w = np.concatenate([w[keep], np.array([x for _, x in added], np.int64)])
+    order = np.argsort(key, kind="stable")
+    key, w = key[order], w[order]
+    m = len(key)
+    row_ptr = np.zeros(vp + 1, np.int32)
+    np.cumsum(np.bincount(key // vp, minlength=vp), out=row_ptr[1:])
+    col = np.full(max(ecap, m), vp - 1, np.int32)
+    col[:m] = key % vp
+    wts = np.full(max(ecap, m), 1 << 30, np.int32)
+    wts[:m] = w
+    return [row_ptr, col, wts]
+
+
+@contextlib.contextmanager
+def program_versions(seen: list):
+    """Inside the block, each ``graph_loop.run`` on the card appends
+    ``(version the replayed program was captured for, owner's version
+    now)`` to ``seen``: a program of a superseded version must never
+    run."""
+    from repro_torch.core import graph_loop
+    real = graph_loop.run
+
+    def run(owner, key, fn, *inputs):
+        out = real(owner, key, fn, *inputs)
+        cache = owner.__dict__.get("_programs")
+        if cache:
+            seen.append((next(reversed(cache))[0], owner.version))
+        return out
+
+    graph_loop.run = run
+    try:
+        yield
+    finally:
+        graph_loop.run = real
+
+
+def stream_update_row(st, batch, entry: dict) -> tuple:
+    """One measured ``stream_update``: its apply time (an
+    ``apply_updates`` of the same batch on the same graph, synchronized,
+    result dropped), then the update itself with the card's launch
+    counts, captures and peak memory reset just before and read just
+    after, and its syncing calls.  Returns ``(report, row)``; ``entry``
+    accumulates the launches by entry (host or static)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import graph_loop
+    from repro_torch.core import streaming as ts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tmp = ts.apply_updates(st.g, batch)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    del tmp
+    kernels.device_launch_counts(reset=True)
+    caps, cap_s = graph_loop.captures, graph_loop.capture_seconds
+    torch.cuda.reset_peak_memory_stats()
+    rep = []
+    t0 = time.perf_counter()
+    syncs = count_syncs(lambda: rep.append(ts.stream_update(st, batch)))
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    launches = kernels.device_launch_counts(reset=True)
+    for k, n in launches.items():
+        entry[k] = entry.get(k, 0) + n
+    rep = rep[0]
+    return rep, {
+        "apply_s": apply_s, "update_s": update_s,
+        "repair_s": max(update_s - apply_s, 0.0), "rounds": rep.rounds,
+        "full_recompute": rep.full_recompute, "seeds": rep.seeds,
+        "captures": graph_loop.captures - caps,
+        "capture_s": graph_loop.capture_seconds - cap_s,
+        "launches": {k: launches[k] for k in ("twc_bin_relax",
+                                              "edge_lb_relax")},
+        "syncs": len(syncs),
+        "sync_sites": {x: syncs.count(x) for x in sorted(set(syncs))},
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def stream_path(g, sym, src) -> dict:
+    """Phase 3e: the streaming layer on phase 3's graph.  ``g`` and its
+    symmetrized form (for cc) made streaming (``streaming_graph``), then
+    sssp and bfs from the hub and cc kept across two traces of
+    STREAM_BATCHES batches (:func:`stream_traces`) by ``stream_update``
+    with the ALB kernel pair, in host and fused mode (sssp also spmd).
+    After every batch the labels are held bitwise against a from-scratch
+    host-mode run on the mutated graph, whose rounds a fallback must
+    report; after the mixed trace, sssp's CSR against
+    :func:`numpy_rebuild` and its labels against scipy.  Per batch: apply
+    and repair seconds, rounds, fallback, seeds, captures, the fused
+    kernels' launches on the card, syncing calls, peak device memory.
+    Held per series: no capture in host mode and as many per batch after
+    the first in spmd / fused mode, the last batch's peak within 10% of
+    the first's, and no program replayed on a superseded version."""
+    import torch
+    from repro_torch.core import graph_loop
+    from repro_torch.core import streaming as ts
+    from repro_torch.core.balancer import BalancerConfig
+
+    kern = BalancerConfig(strategy="alb", use_pallas=True)
+    t0 = time.perf_counter()
+    sg = ts.streaming_graph(g)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    ssym = ts.streaming_graph(sym)
+    nv = ts.real_vertices(sg)
+    print(f"phase 3e: streaming_graph on the card in {make_s:.2f} s: V "
+          f"{sg.num_vertices} ({nv} real), Ecap {sg.num_edges}; "
+          f"symmetrized Ecap {ssym.num_edges}", flush=True)
+    t0 = time.perf_counter()
+    traces = {"g": stream_traces(sg, 0, mirror=False),
+              "sym": stream_traces(ssym, 0, mirror=True)}
+    print(f"phase 3e: traces of {STREAM_BATCHES} x {STREAM_CAP} updates "
+          f"made in {time.perf_counter() - t0:.1f} s", flush=True)
+    out = {"V": sg.num_vertices, "Ecap": sg.num_edges,
+           "Ecap_sym": ssym.num_edges, "streaming_graph_s": make_s}
+    # each series starts from a streaming graph of its own, which only
+    # its state holds: every batch then holds the same graphs (the one
+    # it starts from and the one it makes) beside the raw g and sym
+    del sg, ssym
+    graph_loop.set_runs(reset=True)
+    entry = {"host": {}, "static": {}}
+    series, seen = {}, []
+    with program_versions(seen):
+        for app, modes in STREAM_MODES.items():
+            source = None if app == "cc" else src
+            for trace in ("insert-only", "mixed"):
+                batches = traces["sym" if app == "cc" else "g"][trace]
+                for mode in modes:
+                    name = f"{app}/{trace}/{mode}"
+                    st = ts.stream_init(
+                        ts.streaming_graph(sym if app == "cc" else g), app,
+                        source=source, cfg=kern, mode=mode)
+                    rows = []
+                    for i, batch in enumerate(batches):
+                        rep, row = stream_update_row(
+                            st, batch, entry["host" if mode == "host"
+                                             else "static"])
+                        ref = ts._full_compute(st.g, app, source, kern,
+                                               "host")
+                        check(torch.equal(st.labels[:nv], ref.labels[:nv]),
+                              f"{name} batch {i}: labels != from scratch")
+                        check(not rep.full_recompute
+                              or rep.rounds == ref.rounds,
+                              f"{name} batch {i}: fallback rounds "
+                              f"{rep.rounds} != {ref.rounds}")
+                        check(rep.version == i + 1, f"{name}: version")
+                        rows.append(row)
+                    print(f"phase 3e: {name}: " + "; ".join(
+                        f"b{i} apply {r['apply_s']:.3f} repair "
+                        f"{r['repair_s']:.3f} s, {r['rounds']} rounds"
+                        f"{' (full)' if r['full_recompute'] else ''}, "
+                        f"{r['seeds']} seeds, {r['captures']} captures "
+                        f"({r['capture_s']:.2f} s), launches "
+                        f"{r['launches']['twc_bin_relax']}/"
+                        f"{r['launches']['edge_lb_relax']}, {r['syncs']} "
+                        f"syncs, peak {r['peak_gb']:.2f} GB"
+                        for i, r in enumerate(rows)), flush=True)
+                    print(f"phase 3e: {name}: syncing calls of the last "
+                          f"batch by site: {rows[-1]['sync_sites']}",
+                          flush=True)
+                    caps = [r["captures"] for r in rows]
+                    if mode == "host":
+                        check(caps == [0] * len(caps),
+                              f"{name}: host mode captured {caps}")
+                    else:
+                        check(caps[0] > 0 and caps[1:] == [caps[1]] * (
+                            len(caps) - 1), f"{name}: captures {caps}")
+                    peaks = [r["peak_gb"] for r in rows]
+                    check(peaks[-1] <= 1.1 * peaks[0],
+                          f"{name}: peak memory {peaks}")
+                    if name == "sssp/mixed/host":
+                        t1 = time.perf_counter()
+                        want = numpy_rebuild(g, batches, out["V"],
+                                             out["Ecap"])
+                        got = [t.cpu().numpy() for t in
+                               (st.g.row_ptr, st.g.col_idx, st.g.edge_w)]
+                        check(all(np.array_equal(a, b)
+                                  for a, b in zip(got, want)),
+                              f"{name}: CSR != the numpy rebuild")
+                        t2 = time.perf_counter()
+                        ora = oracle(ts.unpadded(st.g), src, False)
+                        check(np.array_equal(
+                            st.real_labels.astype(np.int64), ora),
+                            f"{name}: labels != scipy oracle")
+                        print(f"phase 3e: {name}: CSR == numpy rebuild "
+                              f"({t2 - t1:.1f} s); labels == scipy "
+                              f"oracle ({time.perf_counter() - t2:.1f} s)",
+                              flush=True)
+                    del st
+                    series[name] = rows
+    check(seen and all(p == v for p, v in seen),
+          "a program ran on a superseded graph version")
+    launches = {k: entry["host"].get(k, 0) + entry["static"].get(k, 0)
+                for k in ("twc_bin_relax", "edge_lb_relax")}
+    for k, n in launches.items():
+        check(n > 0, f"{k} was not launched by phase 3e")
+    decisions = graph_loop.set_runs(reset=True)
+    print(f"phase 3e: fused kernels launched on the card by the updates "
+          f"(host / static entry): {entry}; {len(seen)} program replays, "
+          f"each on the version it was captured for; {decisions} "
+          f"condition decisions", flush=True)
+    out.update({"series": series, "launches": launches,
+                "launches_by_entry": entry, "program_runs": len(seen),
+                "condition_decisions": decisions})
+    return out, traces["g"]["mixed"][:2]
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: the query service and the fleet
+# ---------------------------------------------------------------------------
+
+SERVE_SLOTS = 8
+SERVE_CACHE = 32
+SERVE_QUERIES = 64            # 48 sssp, 16 bfs, a quarter of them repeats
+FLEET_QUERIES = 32
+
+
+def serve_traffic(g, seed: int) -> list:
+    """Phase 3f's ``(app, source)`` queries: 48 distinct pairs (36 sssp,
+    12 bfs) over vertices of nonzero out-degree, then 16 repeats of
+    earlier pairs (12 sssp, 4 bfs), each placed after its original,
+    from ``numpy.random.default_rng(seed)``."""
+    from repro_torch.core import streaming as ts
+    rng = np.random.default_rng(seed)
+    deg = np.diff(g.row_ptr.cpu().numpy())[:ts.real_vertices(g)]
+    srcs = rng.choice(np.flatnonzero(deg > 0), 48, replace=False)
+    apps = ["sssp"] * 36 + ["bfs"] * 12
+    qs = [(apps[i], int(srcs[i])) for i in rng.permutation(48)]
+    for app, n in (("sssp", 12), ("bfs", 4)):
+        pool = [q for q in qs if q[0] == app]
+        for j in rng.choice(len(pool), n, replace=False):
+            first = qs.index(pool[j])
+            qs.insert(int(rng.integers(first + 1, len(qs) + 1)), pool[j])
+    return qs
+
+
+def serve_scenario(svc, sg, traffic, batches) -> list:
+    """Submit the traffic in three waves with two update batches between
+    them, applied while queries run; returns the qids."""
+    svc.register_graph("g", sg)
+    qids, waves = [], (0, 24, 44, len(traffic))
+    for w in range(3):
+        for app, s in traffic[waves[w]:waves[w + 1]]:
+            qids.append(svc.submit("g", app, s))
+        if w < 2:
+            for _ in range(3):
+                svc.step()
+            svc.apply_updates("g", batches[w])
+    svc.run()
+    return qids
+
+
+def serve_path(g, batches, built: int) -> dict:
+    """Phase 3f: a ``QueryService`` (SERVE_SLOTS slots, a SERVE_CACHE
+    entry cache, the ALB kernel pair) on phase 3e's streaming graph in
+    host, spmd and fused mode (``fused_rounds=8``), serving
+    :func:`serve_traffic` with two mixed update batches applied while
+    queries are in flight (a stale bank drains on its snapshot); then a
+    ``Fleet`` of two replicas on the card, one throttled so hedges fire.
+    ``g`` is phase 3's graph, made streaming here.
+    Every served result is held bitwise against a standalone run on the
+    graph version its query ran on (a reference chain of the same
+    batches; each service's versions are held equal to it);
+    ``host_transfers`` as the JAX engine counts them (two a step in host
+    mode: the round's and the liveness fetch; one otherwise); the
+    fleet's routing trace replays exactly.  Launches are counted on the
+    card around each service and fleet run; no program runs on a
+    superseded version; nothing is built after phase 1."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import graph_loop
+    from repro_torch.core import streaming as ts
+    from repro_torch.core.apps import drivers
+    from repro_torch.core.balancer import BalancerConfig
+    from repro_torch.kernels import build
+    from repro_torch.serve import QueryService, DONE
+    from repro_torch.serve.fleet import (Fleet, RouterConfig, replay,
+                                         ceiling_violations)
+
+    kern = BalancerConfig(strategy="alb", use_pallas=True)
+    sg = ts.streaming_graph(g)
+    traffic = serve_traffic(sg, 1)
+    chain = [sg]
+    for b in batches:
+        chain.append(ts.apply_updates(chain[-1], b))
+    refs = {}
+
+    def ref(app, s, version):
+        if (app, s, version) not in refs:
+            fn = drivers.sssp if app == "sssp" else drivers.bfs
+            refs[app, s, version] = fn(chain[version], s,
+                                       kern).labels.cpu().numpy()
+        return refs[app, s, version]
+
+    def held(svc, qids, what):
+        made = {}                    # id of a computed result -> version
+        for q in map(svc.poll, qids):
+            if q.slot is None and q.status == DONE and not q.from_cache:
+                made[id(q.result)] = q.version
+        for q in map(svc.poll, qids):
+            check(q.status == DONE, f"{what}: query {q.qid} {q.status}")
+            v = q.version
+            if q.from_cache and q.rounds_in_system > 0:   # a follower
+                v = made[id(q.result)]
+            check(np.array_equal(q.result, ref(q.app, q.source, v)),
+                  f"{what}: query {q.qid} ({q.app} from {q.source}, "
+                  f"version {v}) != standalone run")
+
+    entry = {"host": {}, "static": {}}
+    seen, out = [], {"modes": {}}
+    with program_versions(seen):
+        for mode in ("host", "spmd", "fused"):
+            svc = QueryService(num_slots=SERVE_SLOTS, cfg=kern, mode=mode,
+                               cache_capacity=SERVE_CACHE, fused_rounds=8)
+            kernels.device_launch_counts(reset=True)
+            caps = graph_loop.captures
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            box = []
+            syncs = count_syncs(lambda: box.append(
+                serve_scenario(svc, sg, traffic, batches)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            qids = box[0]
+            launches = kernels.device_launch_counts(reset=True)
+            side = entry["host" if mode == "host" else "static"]
+            for k, n in launches.items():
+                side[k] = side.get(k, 0) + n
+            captures = graph_loop.captures - caps
+            g_now = svc._graphs["g"]
+            check(g_now.version == 2 and all(
+                torch.equal(a, b) for a, b in zip(
+                    (g_now.row_ptr, g_now.col_idx, g_now.edge_w),
+                    (chain[2].row_ptr, chain[2].col_idx, chain[2].edge_w))),
+                f"{mode}: the service's graph != the reference chain's")
+            held(svc, qids, f"service/{mode}")
+            st = svc.stats
+            per_step = 2 if mode == "host" else 1
+            check(st.host_transfers == per_step * st.steps,
+                  f"{mode}: host_transfers {st.host_transfers} != "
+                  f"{per_step} x {st.steps} steps")
+            check(captures == 0 if mode == "host" else captures > 0,
+                  f"{mode}: {captures} captures")
+            served = st.queries_served
+            row = {"wall_s": wall, "queries_per_s": served / wall,
+                   "queries": served, "steps": st.steps,
+                   "p50_rounds": st.latency_percentile(50),
+                   "p95_rounds": st.latency_percentile(95),
+                   "cache_hits": st.cache_hits,
+                   "host_transfers": st.host_transfers,
+                   "syncs": len(syncs),
+                   "syncs_per_step": len(syncs) / st.steps,
+                   "sync_sites": {x: syncs.count(x)
+                                  for x in sorted(set(syncs))},
+                   "captures": captures, "launches": launches,
+                   "occupancy": st.occupancy}
+            out["modes"][mode] = row
+            del svc
+            print(f"phase 3f: service/{mode}: {served} queries in "
+                  f"{wall:.2f} s ({row['queries_per_s']:.1f} / s), "
+                  f"{st.steps} steps, rounds-in-system p50 "
+                  f"{row['p50_rounds']:.2f} p95 {row['p95_rounds']:.2f}, "
+                  f"{st.cache_hits} cache hits, host_transfers "
+                  f"{st.host_transfers}, {len(syncs)} syncing calls "
+                  f"({row['syncs_per_step']:.2f} a step) at "
+                  f"{row['sync_sites']}, {captures} captures, launches "
+                  f"{launches}", flush=True)
+        # device busy share: torch.profiler for host and spmd (a second
+        # run of the scenario); a fused step is one graph launch, which
+        # the profiler sees only in part, so its busy time is the CUDA
+        # event span of each chunk's launch
+        for mode in ("host", "spmd"):
+            svc = QueryService(num_slots=SERVE_SLOTS, cfg=kern, mode=mode,
+                               cache_capacity=SERVE_CACHE)
+            prof = profile_path(
+                {f"service/{mode}": lambda: serve_scenario(
+                    svc, sg, traffic, batches)},
+                {f"service/{mode}": out["modes"][mode]["wall_s"]},
+                label="phase 3f")
+            out["modes"][mode]["busy_share"] = prof[
+                f"service/{mode}"]["busy_share"]
+            out["modes"][mode]["device_ms"] = prof[
+                f"service/{mode}"]["device_ms"]
+        from repro_torch.serve import engine
+        spans, real_fused = [], engine.run_fused
+
+        def timed_fused(*a, **k):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            res = real_fused(*a, **k)
+            e.record()
+            spans.append((s, e))
+            return res
+
+        engine.run_fused = timed_fused
+        try:
+            svc = QueryService(num_slots=SERVE_SLOTS, cfg=kern,
+                               mode="fused", cache_capacity=SERVE_CACHE,
+                               fused_rounds=8)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve_scenario(svc, sg, traffic, batches)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            engine.run_fused = real_fused
+        busy_ms = sum(s.elapsed_time(e) for s, e in spans)
+        out["modes"]["fused"].update(
+            {"busy_share": busy_ms / (wall * 1e3), "device_ms": busy_ms,
+             "busy_wall_s": wall})
+        print(f"phase 3f: service/fused: {len(spans)} chunk launches, "
+              f"{busy_ms:.2f} ms of device time by CUDA events over a "
+              f"{wall * 1e3:.2f} ms wall "
+              f"({out['modes']['fused']['busy_share']:.1%})", flush=True)
+
+        # ---- the fleet: two replicas on the card, one a straggler ----
+        fleet = Fleet(num_replicas=2, cfg=kern, num_slots=SERVE_SLOTS,
+                      cache_capacity=SERVE_CACHE, seed=0,
+                      devices=[sg.device],
+                      router=RouterConfig(hedge_after=8))
+        fleet.replicas[1].throttle = 2
+        fleet.register_graph("g", chain[2])
+        kernels.device_launch_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fqids = [fleet.submit("g", app, s)
+                 for app, s in traffic[:FLEET_QUERIES]]
+        summary = fleet.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.device_launch_counts(reset=True)
+        for k, n in launches.items():
+            entry["host"][k] = entry["host"].get(k, 0) + n
+        for f in fqids:
+            rec = fleet.poll(f)
+            check(rec.status == DONE and np.array_equal(
+                rec.result, ref(rec.app, rec.source, 2)),
+                f"fleet query {f} != standalone run")
+        check(replay(fleet.trace.rows) == [], "fleet trace diverged")
+        check(ceiling_violations(fleet.trace.rows) == [],
+              "fleet broke its load ceiling")
+        check(summary["hedges_launched"] > 0, "no hedge fired")
+        out["fleet"] = {k: v for k, v in summary.items()}
+        out["fleet"].update({"wall_s": wall, "trace_rows": len(
+            fleet.trace), "launches": launches})
+        del fleet
+        print(f"phase 3f: fleet of 2 replicas (replica 1 throttled 2x): "
+              f"{FLEET_QUERIES} queries in {wall:.2f} s, bitwise equal to "
+              f"standalone runs; {summary['hedges_launched']} hedges "
+              f"launched, "
+              f"{summary['hedges_cancelled']} cancelled; the trace of "
+              f"{out['fleet']['trace_rows']} decisions replays exactly",
+              flush=True)
+    check(seen and all(p == v for p, v in seen),
+          "a program ran on a superseded graph version")
+    launches = {k: entry["host"].get(k, 0) + entry["static"].get(k, 0)
+                for k in ("twc_bin_relax", "edge_lb_relax")}
+    for k, n in launches.items():
+        check(n > 0, f"{k} was not launched by phase 3f")
+    check(len(build.BUILD_LOG) == built, "a kernel was built after phase 1")
+    out.update({"launches": launches, "launches_by_entry": entry,
+                "standalone_refs": len(refs), "program_runs": len(seen),
+                "condition_decisions": graph_loop.set_runs(reset=True)})
+    print(f"phase 3f: fused kernels launched on the card (host / static "
+          f"entry): {entry}; {len(refs)} standalone references; nothing "
+          f"built after phase 1", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -2551,6 +3144,7 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln or
                 "Performance" in ln]
         print(f"phase 1: {name}: {' | '.join(info)}", flush=True)
+    built = len(build.BUILD_LOG)
 
     errs = kernel_vs_plain(dev)
     relax_vs_plain(dev)
@@ -2565,11 +3159,33 @@ def main() -> int:
     pp["user_operator"] = user_op_path(g, src, res["sssp"].labels)
     del res
     sp = static_path(g, sym, src, sources)
+    se, serve_batches = stream_path(g, sym, src)
+    sv = serve_path(g, serve_batches, built)
+    del serve_batches
+    # launches on the main paths: phases 3 and 3b (host entries), 3d
+    # (static entries), and 3e and 3f (host entries in host mode, static
+    # entries in spmd and fused mode)
     launches = {k: mp["launches"][k] + pp["launches"][k]
                 for k in GRAPH_KERNELS + ("twc_bin_map", "edge_lb_map")}
+    static_launches = dict(sp["launches"])
+    by_phase = {}
+    for k in ("twc_bin_relax", "edge_lb_relax"):
+        by_phase[k] = {"3": mp["launches"][k], "3b": pp["launches"][k],
+                       "3d": sp["launches"][k]}
+        for ph, o in (("3e", se), ("3f", sv)):
+            host_n = o["launches_by_entry"]["host"].get(k, 0)
+            static_n = o["launches_by_entry"]["static"].get(k, 0)
+            launches[k] += host_n
+            static_launches[k] += static_n
+            by_phase[k][ph] = {"host": host_n, "static": static_n}
     rows = time_kernels(g, src, sources, errs, launches)
-    rows += time_static_kernels(g, src, sp["launches"], sp["captured"])
-    rows.append(time_graph_loop(dev, sp["condition_decisions"]))
+    rows += time_static_kernels(g, src, static_launches, sp["captured"])
+    rows.append(time_graph_loop(
+        dev, sp["condition_decisions"] + se["condition_decisions"]
+        + sv["condition_decisions"]))
+    for r in rows:
+        if r["name"].split()[0] in by_phase:
+            r["launches_by_phase"] = by_phase[r["name"].split()[0]]
     for r in rows[-4:]:
         r["phase2_err"] = static_errs.get(r["name"].split()[0])
     for r in rows:
@@ -2579,9 +3195,9 @@ def main() -> int:
               + (f", unfused route {r['unfused_ms']:.4f} ms"
                  if "unfused_ms" in r else "")
               + f") over {r['timed_launches']} launches of one sssp; "
-              f"{r['launches']} launches on its main-path runs (phase 3d "
-              f"for a static entry and the condition kernel)",
-              flush=True)
+              f"{r['launches']} launches on its main-path runs (phases "
+              f"3d-3f for a static entry and the condition kernel; by "
+              f"phase {r.get('launches_by_phase')})", flush=True)
         for run, t in r.get("by_run", {}).items():
             print(f"phase 4:   {r['name']} at {run}'s shapes: {t}",
                   flush=True)
@@ -2597,6 +3213,8 @@ def main() -> int:
     print(json.dumps({"main_path": {"scale": args.scale, **mp}}), flush=True)
     print(json.dumps({"pull_path": pp}), flush=True)
     print(json.dumps({"static_path": sp}), flush=True)
+    print(json.dumps({"stream_path": se}), flush=True)
+    print(json.dumps({"serve_path": sv}), flush=True)
 
     # phase 5 needs the card's memory: free the graph phases' tensors
     # (and the programs captured on them)

@@ -7,6 +7,16 @@
   (:func:`next_bucket`).  The port has no jit cache to protect, but the
   bucket is part of the round's observable behaviour: the tile deal of
   ``balancer._tile_loads`` and the LB enumeration span both depend on it.
+
+The streaming layer seeds a repair frontier from the endpoints of
+changed edges (:func:`seed_from_edges`), and the serving engine treats
+each row of a ``[B, V]`` batch as a slot that is refilled with a fresh
+source (:func:`refill_rows`) or restored from a preemption snapshot
+(:func:`load_rows`).  The JAX package drops an out-of-range index
+(``V`` for a vertex, ``B`` for a slot) with a ``mode="drop"`` scatter;
+torch's scatters raise on one, so these helpers mask such entries out
+(negative indices count from the end, as there) and never clip them
+onto a real row.
 """
 from __future__ import annotations
 
@@ -64,6 +74,84 @@ def rows_active(frontier: torch.Tensor) -> torch.Tensor:
     """Per-slot liveness ``bool[B]`` of a batched frontier: row b is
     active while any of its vertices is on the worklist."""
     return frontier.any(dim=-1)
+
+
+def _in_range(idx: torch.Tensor, n: int) -> tuple:
+    """``(normalized, keep)``: ``idx`` with negative entries counted from
+    the end (``idx + n``), and whether each lies in ``[0, n)`` — the
+    entries a ``mode="drop"`` scatter writes."""
+    idx = torch.where(idx < 0, idx + n, idx)
+    return idx, (idx >= 0) & (idx < n)
+
+
+def seed_from_edges(src, dst, mask, num_vertices: int) -> torch.Tensor:
+    """Dense ``bool[V]`` frontier seeded from the endpoints of changed
+    edges, the worklist an incremental label repair starts from.
+    ``src``/``dst``/``mask`` are the fixed-capacity ``[K]`` arrays of an
+    update delta (``mask`` False = padding slot); both endpoints of every
+    live entry are set.  Runs on ``src``'s device with no host read: a
+    dropped entry writes the extra element ``V`` of a ``V + 1`` buffer,
+    which is sliced off."""
+    src = torch.as_tensor(src).long()
+    dev = src.device
+    mask = torch.as_tensor(mask, device=dev).bool()
+    out = torch.zeros((num_vertices + 1,), dtype=torch.bool, device=dev)
+    for ends in (src, torch.as_tensor(dst, device=dev).long()):
+        idx, keep = _in_range(ends, num_vertices)
+        out.index_fill_(0, torch.where(mask & keep, idx, num_vertices), True)
+    return out[:num_vertices]
+
+
+def _live_slots(slots, b: int) -> list:
+    """``(position, slot)`` of each live entry of a host ``[K]`` slot
+    vector: the sentinel ``B`` and anything else out of range dropped,
+    negative slots counted from the end."""
+    s, keep = _in_range(torch.as_tensor(slots).cpu().long(), b)
+    return [(i, int(s[i])) for i in torch.nonzero(keep).flatten().tolist()]
+
+
+def refill_rows(labels: torch.Tensor, frontier: torch.Tensor, slots,
+                sources, fill) -> tuple:
+    """Admit fresh single-source queries into batch slots, in place of
+    whatever the rows held (the serving engine's admission).
+
+    ``slots``/``sources`` are int32 ``[K]`` host vectors; an unused
+    entry names the sentinel slot ``B`` and is dropped.  Each named
+    slot's labels row is reset to ``fill`` with 0 at its own source
+    (clipped into ``[0, V)``, as the JAX package clips it) and its
+    frontier row to the one-hot source, exactly
+    :func:`multi_source_state` for that row.  Returns new
+    ``(labels, frontier)``; the inputs are not written, and nothing
+    crosses from the host (the rows are filled on the device)."""
+    v = labels.shape[-1]
+    src = torch.as_tensor(sources).cpu().long().clamp(0, v - 1).tolist()
+    labels, frontier = labels.clone(), frontier.clone()
+    for i, slot in _live_slots(slots, labels.shape[0]):
+        # fills of views: a host scalar assigned by indexing would be
+        # copied to the device, a syncing call each
+        labels[slot].fill_(int(fill))
+        labels[slot, src[i]].fill_(0)
+        frontier[slot].fill_(False)
+        frontier[slot, src[i]].fill_(True)
+    return labels, frontier
+
+
+def load_rows(labels: torch.Tensor, frontier: torch.Tensor, slots,
+              label_rows, frontier_rows) -> tuple:
+    """Restore snapshot rows into batch slots, the resume half of the
+    serving engine's preempt / resume pair.  ``slots`` is an int32
+    ``[K]`` host vector (sentinel ``B`` entries dropped) and
+    ``label_rows``/``frontier_rows`` the ``[K, V]`` rows to restore
+    (host or device; one copy each to the device); restoring them is
+    exact.  Returns new ``(labels, frontier)``; the inputs are not
+    written."""
+    lrows = torch.as_tensor(label_rows).to(labels.device, labels.dtype)
+    frows = torch.as_tensor(frontier_rows).to(frontier.device, torch.bool)
+    labels, frontier = labels.clone(), frontier.clone()
+    for i, slot in _live_slots(slots, labels.shape[0]):
+        labels[slot] = lrows[i]
+        frontier[slot] = frows[i]
+    return labels, frontier
 
 
 def full_frontier(num_vertices: int, device) -> torch.Tensor:

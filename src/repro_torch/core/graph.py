@@ -263,6 +263,8 @@ def reverse_graph(g: Graph) -> Graph:
                    torch.cat([rg.edge_w, torch.full(
                        (pad,), int(INF), dtype=torch.int32,
                        device=g.device)]))
+    if "_v_real" in g.__dict__:
+        object.__setattr__(rg, "_v_real", g.__dict__["_v_real"])
     return rg
 
 
@@ -295,3 +297,48 @@ def highest_out_degree_vertex(g: Graph) -> int:
     """Paper's bfs/sssp source for power-law graphs (first vertex of
     maximal out-degree, computed on the host)."""
     return int(np.argmax(np.diff(g.row_ptr.cpu().numpy())))
+
+
+def to_device(g: Graph, device) -> Graph:
+    """``g`` on ``device``: ``g`` itself when it is there already, else a
+    copy of its CSR that keeps its :attr:`Graph.version` and streaming
+    vertex count (``core.streaming.real_vertices``).  Derived caches
+    stay behind; the copy builds its own."""
+    dev = torch.device(device)
+    if g.device == dev:
+        return g
+    out = Graph(g.row_ptr.to(dev), g.col_idx.to(dev), g.edge_w.to(dev))
+    for attr in ("_version", "_v_real"):
+        if attr in g.__dict__:
+            object.__setattr__(out, attr, g.__dict__[attr])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Padding
+# ---------------------------------------------------------------------------
+
+def pad_graph(g: Graph, v_multiple: int = 8, e_multiple: int = 1024) -> Graph:
+    """Pad V and E to multiples (``repro.core.graph.pad_graph``).
+
+    Padded vertices have degree 0.  Padded edges target the padded
+    vertex ``vp - 1`` with weight ``INF``: an executor that enumerates
+    edge ids over the padded span may relax them under a weight-blind
+    operator (cc, kcore), and only that vertex's never-read label is
+    written.  So whenever edge padding exists, vertex padding is forced
+    to exist too (``vp > v``)."""
+    v, e = g.num_vertices, g.num_edges
+    vp = -(-v // v_multiple) * v_multiple
+    ep = -(-e // e_multiple) * e_multiple
+    if ep > e and vp == v:
+        vp = v + v_multiple           # guarantee a padded-edge target
+    if vp == v and ep == e:
+        return g
+
+    def tail(t, n, fill):
+        return torch.cat([t, torch.full((n,), int(fill), dtype=torch.int32,
+                                        device=g.device)])
+
+    return Graph(tail(g.row_ptr, vp - v, g.row_ptr[-1]),
+                 tail(g.col_idx, ep - e, vp - 1),
+                 tail(g.edge_w, ep - e, INF))

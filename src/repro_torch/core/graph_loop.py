@@ -34,7 +34,9 @@ never share memory with a program.
 most recently used: each holds a pool of its own, as large as the
 temporaries of the function it captured (about 1 GB for a traversal of
 a 4 M-vertex graph), so a caller who varies the configuration, the
-operator or the batch cannot fill the card with them.  An evicted
+operator or the batch cannot fill the card with them.  A program holds
+no reference to the graph it is cached on, so a graph that is let go
+(a superseded streaming version) frees its programs at once.  An evicted
 program frees its graph at once and hands its pool back to torch's
 allocator, which frees that memory the next time it trims its cache
 (``torch.cuda.empty_cache``, or an allocation that would fail).
@@ -310,9 +312,11 @@ class Program:
     """A function of CUDA tensors, captured once as one CUDA graph with
     conditional nodes and replayed on the current stream.  ``fn`` takes
     the input tensors and returns a structure of tensors (a tensor, a
-    tuple, a NamedTuple); it may call :func:`cond` and :func:`while_`."""
+    tuple, a NamedTuple); it may call :func:`cond` and :func:`while_`.
+    ``keep`` holds what the graph reads besides its inputs and its own
+    pool (the tensors ``fn`` closes over, but for its owner's)."""
 
-    def __init__(self, fn, inputs):
+    def __init__(self, fn, inputs, keep: tuple):
         global _REC, captures, capture_seconds
         from repro_torch.kernels import build
         if _REC is not None:
@@ -339,8 +343,8 @@ class Program:
                     rec.piece.capture_end()
         self.leaves, self.spec = pytree.tree_flatten(out)
         # what the graph reads: the captured pieces' pool, their flags,
-        # and whatever ``fn`` closes over (a graph's arrays)
-        self._keep = (rec.keep, fn)
+        # and ``keep``
+        self._keep = (rec.keep, keep)
         self._graph = rec.root.graph
         self._exec = ctypes.c_void_p()
         _call("instantiate", self._graph, ctypes.byref(self._exec))
@@ -373,13 +377,33 @@ class Program:
         self.close()
 
 
+def _free_vars(fn, owner) -> tuple:
+    """What ``fn`` closes over, less ``owner``: what a program cached on
+    ``owner`` keeps alive besides its pool.  The owner holds the program,
+    so the program must not hold the owner: that cycle would keep a
+    superseded graph, and its programs' pools, on the card until Python's
+    cyclic collector happens to run.  ``fn`` must not reach the owner
+    through anything else it closes over."""
+    out = []
+    for cell in fn.__closure__ or ():
+        try:
+            val = cell.cell_contents
+        except ValueError:          # an empty cell
+            continue
+        if val is not owner:
+            out.append(val)
+    return tuple(out)
+
+
 def run(owner, key, fn, *inputs):
     """``fn(*inputs)``: eagerly for CPU tensors; for CUDA tensors through
     the :class:`Program` cached on ``owner`` (a ``Graph``, whose topology
     the program reads) under ``key`` plus the inputs' shapes and dtypes,
     captured on first use.  Before a capture, the programs of an older
     ``owner.version`` are closed, and so is the least recently used one
-    while ``MAX_PROGRAMS`` are cached."""
+    while ``MAX_PROGRAMS`` are cached.  A program keeps what ``fn``
+    closes over except ``owner`` (:func:`_free_vars`), so a graph that
+    is let go frees its programs at once, by reference counting."""
     if inputs[0].device.type == "cpu":
         return fn(*inputs)
     cache = owner.__dict__.get("_programs")
@@ -394,7 +418,8 @@ def run(owner, key, fn, *inputs):
             cache.pop(stale).close()
         while len(cache) >= MAX_PROGRAMS:
             cache.popitem(last=False)[1].close()
-        prog = cache[full] = Program(fn, inputs)
+        prog = cache[full] = Program(fn, inputs,
+                                     keep=_free_vars(fn, owner))
     else:
         cache.move_to_end(full)
     return prog(*inputs)

@@ -2,8 +2,11 @@
 the card (the index kernels exactly: masks equal, masked positions
 equal; the fused relax kernels exactly for min and int add, within
 ``FLOAT_ADD_RTOL`` for float add; the fused MoE plan bitwise;
-attention, both routes, at the tolerances of tests/test_kernels_lm.py).
-Marked ``gpu``:
+attention, both routes, at the tolerances of tests/test_kernels_lm.py),
+the captured programs of the static and fused modes, and streaming
+repair and the query service on the card (programs follow the graph
+version, captures per batch constant, peak memory flat).  Marked
+``gpu``:
 they skip without a CUDA device.  No JAX import, so the file also runs
 on a machine that has only PyTorch:
 
@@ -633,3 +636,139 @@ def test_cuda_captured_round_user_operator(cuda_device):
                                    torch.from_numpy(fr).to(d), cfg, op)
                      for g, d in ((gc, cuda_device), (gh, "cpu")))
         assert torch.equal(got.cpu(), want)
+
+
+# ---- streaming updates and the service on the card ------------------------
+
+def _stream_batches(g, n, k, seed):
+    """``n`` seeded batches of ``k`` updates over ``g``'s real vertices:
+    inserts, deletes and reweights of existing edges."""
+    from repro_torch.core import streaming as ts
+    rng = np.random.default_rng(seed)
+    nv = ts.real_vertices(g)
+    rp = g.row_ptr.cpu().numpy()
+    ci = g.col_idx.cpu().numpy()
+    out = []
+    for _ in range(n):
+        ups = []
+        for _ in range(k):
+            r = rng.random()
+            if r < 0.7:
+                ups.append(("insert", int(rng.integers(nv)),
+                            int(rng.integers(nv)), int(rng.integers(1, 100))))
+            else:
+                u = int(rng.integers(nv))
+                if rp[u + 1] == rp[u]:
+                    continue
+                v = int(ci[rng.integers(rp[u], rp[u + 1])])
+                ups.append(("delete", u, v) if r < 0.85 else
+                           ("reweight", u, v, int(rng.integers(1, 100))))
+        out.append(ts.make_batch(ups, capacity=k))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("in_place", [False, True])
+def test_cuda_stream_programs_follow_graph_versions(cuda_device, in_place,
+                                                    monkeypatch):
+    """Fused and spmd repair on the card over 6 batches: every program
+    replayed was captured for the graph version it runs on (never one of
+    a superseded version), the captures per batch are the same after the
+    first batch (none in host mode), and the labels equal a from-scratch
+    run on a CPU copy of each mutated graph."""
+    from repro_torch.core import graph as tg
+    from repro_torch.core import graph_loop as gl
+    from repro_torch.core import streaming as ts
+    from repro_torch.core.balancer import BalancerConfig
+    from repro_torch.core.apps import drivers as td
+    cfg = BalancerConfig(use_pallas=True, threshold=64)
+    base = ts.streaming_graph(tg.rmat(11, 8, seed=4, device=cuda_device))
+    batches = _stream_batches(base, 6, 64, seed=1)
+    used = []
+    real_run = gl.run
+
+    def run(owner, key, fn, *inputs):
+        out = real_run(owner, key, fn, *inputs)
+        used.append((next(reversed(owner._programs))[0], owner.version))
+        return out
+
+    monkeypatch.setattr(gl, "run", run)
+    for mode in ("host", "spmd", "fused"):
+        st = ts.stream_init(base, "sssp", source=0, cfg=cfg, mode=mode)
+        per_batch = []
+        for batch in batches:
+            before = gl.captures
+            ts.stream_update(st, batch, in_place=in_place)
+            per_batch.append(gl.captures - before)
+            host = tg.Graph.from_numpy(st.g.row_ptr.cpu(),
+                                       st.g.col_idx.cpu(),
+                                       st.g.edge_w.cpu(), device="cpu")
+            want = td.sssp(host, 0, cfg).labels
+            assert torch.equal(st.labels.cpu(), want)
+        if mode == "host":
+            assert per_batch == [0] * len(batches)
+        else:
+            assert per_batch[0] >= 1
+            assert per_batch[1:] == [per_batch[1]] * (len(batches) - 1)
+        if in_place:
+            base = ts.streaming_graph(tg.rmat(11, 8, seed=4,
+                                              device=cuda_device))
+    assert used and all(pv == gv for pv, gv in used)
+
+
+@pytest.mark.gpu
+def test_cuda_stream_peak_memory_is_flat(cuda_device):
+    """8 batches of fused repair with ``in_place=False`` (a new graph, and
+    new captured programs, per batch): a superseded graph and its
+    programs are freed when the state lets go of it, so the peak device
+    memory of the last batch is within 10% of the first's and the memory
+    held after it does not grow."""
+    from repro_torch.core import graph as tg
+    from repro_torch.core import streaming as ts
+    from repro_torch.core.balancer import BalancerConfig
+    cfg = BalancerConfig(use_pallas=True, threshold=64)
+    g = ts.streaming_graph(tg.rmat(13, 8, seed=4, device=cuda_device))
+    batches = _stream_batches(g, 8, 256, seed=2)
+    st = ts.stream_init(g, "sssp", source=0, cfg=cfg, mode="fused")
+    del g
+    peaks, held = [], []
+    for batch in batches:
+        torch.cuda.synchronize(cuda_device)
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        ts.stream_update(st, batch)
+        torch.cuda.synchronize(cuda_device)
+        peaks.append(torch.cuda.max_memory_allocated(cuda_device))
+        held.append(torch.cuda.memory_allocated(cuda_device))
+    assert peaks[-1] <= 1.1 * peaks[0], peaks
+    assert held[-1] <= held[0] + (1 << 20), held
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["host", "spmd", "fused"])
+def test_cuda_service_matches_standalone_across_updates(cuda_device, mode):
+    """The query service on the card with an update applied while
+    queries run: every result equals a standalone run on the graph
+    version its query was admitted under."""
+    from repro_torch.core import graph as tg
+    from repro_torch.core import streaming as ts
+    from repro_torch.core.balancer import BalancerConfig
+    from repro_torch.core.apps import drivers as td
+    from repro_torch.serve import QueryService
+    cfg = BalancerConfig(use_pallas=True, threshold=64)
+    g = ts.streaming_graph(tg.rmat(11, 8, seed=4, device=cuda_device))
+    svc = QueryService(num_slots=4, cfg=cfg, mode=mode, fused_rounds=2)
+    svc.register_graph("g", g)
+    graphs = {g.version: g}
+    sources = [0, 1, 2, 3, 5, 8, 0, 13]
+    qids = [svc.submit("g", "sssp", s) for s in sources[:4]]
+    svc.step()
+    svc.apply_updates("g", _stream_batches(g, 1, 64, seed=3)[0])
+    graphs[svc._graphs["g"].version] = svc._graphs["g"]
+    qids += [svc.submit("g", "bfs" if i % 2 else "sssp", s)
+             for i, s in enumerate(sources[4:])]
+    svc.run()
+    for qid in qids:
+        q = svc.poll(qid)
+        fn = td.sssp if q.app == "sssp" else td.bfs
+        want = fn(graphs[q.version], q.source, cfg).labels.cpu().numpy()
+        np.testing.assert_array_equal(q.result, want)

@@ -153,7 +153,13 @@ def test_port_imports_neither_jax_nor_repro():
     port = REPO / "src" / "repro_torch"
     for rel in ("configs/base.py", "models/layers.py", "models/moe.py",
                 "models/transformer.py", "models/convert.py",
-                "kernels/moe_dispatch.py", "kernels/flash_attention.py"):
+                "kernels/moe_dispatch.py", "kernels/flash_attention.py",
+                "core/streaming.py", "serve/__init__.py", "serve/engine.py",
+                "serve/queue.py", "serve/scheduler.py", "serve/stats.py",
+                "serve/cache.py", "serve/publish.py",
+                "serve/fleet/__init__.py", "serve/fleet/fleet.py",
+                "serve/fleet/replica.py", "serve/fleet/router.py",
+                "serve/fleet/trace.py", "serve/fleet/hedge.py"):
         assert port / rel in files
     bad = []
     for path in files:
