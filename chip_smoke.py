@@ -87,6 +87,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    queries, bitwise against standalone runs, its routing trace replayed
    exactly; the fused kernels' launches counted on the card in each of
    3e and 3f, and nothing built after phase 1;
+3g. the distributed runtime (``core/partition.py``, ``core/gluon.py``,
+   ``core/wire.py``) with 4 partitions on the one card (a mesh of 4
+   slots on ``cuda:0``), after releasing the programs earlier phases
+   cached on the graphs: phase 3's graph cut under oec, iec and cvc, the
+   symmetrized and reverse graphs under oec, each on the card (seconds,
+   imbalance, replication factor, mirrors, bytes); sssp and bfs from
+   the hub, replicated and master/mirror sync, host mode (with per-round
+   stats) and fused mode (one graph launch); sssp_batch (B = 8); cc and
+   kcore(10) on the symmetrized graph; pagerank(20) on the reverse; bfs
+   under the delta, bitmap and quantize wire codecs; one mirror sssp
+   through merge_path.  Labels bitwise those of phases 3 and 3b
+   (pagerank within ``PR_RTOL_PAIR``), rounds equal host / fused,
+   ``host_transfers`` as the JAX runtime counts them (0 fused), each
+   run's static-entry launches on the card equal to rounds x bins x 4,
+   every mirror round's logical bytes ``mirrors_synced x (4 + B x 4)``
+   and below the replicated baseline, the codecs bitwise the identity
+   run with fewer bytes on the wire; zero syncing calls between a fused
+   dispatch and its fetch; medians of 6 walls host / fused for sssp and
+   pagerank under both syncs, the fused launches' device spans,
+   captures and peak memory;
 4. each kernel and its plain version timed on the card at the shapes
    the main path gave it (one ALB sssp, one sssp_batch and two pagerank
    rounds for the fused kernels, which are also timed beside the unfused route they
@@ -1039,7 +1059,9 @@ def pull_path(g, src, sources, res) -> dict:
             "build_s": {"reverse": rev_s, "symmetrized": sym_s},
             "csr_gb": csr_gb, "sym_edges": sym.num_edges,
             "peak_device_gb": peak_gb, "pagerank_err": pr_err,
-            "apps": apps, "cfgs": cfgs, "median_s": med, "sym": sym}
+            "apps": apps, "cfgs": cfgs, "median_s": med, "sym": sym,
+            "ref_labels": {a: out[a, "kernel"].labels
+                           for a in ("cc", "kcore", "pagerank")}}
 
 
 # ---------------------------------------------------------------------------
@@ -1940,6 +1962,361 @@ def serve_path(g, batches, built: int) -> dict:
     print(f"phase 3f: fused kernels launched on the card (host / static "
           f"entry): {entry}; {len(refs)} standalone references; nothing "
           f"built after phase 1", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the distributed runtime, 4 partitions on one card
+# ---------------------------------------------------------------------------
+
+DIST_PARTS = 4
+DIST_CODECS = ("delta", "bitmap", "quantize")
+# the partitions phase 3g cuts: name -> (graph, policy)
+DIST_CUTS = (("g/oec", "g", "oec"), ("g/iec", "g", "iec"),
+             ("g/cvc", "g", "cvc"), ("sym/oec", "sym", "oec"),
+             ("rev/oec", "rev", "oec"))
+
+
+def dist_launches_needed(cfg, rounds: int) -> dict:
+    """Launches of the static entries a distributed run's rounds need:
+    each partition runs every bin of the plan and the huge bin once a
+    round (``merge_path_map`` once, under merge_path)."""
+    from repro_torch.core.balancer import effective_plan
+    if cfg.executor == "merge_path":
+        return {"twc_bin_relax": 0, "edge_lb_relax": 0,
+                "merge_path_map": rounds * DIST_PARTS}
+    plan = effective_plan(cfg)
+    return {"twc_bin_relax": rounds * len(plan.bins) * DIST_PARTS,
+            "edge_lb_relax": rounds * (plan.lb != "none") * DIST_PARTS,
+            "merge_path_map": 0}
+
+
+def dist_dispatches(local, meta, mesh, cfg, v: int, src: int, rev_aux):
+    """The fused traversals of phase 3g up to their dispatch, without the
+    fetch: ``name -> callable`` returning device tensors (the runtime's
+    own fused entries, with the inputs its drivers build)."""
+    import torch
+    from repro_torch.core import gluon
+    from repro_torch.core import operators as tops
+    from repro_torch.core.graph import INF
+    out = {}
+    if rev_aux is None:
+        lab = torch.full((v,), int(INF), dtype=torch.int32,
+                         device=mesh.devices[0])
+        lab[src] = 0
+        fr = lab == 0
+        rep = gluon.make_fused_traversal_fn(mesh, cfg, tops.SSSP_RELAX)
+        mir = gluon.make_mirror_round_fn(mesh, cfg, tops.SSSP_RELAX, meta,
+                                         fused=True)
+        out["sssp/replicated"] = lambda: rep(local, lab, fr)
+        out["sssp/mirror"] = lambda: mir(
+            local, lab[None].expand(DIST_PARTS, 1, v),
+            fr[None].expand(DIST_PARTS, 1, v), ())[::2]
+        return out
+    inv_out, sink = rev_aux
+    rank = torch.full((v,), 1.0 / v, dtype=torch.float32,
+                      device=mesh.devices[0])
+    pr = gluon._PageRank(0.85, v)
+    mir = gluon.make_mirror_round_fn(
+        mesh, cfg, tops.PR_PULL, meta, sync_delta=True,
+        values_of=pr.values_of, next_frontier=pr.keep,
+        post_sync=pr.post_sync, global_of=pr.dangling, fused=True,
+        max_rounds=PR_ROUNDS, tol=0.0)
+    fr = torch.ones((DIST_PARTS, 1, v), dtype=torch.bool, device=rank.device)
+    out["pagerank/replicated"] = lambda: gluon._pagerank_replicated_fused(
+        local, mesh, rank, inv_out, sink, 0.85, 0.0, cfg, PR_ROUNDS)
+    out["pagerank/mirror"] = lambda: mir(
+        local, rank[None, None].expand(DIST_PARTS, 1, v), fr,
+        (inv_out, sink))[::2]
+    return out
+
+
+def dist_path(g, sym, src, sources, ref) -> dict:
+    """Phase 3g: the distributed runtime (``core/partition.py``,
+    ``core/gluon.py``, ``core/wire.py``) with DIST_PARTS partitions on
+    one card (``device_mesh(4, devices=["cuda:0"] * 4)``), on phase 3's
+    graph, its symmetrized form and its reverse.  Each cut is partitioned
+    on the card and its stats printed; then sssp and bfs from the hub
+    under every policy, replicated and mirror, host mode (with stats) and
+    fused; sssp_batch (mirror, oec); cc and kcore on sym (mirror);
+    pagerank on the reverse (replicated and mirror, PR_ROUNDS rounds);
+    bfs under each wire codec (mirror, host); one mirror sssp through
+    merge_path.  Labels are held bitwise against phases 3 and 3b
+    (``ref``; pagerank at PR_RTOL_PAIR); rounds equal between host and
+    fused mode; host transfers as the JAX runtime counts them; the
+    static entries' launches on the card equal rounds x bins x 4; every
+    mirror round's logical bytes are ``mirrors_synced x (INDEX_BYTES +
+    B x 4)`` a slot and below the replicated baseline; the codec runs
+    bitwise the identity run and smaller on the wire.  Then zero syncing
+    calls between a fused dispatch and its fetch, medians of 6 walls host
+    / fused for sssp and pagerank, the fused launches' device spans
+    (CUDA events), captures and peak memory.  One cut at a time: each
+    is freed, with its captured programs, before the next."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import gluon, graph_loop
+    from repro_torch.core import wire as twire
+    from repro_torch.core.balancer import BalancerConfig, host_transfer_count
+    from repro_torch.core.collectives import device_mesh
+    from repro_torch.core.partition import partition, partition_stats
+
+    # the programs phases 3d-3f cached on the graphs hold most of the
+    # card's memory in their pools, and no later phase replays them
+    rg = g.reverse()
+    released = sum(graph_loop.release(x) for x in (g, sym, rg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 3g: released the {released} programs earlier phases "
+          f"cached on the graphs; {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB allocated", flush=True)
+    mesh = device_mesh(DIST_PARTS, devices=["cuda:0"] * DIST_PARTS)
+    kern = BalancerConfig(strategy="alb", use_pallas=True)
+    mpath = BalancerConfig(strategy="alb", backend="merge_path")
+    v = g.num_vertices
+    out = {"parts": DIST_PARTS, "partitions": {}, "runs": {},
+           "bytes_per_round": {}, "launches_by_run": {}}
+    ref_of = {"sssp": ref["sssp"], "bfs": ref["bfs"],
+              "sssp_batch": ref["sssp_batch"], "cc": ref["cc"],
+              "kcore": ref["kcore"], "pagerank": ref["pagerank"]}
+    launches = {k: 0 for k in kernels.DEVICE_COUNTED}
+    torch.cuda.reset_peak_memory_stats()
+    graph_loop.set_runs(reset=True)
+    caps0, cap_s0 = graph_loop.captures, graph_loop.capture_seconds
+    seconds, spans = {}, {}
+    outdeg = g.out_degrees()
+
+    def run(cut, name, app, local, meta, cfg, sync, mode, stats):
+        """One distributed run, checked; returns its result tuple."""
+        kw = dict(sync=sync, meta=meta, mode=mode, collect_stats=stats)
+        call = {
+            "sssp": lambda: gluon.sssp_distributed(local, mesh, src, cfg,
+                                                   **kw),
+            "bfs": lambda: gluon.bfs_distributed(local, mesh, src, cfg,
+                                                 **kw),
+            "sssp_batch": lambda: gluon.sssp_batch_distributed(
+                local, mesh, sources, cfg, **kw),
+            "cc": lambda: gluon.cc_distributed(local, mesh, cfg, **kw),
+            "kcore": lambda: gluon.kcore_distributed(local, mesh, KCORE_K,
+                                                     cfg, **kw),
+            "pagerank": lambda: gluon.pagerank_distributed(
+                local, mesh, outdeg, cfg=cfg, max_rounds=PR_ROUNDS,
+                tol=0.0, **kw)}[app]
+        kernels.device_launch_counts(reset=True)
+        t0 = host_transfer_count()
+        res = call()
+        transfers = host_transfer_count() - t0
+        on_card = kernels.device_launch_counts(reset=True)
+        rounds = res[1]
+        key = f"{cut}/{name}"
+        want = dist_launches_needed(cfg, rounds)
+        check(on_card == want, f"{key}: launches on the card {on_card} != "
+              f"{want} for {rounds} rounds")
+        for k in launches:
+            launches[k] += on_card[k]
+        out["launches_by_run"][key] = on_card
+        if app == "pagerank":
+            got = res[0].double().cpu().numpy()
+            exp = ref_of[app].double().cpu().numpy()
+            err = float(np.max(np.abs(got - exp) / exp))
+            check(err <= PR_RTOL_PAIR, f"{key}: ranks != phase 3b: {err}")
+            check(rounds == PR_ROUNDS, f"{key}: rounds {rounds}")
+        else:
+            err = 0.0
+            check(torch.equal(res[0], ref_of[app]), f"{key}: labels != "
+                  f"the single-device run")
+        # host mode: the replicated loop probes its frontier before each
+        # round and once more; the mirror loop and pagerank's residual
+        # check once a round
+        want_t = (0 if mode == "fused" else rounds + 1
+                  if sync == "replicated" and app != "pagerank" else rounds)
+        check(transfers == want_t, f"{key}: host_transfers {transfers} != "
+              f"{want_t}")
+        row = {"rounds": rounds, "host_transfers": transfers,
+               "seconds": res[2], "rel_err": err}
+        if stats:
+            b = res[0].shape[0] if res[0].ndim == 2 else 1
+            synced = [sum(s.bytes_synced for s in r) for r in res[3]]
+            wired = [sum(s.bytes_wire for s in r) for r in res[3]]
+            if sync == "mirror":
+                for r in res[3]:
+                    for s in r:
+                        check(s.bytes_synced == s.mirrors_synced * (
+                            twire.INDEX_BYTES + b * 4),
+                            f"{key}: bytes_synced != mirrors_synced x "
+                            f"(index + payload)")
+                # as the JAX package's tests hold it: every round of a
+                # point traversal below the replicated baseline; over
+                # the run for a full-frontier start (cc, kcore) and the
+                # topology-driven pagerank
+                baseline = b * v * 4 * DIST_PARTS
+                if app in ("cc", "kcore", "pagerank"):
+                    check(sum(synced) < baseline * len(synced),
+                          f"{key}: {sum(synced)} bytes over the run >= "
+                          f"the replicated baseline's "
+                          f"{baseline * len(synced)}")
+                else:
+                    check(all(x < baseline for x in synced),
+                          f"{key}: a round's {max(synced)} bytes >= the "
+                          f"replicated baseline {baseline}")
+                row["peak_round_over_baseline"] = max(synced) / baseline
+            row.update({"bytes_synced": synced, "bytes_wire": wired,
+                        "mirrors_synced": [sum(s.mirrors_synced for s in r)
+                                           for r in res[3]]})
+            out["bytes_per_round"][key] = {"synced": synced,
+                                           "wire": wired}
+        out["runs"][key] = row
+        print(f"phase 3g: {key}: {rounds} rounds, {res[2] * 1e3:.2f} ms, "
+              f"{transfers} host transfers"
+              + (f", bytes a round (synced / wire) {row['bytes_synced']} / "
+                 f"{row['bytes_wire']}" if stats else ""), flush=True)
+        return res
+
+    for cut, gname, pol in DIST_CUTS:
+        base = {"g": g, "sym": sym, "rev": rg}[gname]
+        dispatch = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local, meta = partition(base, DIST_PARTS, pol, mesh=mesh)
+        torch.cuda.synchronize()
+        part_s = time.perf_counter() - t0
+        st = partition_stats(local, meta)
+        st.update({"seconds": part_s, "local_gb": local.nbytes() / 1e9,
+                   "mirror_list_len": int(meta.mirror_idx.shape[-1]),
+                   "total_mirrors": meta.total_mirrors})
+        out["partitions"][cut] = st
+        print(f"phase 3g: partition {cut}: {part_s:.2f} s on the card; "
+              f"edges per partition {st['edges_per_device']}, imbalance "
+              f"{st['imbalance']:.3f}, replication factor "
+              f"{st['replication_factor']:.3f}, mirrors per partition "
+              f"{st['mirrors_per_device']}; local CSR "
+              f"{st['local_gb']:.3f} GB on the card", flush=True)
+        if gname == "g":
+            apps = ("sssp", "bfs")
+            for app in apps:
+                for sync in ("replicated", "mirror"):
+                    h = run(cut, f"{app}/{sync}/host", app, local, meta,
+                            kern, sync, "host", True)
+                    f = run(cut, f"{app}/{sync}/fused", app, local, meta,
+                            kern, sync, "fused", False)
+                    check(h[1] == f[1], f"{cut}/{app}/{sync}: rounds host "
+                          f"{h[1]} != fused {f[1]}")
+            if pol == "oec":
+                for mode in ("host", "fused"):
+                    run(cut, f"sssp_batch/mirror/{mode}", "sssp_batch",
+                        local, meta, kern, "mirror", mode, mode == "host")
+                ident = out["runs"][f"{cut}/bfs/mirror/host"]
+                for codec in DIST_CODECS:
+                    res = run(cut, f"bfs/{codec}/mirror/host", "bfs", local,
+                              meta, dataclasses.replace(kern, wire=codec),
+                              "mirror", "host", True)
+                    row = out["runs"][f"{cut}/bfs/{codec}/mirror/host"]
+                    check(row["bytes_synced"] == ident["bytes_synced"],
+                          f"{codec}: logical bytes != the identity run's")
+                    # quantize narrows every payload word, so each round
+                    # that ships anything ships less; delta adds a base
+                    # word per query and ring step, and bitmap falls back
+                    # to the index list on a sparse step, so a round of a
+                    # few vertices may not shrink (tests/test_wire.py
+                    # holds them per round on a batched workload dense in
+                    # every round): held over the traversal
+                    for r, (lg, wr) in enumerate(zip(row["bytes_synced"],
+                                                     row["bytes_wire"])):
+                        if codec == "quantize" and lg > 0:
+                            check(wr < lg, f"{codec}: round {r} ships {wr} "
+                                  f"bytes on the wire for {lg} logical")
+                    check(sum(row["bytes_wire"]) < sum(row["bytes_synced"]),
+                          f"{codec}: no compression over the traversal")
+                run(cut, "sssp/merge_path/mirror/host", "sssp", local, meta,
+                    mpath, "mirror", "host", True)
+                dispatch = dist_dispatches(local, meta, mesh, kern, v, src,
+                                           None)
+        elif gname == "sym":
+            for app in ("cc", "kcore"):
+                for mode in ("host", "fused"):
+                    run(cut, f"{app}/mirror/{mode}", app, local, meta, kern,
+                        "mirror", mode, mode == "host")
+                check(out["runs"][f"{cut}/{app}/mirror/host"]["rounds"] ==
+                      out["runs"][f"{cut}/{app}/mirror/fused"]["rounds"],
+                      f"{cut}/{app}: rounds host != fused")
+        else:
+            for sync in ("replicated", "mirror"):
+                for mode in ("host", "fused"):
+                    run(cut, f"pagerank/{sync}/{mode}", "pagerank", local,
+                        meta, kern, sync, mode, mode == "host")
+            outdeg_f = outdeg.to(torch.float32)
+            inv_out = torch.where(outdeg_f > 0,
+                                  1.0 / torch.clamp(outdeg_f, min=1.0), 0.0)
+            dispatch = dist_dispatches(local, meta, mesh, kern, v, src,
+                                       (inv_out, outdeg_f == 0))
+            for sync in ("replicated", "mirror"):
+                check(out["runs"][f"{cut}/pagerank/{sync}/host"]["rounds"]
+                      == out["runs"][f"{cut}/pagerank/{sync}/fused"][
+                          "rounds"], f"{cut}/pagerank/{sync}: rounds")
+        if cut in ("g/oec", "rev/oec"):
+            # ---- zero syncing calls between dispatch and fetch ----
+            for name, fn in dispatch.items():
+                fn()                       # captured by the runs above
+                before = graph_loop.captures
+                res = no_syncs(fn)         # raises on any syncing call
+                check(graph_loop.captures == before, f"{name}: captured "
+                      f"again")
+                want = out["runs"][f"{cut}/{name}/fused"]["rounds"]
+                check(int(res[-1]) == want, f"{name}: dispatch rounds")
+            # ---- walls, host / fused in turns, and the fused spans ----
+            app = "pagerank" if gname == "rev" else "sssp"
+            for sync in ("replicated", "mirror"):
+                ms = ("host", "fused")
+                for m in ms:
+                    seconds[f"{app}/{sync}/{m}"] = []
+                for i in range(6):
+                    for m in (ms if i % 2 == 0 else ms[::-1]):
+                        res = {
+                            "sssp": lambda: gluon.sssp_distributed(
+                                local, mesh, src, kern, sync=sync,
+                                meta=meta, mode=m),
+                            "pagerank": lambda: gluon.pagerank_distributed(
+                                local, mesh, outdeg, cfg=kern,
+                                max_rounds=PR_ROUNDS, tol=0.0, sync=sync,
+                                meta=meta, mode=m)}[app]()
+                        seconds[f"{app}/{sync}/{m}"].append(res[2])
+                spans[f"{app}/{sync}"] = float(np.median(
+                    [event_span_ms(dispatch[f"{app}/{sync}"])
+                     for _ in range(6)]))
+        del local, meta, dispatch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    med = {k: float(np.median(x)) for k, x in seconds.items()}
+    busy = {k: spans[k] / (med[f"{k}/fused"] * 1e3) for k in spans}
+    captures = graph_loop.captures - caps0
+    capture_s = graph_loop.capture_seconds - cap_s0
+    decisions = graph_loop.set_runs(reset=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for k in ("twc_bin_relax", "edge_lb_relax", "merge_path_map"):
+        check(launches[k] > 0, f"{k} was not launched by phase 3g")
+    print(f"phase 3g: {len(out['runs'])} runs: labels == phases 3 / 3b "
+          f"(pagerank within rtol {PR_RTOL_PAIR}), rounds host == fused, "
+          f"host_transfers as the JAX runtime counts them (0 fused), "
+          f"mirror bytes == mirrors x (index + B x 4) and below the "
+          f"replicated baseline, codecs bitwise the identity run; "
+          f"launches on the card, each run's == rounds x bins x "
+          f"{DIST_PARTS}: {launches}", flush=True)
+    print(f"phase 3g: rounds {{{', '.join(f'{k}: {r['rounds']}' for k, r in out['runs'].items())}}}", flush=True)
+    print(f"phase 3g: bytes per round (synced / wire) "
+          f"{out['bytes_per_round']}", flush=True)
+    print(f"phase 3g: 0 syncing calls between dispatch and fetch of 4 "
+          f"fused traversals under set_sync_debug_mode('error'); median "
+          f"wall seconds of 6 runs, host / fused in turns: {med}; fused "
+          f"launch device span (CUDA events, median of 6), ms: {spans}; "
+          f"over the median fused wall: {busy}; {captures} graphs "
+          f"captured in {capture_s:.2f} s; {decisions} condition "
+          f"decisions; peak device memory {peak_gb:.2f} GB", flush=True)
+    out.update({"launches": launches, "seconds": seconds, "median_s": med,
+                "fused_span_ms": spans, "fused_busy": busy,
+                "captures": captures, "capture_s": capture_s,
+                "condition_decisions": decisions,
+                "peak_device_gb": peak_gb})
     return out
 
 
@@ -3156,15 +3533,21 @@ def main() -> int:
     res = mp.pop("results")
     pp = pull_path(g, src, sources, res)
     apps, cfgs, sym = pp.pop("apps"), pp.pop("cfgs"), pp.pop("sym")
+    # the single-device labels phase 3g is held against (each held
+    # against scipy / numpy oracles by phases 3 and 3b)
+    ref = {n: r.labels for n, r in res.items()}
+    ref.update(pp.pop("ref_labels"))
     pp["user_operator"] = user_op_path(g, src, res["sssp"].labels)
     del res
     sp = static_path(g, sym, src, sources)
     se, serve_batches = stream_path(g, sym, src)
     sv = serve_path(g, serve_batches, built)
     del serve_batches
+    dp = dist_path(g, sym, src, sources, ref)
+    del ref
     # launches on the main paths: phases 3 and 3b (host entries), 3d
-    # (static entries), and 3e and 3f (host entries in host mode, static
-    # entries in spmd and fused mode)
+    # and 3g (static entries), and 3e and 3f (host entries in host mode,
+    # static entries in spmd and fused mode)
     launches = {k: mp["launches"][k] + pp["launches"][k]
                 for k in GRAPH_KERNELS + ("twc_bin_map", "edge_lb_map")}
     static_launches = dict(sp["launches"])
@@ -3178,11 +3561,16 @@ def main() -> int:
             launches[k] += host_n
             static_launches[k] += static_n
             by_phase[k][ph] = {"host": host_n, "static": static_n}
+    by_phase["merge_path_map"] = {"3b": pp["launches"]["merge_path_map"],
+                                  "3d": sp["launches"]["merge_path_map"]}
+    for k in GRAPH_KERNELS:
+        static_launches[k] += dp["launches"][k]
+        by_phase[k]["3g"] = {"static": dp["launches"][k]}
     rows = time_kernels(g, src, sources, errs, launches)
     rows += time_static_kernels(g, src, static_launches, sp["captured"])
     rows.append(time_graph_loop(
         dev, sp["condition_decisions"] + se["condition_decisions"]
-        + sv["condition_decisions"]))
+        + sv["condition_decisions"] + dp["condition_decisions"]))
     for r in rows:
         if r["name"].split()[0] in by_phase:
             r["launches_by_phase"] = by_phase[r["name"].split()[0]]
@@ -3196,7 +3584,7 @@ def main() -> int:
                  if "unfused_ms" in r else "")
               + f") over {r['timed_launches']} launches of one sssp; "
               f"{r['launches']} launches on its main-path runs (phases "
-              f"3d-3f for a static entry and the condition kernel; by "
+              f"3d-3g for a static entry and the condition kernel; by "
               f"phase {r.get('launches_by_phase')})", flush=True)
         for run, t in r.get("by_run", {}).items():
             print(f"phase 4:   {r['name']} at {run}'s shapes: {t}",
@@ -3215,6 +3603,7 @@ def main() -> int:
     print(json.dumps({"static_path": sp}), flush=True)
     print(json.dumps({"stream_path": se}), flush=True)
     print(json.dumps({"serve_path": sv}), flush=True)
+    print(json.dumps({"dist_path": dp}), flush=True)
 
     # phase 5 needs the card's memory: free the graph phases' tensors
     # (and the programs captured on them)

@@ -67,28 +67,9 @@ from .frontier import (next_bucket, compact, count, dirty_mask,
                        rows_active, union_frontier)
 from .operators import Operator, as_pull
 from .scatter import scatter_combine
+from .wire import validate_wire
 # re-exported here, where ``repro.core.balancer`` defines it
 from .scatter import combine_neutral  # noqa: F401
-
-_WIRE_NAMES = ("identity", "delta", "bitmap")
-_WIRE_NARROW = ("int8", "uint8", "int16", "uint16")
-
-
-def validate_wire(wire: str) -> None:
-    """Config-syntax check of ``BalancerConfig.wire``: ``identity |
-    delta | bitmap | quantize[:<dtype>]`` (the codecs themselves arrive
-    with the distributed slice)."""
-    if wire in _WIRE_NAMES:
-        return
-    base, _, req = wire.partition(":")
-    if base != "quantize":
-        raise ValueError(
-            f"unknown wire codec {wire!r} (expected one of "
-            f"{_WIRE_NAMES + ('quantize',)} or 'quantize:<dtype>')")
-    if req and req not in _WIRE_NARROW:
-        raise ValueError(
-            f"wire codec {wire!r}: {req!r} is not a supported "
-            f"narrow dtype ({sorted(_WIRE_NARROW)})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +90,7 @@ class BalancerConfig:
     pull_alpha: int = 14             # adaptive: pull when m_f*alpha >= E
     pull_beta: int = 24              # adaptive: pull when n_f*beta >= V
     backend: Optional[str] = None    # xla | pallas | merge_path | None
-    wire: str = "identity"           # sync wire codec (syntax only here)
+    wire: str = "identity"           # sync wire codec (core/wire.py)
 
     def __post_init__(self):
         if self.strategy not in ("vertex", "twc", "edge_lb", "alb"):

@@ -49,6 +49,7 @@ decisions the condition kernel took.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import time
@@ -332,15 +333,21 @@ class Program:
         try:
             with torch.cuda.device(dev), torch.cuda.stream(
                     torch.cuda.Stream(dev)):
-                rec.begin()
-                out = fn(*self.inputs)
-                rec.end()
+                try:
+                    rec.begin()
+                    out = fn(*self.inputs)
+                    rec.end()
+                except BaseException:
+                    # close the failed capture on its own stream, and let
+                    # the error that failed it propagate, not this one's
+                    if rec.piece is not None:
+                        with warnings.catch_warnings(), \
+                                contextlib.suppress(RuntimeError):
+                            warnings.simplefilter("ignore")
+                            rec.piece.capture_end()
+                    raise
         finally:
             _REC = None
-            if rec.piece is not None:       # a failed capture: close it
-                with warnings.catch_warnings():
-                    warnings.simplefilter("ignore")
-                    rec.piece.capture_end()
         self.leaves, self.spec = pytree.tree_flatten(out)
         # what the graph reads: the captured pieces' pool, their flags,
         # and ``keep``
@@ -393,6 +400,16 @@ def _free_vars(fn, owner) -> tuple:
         if val is not owner:
             out.append(val)
     return tuple(out)
+
+
+def release(owner) -> int:
+    """Close every program cached on ``owner`` (their pools go back to
+    torch's allocator) and return how many there were; the next
+    :func:`run` on ``owner`` captures anew."""
+    cache = owner.__dict__.pop("_programs", None) or {}
+    for prog in cache.values():
+        prog.close()
+    return len(cache)
 
 
 def run(owner, key, fn, *inputs):

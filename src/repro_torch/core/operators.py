@@ -22,7 +22,7 @@ class Operator:
     uses_weight: bool = True
     #: wire narrowings this operator's combine tolerates exactly,
     #: narrowest-preferred-last (the same declarations as the JAX
-    #: package; the wire codecs arrive with the distributed slice)
+    #: package; ``core.wire``'s quantize codec reads them)
     wire_narrow: tuple = ()
 
 

@@ -772,3 +772,117 @@ def test_cuda_service_matches_standalone_across_updates(cuda_device, mode):
         fn = td.sssp if q.app == "sssp" else td.bfs
         want = fn(graphs[q.version], q.source, cfg).labels.cpu().numpy()
         np.testing.assert_array_equal(q.result, want)
+
+
+def _mesh_pair(cuda_device, scale=12, reverse=False):
+    """A 4-partition mesh on one card and the same partition on a CPU
+    mesh (cut on the card, carried to the CPU slots unchanged)."""
+    from repro_torch.core import graph as tg
+    from repro_torch.core import partition as tp
+    from repro_torch.core.collectives import device_mesh
+    g = tg.rmat(scale, 8, seed=2, device=cuda_device)
+    cut = g.reverse() if reverse else g
+    card = device_mesh(4, devices=[cuda_device] * 4)
+    cpu = device_mesh(4, devices=["cpu"] * 4)
+    local, meta = tp.partition(cut, 4, "oec", mesh=card)
+    local_cpu = tp.LocalGraphs(tg.to_device(x, "cpu") for x in local)
+    return g, (card, local), (cpu, local_cpu), meta
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sync", ["replicated", "mirror"])
+@pytest.mark.parametrize("mode", ["host", "fused"])
+def test_cuda_distributed_sssp_matches_cpu_mesh(cuda_device, sync, mode):
+    """A 4-partition mesh on one card (the kernel pair, each partition's
+    round a replay of its captured program, or the whole traversal one
+    graph launch) against the same mesh on the CPU (the plain
+    versions): labels and rounds equal, host transfers as host mode
+    counts them (0 fused), per-round stats equal in host mode; a second
+    fused call captures nothing."""
+    from repro_torch.core import gluon
+    from repro_torch.core import graph_loop as gl
+    from repro_torch.core.balancer import BalancerConfig, host_transfer_count
+    g, (card, lc), (cpu, lh), meta = _mesh_pair(cuda_device)
+    cfg = BalancerConfig(use_pallas=True, threshold=64)
+    stats = mode == "host"
+    out = {}
+    for name, mesh, local in (("card", card, lc), ("cpu", cpu, lh)):
+        t0 = host_transfer_count()
+        res = gluon.sssp_distributed(local, mesh, 0, cfg, sync=sync,
+                                     meta=meta, mode=mode,
+                                     collect_stats=stats)
+        out[name] = res, host_transfer_count() - t0
+    (rc, tc), (rh, th) = out["card"], out["cpu"]
+    assert torch.equal(rc[0].cpu(), rh[0]) and rc[1] == rh[1] > 0
+    assert tc == th == (0 if mode == "fused" else
+                        rh[1] + (sync == "replicated"))
+    for a, b in zip(rc[3] if stats else (), rh[3] if stats else ()):
+        for x, y in zip(a, b):
+            for f in y._fields:
+                np.testing.assert_array_equal(np.asarray(getattr(x, f)),
+                                              np.asarray(getattr(y, f)),
+                                              err_msg=f)
+    if mode == "fused":
+        before = gl.captures
+        again = gluon.sssp_distributed(lc, card, 0, cfg, sync=sync,
+                                       meta=meta, mode=mode)
+        assert gl.captures == before and torch.equal(again[0], rc[0])
+        assert gl.release(lc) >= 1 and gl.release(lc) == 0
+        third = gluon.sssp_distributed(lc, card, 0, cfg, sync=sync,
+                                       meta=meta, mode=mode)
+        assert gl.captures == before + 1 and torch.equal(third[0], rc[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sync", ["replicated", "mirror"])
+def test_cuda_distributed_pagerank_matches_cpu_mesh(cuda_device, sync):
+    """Pagerank over the partitioned reverse graph on one card, host and
+    fused mode, against the CPU mesh: ranks within FLOAT_ADD_RTOL (the
+    huge bin adds with atomics), rounds equal."""
+    from repro_torch.core import gluon
+    from repro_torch.core.balancer import BalancerConfig
+    g, (card, lc), (cpu, lh), meta = _mesh_pair(cuda_device, reverse=True)
+    cfg = BalancerConfig(use_pallas=True, threshold=64)
+    want = gluon.pagerank_distributed(lh, cpu, g.out_degrees().cpu(),
+                                      cfg=cfg, max_rounds=12, tol=0.0,
+                                      sync=sync, meta=meta)
+    for mode in ("host", "fused"):
+        got = gluon.pagerank_distributed(lc, card, g.out_degrees(), cfg=cfg,
+                                         max_rounds=12, tol=0.0, sync=sync,
+                                         meta=meta, mode=mode)
+        torch.testing.assert_close(got[0].cpu(), want[0],
+                                   rtol=FLOAT_ADD_RTOL, atol=0)
+        assert got[1] == want[1] == 12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op_name", ["SSSP_RELAX", "KCORE_DEC"])
+def test_cuda_replicated_shared_labels_equal_private_copies(cuda_device,
+                                                            op_name):
+    """The four partitions of one card share the replicated label tensor
+    (the kernel pair combines in place into a private copy it makes):
+    a round over the shared tensor equals, bitwise, the round given a
+    private copy per partition, and leaves the shared tensor as it
+    was."""
+    from repro_torch.core import gluon
+    from repro_torch.core.balancer import BalancerConfig, relax_spmd
+    _, (card, lc), _, _ = _mesh_pair(cuda_device)
+    op = getattr(tops, op_name)
+    delta = op.combine == "add"
+    cfg = BalancerConfig(use_pallas=True, threshold=64)
+    v = lc.num_vertices
+    rng = np.random.default_rng(9)
+    labels = torch.from_numpy(rng.integers(0, 1000, (2, v)).astype(
+        np.int32)).to(cuda_device)
+    frontier = torch.from_numpy(rng.random((2, v)) < 0.3).to(cuda_device)
+    keep = labels.clone()
+    shared = gluon.make_round_fn(card, cfg, op, sync_delta=delta)(
+        lc, labels, labels, frontier)
+    assert torch.equal(labels, keep)
+    outs = [relax_spmd(g, labels.clone(), torch.zeros_like(labels)
+                       if delta else labels.clone(), frontier.clone(), cfg,
+                       op) for g in lc]
+    red = outs[0]
+    for o in outs[1:]:
+        red = red + o if delta else torch.minimum(red, o)
+    assert torch.equal(shared, labels + red if delta else red)

@@ -154,7 +154,9 @@ def test_port_imports_neither_jax_nor_repro():
     for rel in ("configs/base.py", "models/layers.py", "models/moe.py",
                 "models/transformer.py", "models/convert.py",
                 "kernels/moe_dispatch.py", "kernels/flash_attention.py",
-                "core/streaming.py", "serve/__init__.py", "serve/engine.py",
+                "core/streaming.py", "core/wire.py", "core/partition.py",
+                "core/collectives.py", "core/gluon.py",
+                "serve/__init__.py", "serve/engine.py",
                 "serve/queue.py", "serve/scheduler.py", "serve/stats.py",
                 "serve/cache.py", "serve/publish.py",
                 "serve/fleet/__init__.py", "serve/fleet/fleet.py",
