@@ -134,8 +134,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    keep more of; median wall times, syncing calls per decode step and
    device profiles of one prefill and one decode step (kernel launches
    of each, and ``moe_plan``'s device time per layer);
-6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
-   limit line again, and last the ``{"ok": true, "device": {...}}`` line.
+6. the training path: deepseek-moe-16b at its published widths and 4
+   of its 28 layers (float32 parameters, gradients and two moments, 16
+   B a parameter: 44.3 GB), random float32 weights from a seeded
+   generator on the card, the synthetic Zipf pipeline (8 x 1024 tokens
+   a step) and the cosine schedule; the first step's plans and loss
+   bitwise and its router gradients within ``TRAIN_ROUTER_RTOL``
+   through ``moe_plan`` (forward launch and hand-written backward)
+   against its plain version under autograd; eight ``make_train_step``
+   steps with launch counts reset just before and read just after
+   (``moe_plan`` 2 x 4 x 8: forward and remat recompute), each step's
+   loss and grad norm (finite, the loss falling), median step seconds,
+   tokens/s, peak memory, syncing calls per step and the device busy
+   share of one step; ``moe_plan``'s forward and backward timed at the
+   training shapes; then ``launch.train`` on the SMOKE config on the
+   card to 6 steps and resumed to 10, the restored state bitwise the
+   saved checkpoint;
+7. a ``{"kernels": [...]}`` line (``moe_plan``'s launches of phases 5
+   and 6, and its training-shape times), the ``nvidia-smi`` name and
+   power limit line again, and last the ``{"ok": true, "device":
+   {...}}`` line.
 
 Imports neither ``jax`` nor the JAX package ``repro``.
 """
@@ -145,8 +163,10 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import warnings
@@ -728,11 +748,13 @@ def count_syncs(fn) -> list:
     def show(message, category, filename, lineno, file=None, line=None):
         if "synchroniz" not in str(message):
             return
-        site = f"{Path(filename).name}:{lineno}"
+        site = f"{'/'.join(Path(filename).parts[-2:])}:{lineno}"
         ours = [f for f in traceback.extract_stack()[:-1]
                 if "repro_torch" in f.filename]
         if ours and Path(ours[-1].filename) != Path(filename):
             site += f" via {Path(ours[-1].filename).name}:{ours[-1].lineno}"
+        elif not ours:                   # e.g. the autograd engine's thread
+            site += f" in thread {threading.current_thread().name}"
         sites.append(site)
 
     with warnings.catch_warnings():
@@ -3392,7 +3414,7 @@ def time_lm_kernels(lm: dict) -> list:
     calls = capture_lm_launches(lm["model"], lm["cfg"], lm["prompts"],
                                 lm["cache"], lm["tok"])
     calls["positions_in_expert"] = [
-        (ph, (MOE._top_k(a[0][0], k["top_k"])[1].reshape(-1),
+        (ph, (ref._top_k(a[0][0], k["top_k"])[1].reshape(-1),
               a[0].shape[-1]), {}) for ph, a, k in calls["moe_plan"]]
     steps = {"prefill": 1, "decode": LM_GEN - 1}
 
@@ -3464,7 +3486,7 @@ def time_lm_kernels(lm: dict) -> list:
                 per_phase[ph]["kernel_route"] = flash_attention.route(
                     q.dtype, q.shape[-1])
             if name == "moe_plan":            # beside the route replaced
-                pie = [((MOE._top_k(a[0][0], k["top_k"])[1].reshape(-1),
+                pie = [((ref._top_k(a[0][0], k["top_k"])[1].reshape(-1),
                          a[0].shape[-1]), {}) for a, k in cs]
                 per_phase[ph].update({
                     "unfused_ms": device_ms(unfused_plan, cs,
@@ -3490,6 +3512,306 @@ def time_lm_kernels(lm: dict) -> list:
             "library_ms": t["library_ms"] if lib is not None else None,
             "by_phase": per_phase})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training path (deepseek-moe-16b at full width, 4 layers)
+# ---------------------------------------------------------------------------
+
+# float32 parameters, gradients and two moments take 16 B a parameter:
+# 28 layers (16.9 B parameters) would need ~270 GB, 4 layers (2.77 B)
+# take 44.3 GB, so the depth is cut to 4 of 28 and the widths are the
+# published ones
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 8
+TRAIN_LR = 3e-4
+# the router gradients of the first step, kernel route (moe_plan and its
+# backward) against the plain route (autograd through moe_plan_ref):
+# the plans and the forward are equal bitwise; the backward's float32
+# roundings differ and the router's bf16 product rounds them, so the
+# gradients agree to this share of their largest magnitude
+TRAIN_ROUTER_RTOL = 1e-2
+
+
+@contextlib.contextmanager
+def record_dispatch_plans(store: list):
+    """Inside the block every ``models.moe.dispatch_plan`` call appends
+    its plan (flat_expert, pos, gate_flat, keep) and its probs to
+    ``store``."""
+    from repro_torch.models import moe as MOE
+    real = MOE.dispatch_plan
+
+    def rec(probs, m, t, **kw):
+        out = real(probs, m, t, **kw)
+        store.append(tuple(a.detach() for a in out[:4]) + (probs.detach(),))
+        return out
+    MOE.dispatch_plan = rec
+    try:
+        yield
+    finally:
+        MOE.dispatch_plan = real
+
+
+def router_grads(params, cfg, batch, use_pallas_dispatch: bool):
+    """(loss, each layer's router gradient, the plans of the forward) of
+    one step's loss through the kernel or the plain route, remat on."""
+    import torch
+    from repro_torch.train.steps import make_loss_fn
+    plans = []
+    with record_dispatch_plans(plans):
+        loss, _ = make_loss_fn(cfg, use_pallas_dispatch=use_pallas_dispatch)(
+            params, batch)
+        grads = torch.autograd.grad(
+            loss, [blk.moe.router for blk in params.layers])
+    return loss.detach(), grads, plans[:cfg.num_layers]
+
+
+def train_path(dev, smoke: bool = False) -> dict:
+    """Phase 6: ``make_train_step`` on deepseek-moe-16b at its published
+    widths and TRAIN_LAYERS layers (``smoke``: its SMOKE config, for a
+    rehearsal on the CPU with the CUDA calls stubbed), random float32
+    weights from a seeded generator on the card, the synthetic Zipf
+    pipeline (8 x 1024 tokens a step) and the cosine schedule."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim import OptConfig, cosine_schedule
+    from repro_torch.checkpoint.ckpt import _flatten_with_paths
+    from repro_torch.models import convert
+    from repro_torch.train.steps import init_train_state, make_train_step
+    full = (get_smoke_config if smoke else get_config)(LM_ARCH)
+    cfg = full if smoke else dataclasses.replace(full,
+                                                 num_layers=TRAIN_LAYERS)
+    batch_n, seq = (2, 32) if smoke else (TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    (params, opt), init_s = timed(lambda: init_train_state(
+        cfg, generator=gen, device=dev))
+    n_params = sum(p.numel() for p in params.parameters())
+    state_gb = 16 * n_params / 1e9
+    data = SyntheticDataset(0, batch_n, seq, cfg.vocab_size)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()}
+               for i in range(TRAIN_STEPS)]
+    m = cfg.moe
+    tokens = batch_n * seq
+    cap = MOE._cap_of(m, tokens)
+    print(f"phase 6: {cfg.name} training: {cfg.num_layers} of "
+          f"{full.num_layers} layers (cut: float32 parameters, gradients "
+          f"and two moments take 16 B a parameter), d_model {cfg.d_model}, "
+          f"{m.num_experts} experts top-{m.top_k} (+{m.num_shared_experts} "
+          f"shared), vocab {cfg.vocab_size}; {n_params} parameters, "
+          f"{state_gb:.2f} GB of parameters, gradients and moments "
+          f"(init {init_s:.1f} s); {TRAIN_STEPS} steps of {batch_n} x {seq} "
+          f"Zipf tokens ({tokens * m.top_k} dispatch slots a layer, cap "
+          f"{cap}, moe_plan cluster {_cluster(tokens * m.top_k)})",
+          flush=True)
+
+    # the first step's plans and router gradients, kernel route against
+    # the plain route (moe_plan_ref under autograd), from the same state
+    lk, gk, pk = router_grads(params, cfg, batches[0], True)
+    lp, gp, pp = router_grads(params, cfg, batches[0], False)
+    check(len(pk) == len(pp) == cfg.num_layers, "plans recorded")
+    for li, (a, b) in enumerate(zip(pk, pp)):
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"layer {li}: the first step's plan (or its probs) differs "
+              f"between moe_plan and its plain version")
+    # slots the ALB rebalance moved off their top-k expert, and kept
+    moved = [int((a[0].reshape(-1, m.top_k)
+                  != ref._top_k(a[4], m.top_k)[1]).sum()) for a in pk]
+    kept = [float(a[3].float().mean()) for a in pk]
+    plan_probs = pk[0][4][None].contiguous()
+    router_err = [float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(gk, gp)]
+    check(torch.equal(lk, lp), "first step's loss: kernel route != plain "
+          "route")
+    check(max(router_err) <= TRAIN_ROUTER_RTOL,
+          f"router gradients, kernel vs plain route: {router_err}")
+    check(all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+              for g in gk), "router gradients finite and non-zero")
+    print(f"phase 6: step 0 through moe_plan and through its plain version: "
+          f"{len(pk)} plans bitwise equal, loss bitwise equal "
+          f"({float(lk):.6f}); slots moved by the ALB rebalance by layer "
+          f"{moved}, kept share {[round(k, 4) for k in kept]}; router "
+          f"gradients max |diff| / "
+          f"max |grad| {[f'{e:.2e}' for e in router_err]} (tolerance "
+          f"{TRAIN_ROUTER_RTOL})", flush=True)
+    del gk, gp, pk, pp
+    compare_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # the counted run: eight steps, launch counts and the peak reset
+    # just before
+    sched = cosine_schedule(TRAIN_LR, max(TRAIN_STEPS // 20, 1), TRAIN_STEPS)
+    step_fn = make_train_step(cfg, OptConfig(lr=sched))
+    metrics, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        (out, wall) = timed(lambda i=i: step_fn(params, opt, batches[i]))
+        params, opt, met = out
+        metrics.append(met)
+        walls.append(wall)
+    launches = kernels.launch_counts()
+    want = 2 * cfg.num_layers * TRAIN_STEPS
+    losses = [float(x["loss"]) for x in metrics]
+    gnorms = [float(x["grad_norm"]) for x in metrics]
+    print(f"phase 6: kernel launches over {TRAIN_STEPS} steps: {launches} "
+          f"(moe_plan expected {want}: forward and remat recompute, "
+          f"{cfg.num_layers} layers); moe_plan by cluster size "
+          f"{ {c: n for c, n in kernels.KERNELS['moe_plan'].launches_by_cluster.items() if n} }",
+          flush=True)
+    check(launches["moe_plan"] == want, f"moe_plan: {launches['moe_plan']} "
+          f"launches in {TRAIN_STEPS} train steps, expected {want}")
+    check(launches["flash_attention"] == 0, "flash_attention in training")
+    for i, (l, g) in enumerate(zip(losses, gnorms)):
+        print(f"phase 6: step {i}: loss {l:.6f} grad norm {g:.6f} wall "
+              f"{walls[i]:.4f} s", flush=True)
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          "train step metrics finite")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(int(opt["step"]) == TRAIN_STEPS, "optimizer step counter")
+    med = float(np.median(walls[1:]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    syncs = count_syncs(lambda: step_fn(params, opt, batches[0]))
+    prof = profile_path({"train_step": lambda: step_fn(params, opt,
+                                                       batches[1])},
+                        {"train_step": med}, label="phase 6")
+    print(f"phase 6: median step {med:.4f} s over steps 1-{TRAIN_STEPS - 1} "
+          f"({tokens / med:.1f} tokens/s; step 0 {walls[0]:.4f} s); peak "
+          f"allocated over the {TRAIN_STEPS} steps {peak:.3f} GB (over init "
+          f"and the route comparison before them {compare_peak:.3f} GB); "
+          f"{len(syncs)} syncing calls in one step {sorted(set(syncs))}; "
+          f"device busy {prof['train_step']['busy_share']}", flush=True)
+
+    # what a checkpoint costs the step loop: the one host copy of the
+    # state that AsyncCheckpointer.submit is given (it copies no numpy
+    # leaf again); the writer's disk time is not taken here
+    host, ckpt_s = timed(lambda: convert.train_state_to_jax_tree(params,
+                                                                 opt))
+    host_gb = sum(a.nbytes for _, a in _flatten_with_paths(host)) / 1e9
+    check(abs(host_gb - state_gb / 4 * 3) / host_gb < 1e-3,
+          f"checkpoint tree {host_gb} GB: parameters, mu and nu expected")
+    del host
+    print(f"phase 6: checkpoint host copy (train_state_to_jax_tree, the "
+          f"step loop's share of a submit) {ckpt_s:.3f} s for {host_gb:.3f} "
+          f"GB ({host_gb / ckpt_s:.3f} GB/s)", flush=True)
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "layers_published": full.num_layers, "params": n_params,
+            "state_gb": state_gb, "init_s": init_s, "tokens_per_step": tokens,
+            "cap": cap, "launches": launches, "losses": losses,
+            "grad_norms": gnorms, "walls_s": walls, "median_step_s": med,
+            "tokens_per_s": tokens / med, "peak_device_gb": peak,
+            "syncs_per_step": len(syncs), "sync_sites": sorted(set(syncs)),
+            "compare_peak_device_gb": compare_peak, "ckpt_host_copy_s":
+            ckpt_s, "ckpt_host_gb": host_gb,
+            "router_grad_err": router_err, "kept_share": kept,
+            "moved_slots": moved, "profile": prof, "plan_call": (plan_probs, {
+                "top_k": m.top_k, "cap": cap, "groups": 1,
+                "adaptive": m.adaptive})}
+
+
+def _cluster(slots: int) -> int:
+    from repro_torch.kernels.moe_plan import cluster_size
+    return cluster_size(slots)
+
+
+def time_train_plan(tp: dict) -> dict:
+    """``moe_plan`` at the training shapes (phase 6's first layer, first
+    batch): the forward launch beside its bound, its plain version and
+    the route it replaced, and the backward (``gate_grad``) beside
+    autograd through the plain version; CUDA events."""
+    import torch
+    from repro_torch.kernels import moe_plan, ref
+    probs, k = tp["plan_call"]
+    calls = [((probs,), k)]
+    ms = device_ms(moe_plan.moe_plan, calls)
+    pms = device_ms(ref.moe_plan_ref, calls, sleep_cycles=20_000_000)
+    ums = device_ms(unfused_plan, calls, sleep_cycles=20_000_000)
+    fe, _, gate, _ = moe_plan.moe_plan(probs, **k)
+    grad = torch.randn_like(gate)
+    bwd_ms = device_ms(moe_plan.gate_grad,
+                       [((probs, fe, grad, k["top_k"]), {})],
+                       sleep_cycles=20_000_000)
+
+    def plain_backward(p, g):
+        p = p.detach().requires_grad_()
+        out = ref.moe_plan_ref(p, **k)[2]
+        return torch.autograd.grad(out, p, g)
+    pbwd_ms = device_ms(plain_backward, [((probs, grad), {})],
+                        sleep_cycles=50_000_000)
+    want = plain_backward(probs, grad)[0]
+    got = moe_plan.gate_grad(probs, fe, grad, k["top_k"])
+    bwd_err = float((got - want).abs().max() / want.abs().max())
+    check(bwd_err <= 1e-6, f"moe_plan backward != autograd through the plain "
+          f"version at the training shapes: {bwd_err}")
+    b, o = plan_work((probs,), k)
+    bms = max(b / HBM_BYTES_PER_S, o / SCALAR_OPS_PER_S) * 1e3
+    out = {"shape": list(probs.shape), "ms": ms, "plain_ms": pms,
+           "unfused_ms": ums, "bound_ms": bms,
+           "bound_by": "bytes" if b / HBM_BYTES_PER_S >= o / SCALAR_OPS_PER_S
+           else "operations", "backward_ms": bwd_ms,
+           "plain_backward_ms": pbwd_ms, "backward_err": bwd_err,
+           "cluster": _cluster(probs.shape[1] * k["top_k"])}
+    print(f"phase 6: moe_plan at the training shapes {out['shape']} top-"
+          f"{k['top_k']} cap {k['cap']} (cluster {out['cluster']}): forward "
+          f"{ms:.4f} ms (bound {bms:.7f} ms by {out['bound_by']}; plain "
+          f"{pms:.4f} ms; the route it replaced {ums:.4f} ms); backward "
+          f"(gate_grad) {bwd_ms:.4f} ms (autograd through the plain version "
+          f"{pbwd_ms:.4f} ms; max |diff| / max |grad| {bwd_err:.2e})",
+          flush=True)
+    return out
+
+
+def trainer_restart(dev) -> dict:
+    """``launch.train.main`` on the SMOKE config on the card, to 6 steps
+    and then resumed to 10 from its checkpoint (in a temporary
+    directory): the state the second run restored equals, bitwise, the
+    checkpoint the first wrote."""
+    import tempfile
+    import torch
+    from repro_torch.launch import train as TR
+    from repro_torch.models import convert
+    seen = {}
+    real = convert.opt_state_from_jax
+
+    def capture(opt_tree, model):
+        opt = real(opt_tree, model)
+        seen["state"] = convert.train_state_to_jax_tree(model, opt)
+        return opt
+    args = ["--arch", LM_ARCH, "--smoke", "--device", str(dev), "--batch",
+            "4", "--seq", "64", "--ckpt-every", "3", "--log-every", "1"]
+    with tempfile.TemporaryDirectory() as d:
+        (loss6, s6) = timed(lambda: TR.main(args + ["--steps", "6",
+                                                    "--ckpt-dir", d]))
+        with np.load(Path(d) / "step_00000005" / "shard_0.npz") as z:
+            saved = {k: z[k] for k in z.files}
+        convert.opt_state_from_jax = capture
+        try:
+            (loss10, s10) = timed(lambda: TR.main(args + ["--steps", "10",
+                                                          "--ckpt-dir", d]))
+        finally:
+            convert.opt_state_from_jax = real
+        steps = sorted(os.listdir(d))
+    from repro_torch.checkpoint.ckpt import _flatten_with_paths
+    restored = dict(_flatten_with_paths(seen["state"]))
+    check(sorted(restored) == sorted(saved), "restored keys")
+    for key, a in saved.items():
+        b = restored[key]
+        check(a.dtype == b.dtype and a.shape == b.shape and
+              a.tobytes() == b.tobytes(), f"trainer restart: {key} restored "
+              f"!= saved")
+    check(np.isfinite(loss6) and np.isfinite(loss10), "trainer losses")
+    print(f"phase 6: launch.train on {dev} (SMOKE config): 6 steps in "
+          f"{s6:.2f} s (loss {loss6:.4f}), resumed from step 5 to 10 in "
+          f"{s10:.2f} s (loss {loss10:.4f}); {len(saved)} leaves restored "
+          f"bitwise as saved; checkpoints kept {steps}", flush=True)
+    return {"loss_6": loss6, "loss_10": loss10, "seconds": [s6, s10],
+            "leaves": len(saved), "checkpoints": steps}
 
 
 def main() -> int:
@@ -3634,6 +3956,22 @@ def main() -> int:
     for k in ("model", "cfg", "prompts", "cache", "tok"):
         lm.pop(k)
     print(json.dumps({"lm_path": lm}), flush=True)
+
+    # phase 6 needs the card's memory too: phase 5's model is gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = train_path(dev)
+    train_plan = time_train_plan(tp)
+    tp.pop("plan_call")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp["trainer"] = trainer_restart(dev)
+    row = lm_rows[0]                      # moe_plan: phases 5 and 6
+    row["launches_by_phase"] = {"5": row["launches"],
+                                "6": tp["launches"]["moe_plan"]}
+    row["launches"] += tp["launches"]["moe_plan"]
+    row["train"] = train_plan
+    print(json.dumps({"train_path": tp}), flush=True)
     print(json.dumps({"kernels": rows + lm_rows}), flush=True)
     print(card, flush=True)              # as nvidia-smi prints it
     print(json.dumps({"ok": True, "device": {

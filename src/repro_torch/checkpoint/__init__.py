@@ -1,0 +1,5 @@
+from .ckpt import save_checkpoint, restore_checkpoint, latest_step, \
+    AsyncCheckpointer
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
+           "AsyncCheckpointer"]

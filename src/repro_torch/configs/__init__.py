@@ -2,7 +2,7 @@
 ``get_smoke_config(arch)`` for the architectures whose model family the
 port runs (``dense`` and ``moe``, GQA attention).  The others stay in
 the JAX package's registry until their family is ported (ROADMAP.md,
-Queue 1 item 11); asking for one raises a ``KeyError`` that says so.
+Queue 1 item 10); asking for one raises a ``KeyError`` that says so.
 """
 from .base import (ModelConfig, MoEConfig, MLAConfig, SSMConfig,
                    ShapeConfig, SHAPES, shape_by_name, applicable_shapes)
@@ -21,7 +21,7 @@ def _module(arch: str):
     if arch not in _MODULES:
         raise KeyError(f"{arch!r} is not ported to repro_torch yet (ported: "
                        f"{', '.join(ARCH_IDS)}); see ROADMAP.md, Queue 1 "
-                       f"item 11")
+                       f"item 10")
     return _MODULES[arch]
 
 

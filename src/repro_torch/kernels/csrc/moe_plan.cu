@@ -8,7 +8,7 @@
 // tokens over E experts (probs: float32 [G, Tg, E]) and each token t:
 //
 //   1. top-k: the K largest probabilities, ties to the lower index (the
-//      stable descending sort of models/moe.py _top_k: a NaN first,
+//      stable descending sort of kernels/ref.py _top_k: a NaN first,
 //      +0.0 and -0.0 equal);
 //   2. gates: value / clamp(sum, min=1e-9), the sum added left to right
 //      over k (_row_sum), the clamp passing NaN on as torch.clamp does,

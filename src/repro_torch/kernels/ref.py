@@ -157,6 +157,55 @@ def positions_in_expert_ref(flat_expert, num_experts: int):
     return torch.where(valid, got, 0)
 
 
+def _top_k(probs, k: int):
+    """``lax.top_k``: the k largest along the last axis, ties broken
+    towards the lower index (a stable descending sort; ``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+def _row_sum(x):
+    """Sum over the last axis, left to right, as XLA reduces the k gate
+    values: the normalized gates then equal JAX's bitwise."""
+    s = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        s = s + x[..., i]
+    return s
+
+
+def _rebalance(probs, top_k: int, cap: int, flat_e, pos, gate):
+    """The ALB executor, per group (``probs [G, Tg, E]``; the rest
+    ``[G, Tg*K]``): deal the overflow slots (``pos >= cap``) in order
+    over the free capacity of all experts by exclusive prefix sum +
+    searchsorted (side right: where experts have no free slot, the
+    repeated ``start`` values resolve to the last of them).  Rerouted
+    slots take the router's probability of the expert they land on.
+    Identity when nothing overflows."""
+    g, _, e = probs.shape
+    overflow = pos >= cap
+    kept1 = (~overflow).to(torch.int32)
+    load = torch.zeros((g, e), dtype=torch.int32, device=pos.device) \
+        .scatter_add_(1, flat_e.long(), kept1)
+    free = cap - load                                     # >= 0
+    start = torch.cumsum(free, 1, dtype=torch.int32) - free   # exclusive
+    total_free = free.sum(1, keepdim=True, dtype=torch.int32)
+    ovf_rank = torch.cumsum(overflow.to(torch.int32), 1,
+                            dtype=torch.int32) - 1
+    j = torch.searchsorted(start, ovf_rank, right=True, out_int32=True) - 1
+    j = torch.clamp(j, 0, e - 1)
+    jl = j.long()
+    fits = overflow & (ovf_rank < total_free)
+    new_e = torch.where(fits, j, flat_e)
+    new_pos = torch.where(fits, load.gather(1, jl) + (ovf_rank -
+                                                      start.gather(1, jl)),
+                          pos)
+    grp = torch.arange(g, device=pos.device)[:, None]
+    tok = torch.arange(flat_e.shape[1], device=pos.device) // top_k
+    new_gate = torch.where(fits, probs[grp, tok, jl].to(gate.dtype), gate)
+    return new_e, new_pos, new_gate
+
+
 def moe_plan_ref(probs, *, top_k: int, cap: int, groups: int,
                  adaptive: bool, positions=positions_in_expert_ref):
     """Oracle for moe_plan.moe_plan: the dispatch plan of each of
@@ -164,10 +213,9 @@ def moe_plan_ref(probs, *, top_k: int, cap: int, groups: int,
     ``(flat_expert, pos, gate_flat, keep)``, each ``[G, Tg*K]``: the
     stable top-k, the gates over their left-to-right sum (clamped at
     1e-9), the arrival ranks (``positions``, one call per group), the
-    ALB rebalance when ``adaptive``, then ``keep = pos < cap``.  The
-    math is ``models.moe``'s ``_top_k``, ``_row_sum`` and ``_rebalance``:
-    one copy of it."""
-    from repro_torch.models.moe import _rebalance, _row_sum, _top_k
+    ALB rebalance when ``adaptive``, then ``keep = pos < cap``: the
+    math of ``_top_k``, ``_row_sum`` and ``_rebalance``, which
+    ``models.moe`` shares."""
     g, tg, e = probs.shape
     if g != groups:
         raise ValueError(f"moe_plan_ref: probs has {g} groups, not "

@@ -1,13 +1,28 @@
-"""Carry the JAX package's LM parameters into the port's modules.
+"""Carry LM parameters and optimizer state between the JAX package's
+trees and the port's modules.
 
-``params_from_jax(tree, cfg)`` takes the output of
-``repro.models.transformer.init`` as numpy (any nested dict of arrays;
-the caller converts, this module imports no JAX), unstacks the
-``[L, ...]`` layer leaves and casts every matrix to bf16 once, at load,
-with round-to-nearest-even as XLA's ``astype`` does, so the port
-multiplies by exactly the bf16 values JAX computes with.  Norm gains
-stay float32.  Every leaf of the tree must find its parameter and every
-parameter its leaf, with the same shape.
+JAX keeps a model as a nested dict whose layer leaves are stacked
+``[L, ...]`` (``repro.models.transformer.init``), and its optimizer
+state as ``{"mu": tree, "nu": tree, "step": int32, "master"?: tree}``
+(``repro.optim.adamw``).  The port keeps one ``Block`` per layer and an
+optimizer state keyed by parameter name (``optim.adamw``).  This module
+maps one to the other by name (``layers.3.moe.w_up`` is row 3 of the
+leaf ``layers/moe/w_up``); it imports no JAX: the caller passes numpy.
+
+* :func:`params_from_jax` / :func:`load_jax_tree` -- a params tree into a
+  ``Transformer``, each leaf cast to its parameter's dtype (float32 ->
+  bf16 rounds to nearest even, as XLA's ``astype``), so the serving
+  path multiplies by exactly the bf16 values JAX computes with, and a
+  float32 train state loads as float32 (``param_dtype``);
+* :func:`opt_state_from_jax` -- an optimizer state into the port's;
+* :func:`train_state_to_jax_tree` -- the reverse, as numpy (bf16 as its
+  16-bit pattern, ``core.host``), each tensor copied once into its row
+  of a stacked leaf: the checkpoint's tree; or, with ``shapes_only``,
+  the same tree of ``meta`` tensors, a restore template that holds no
+  memory.
+
+Every leaf must find its parameter and every parameter its leaf, with
+the same shape.
 """
 from __future__ import annotations
 
@@ -15,6 +30,8 @@ import numpy as np
 import torch
 
 from ..core.graph import resolve_device
+from ..core.host import from_host, host_dtype, host_tensor, to_host
+from .layers import COMPUTE_DTYPE
 from .transformer import Transformer
 
 
@@ -35,35 +52,116 @@ def _jax_path(name: str):
     return tuple(parts), None
 
 
-def load_jax_tree(module, tree):
-    """Fill ``module``'s parameters from the JAX tree ``tree`` (numpy
-    leaves), matched by name (``layers.<i>.<path>`` reads row ``i`` of
-    the stacked leaf ``layers/<path>``), each cast to the parameter's
-    dtype.  Returns ``module``."""
+def _by_name(named: dict, tree, what: str) -> dict:
+    """``{name: numpy leaf (row)}`` for every name of ``named`` from the
+    JAX tree ``tree``, shapes checked, no leaf left over."""
     leaves = {path: np.asarray(a) for path, a in _leaves(tree)}
-    used = set()
-    for name, param in module.named_parameters():
+    out, used = {}, set()
+    for name, ref in named.items():
         path, li = _jax_path(name)
         if path not in leaves:
-            raise KeyError(f"load_jax_tree: no leaf {'/'.join(path)} for "
-                           f"{name}")
+            raise KeyError(f"{what}: no leaf {'/'.join(path)} for {name}")
         arr = leaves[path] if li is None else leaves[path][li]
-        if tuple(arr.shape) != tuple(param.shape):
-            raise ValueError(f"load_jax_tree: {name} is "
-                             f"{tuple(param.shape)}, the leaf "
-                             f"{'/'.join(path)} gives {tuple(arr.shape)}")
-        src = torch.from_numpy(np.array(arr, np.float32))
-        with torch.no_grad():
-            param.copy_(src.to(param.dtype))   # float32 -> bf16: RNE
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{what}: {name} is {tuple(ref.shape)}, the "
+                             f"leaf {'/'.join(path)} gives "
+                             f"{tuple(arr.shape)}")
+        out[name] = arr
         used.add(path)
     unused = sorted("/".join(p) for p in leaves if p not in used)
     if unused:
-        raise KeyError(f"load_jax_tree: leaves with no parameter: {unused}")
+        raise KeyError(f"{what}: leaves with no parameter: {unused}")
+    return out
+
+
+def load_jax_tree(module, tree):
+    """Fill ``module``'s parameters from the JAX tree ``tree`` (numpy
+    leaves), matched by name, each cast to the parameter's dtype.
+    Returns ``module``."""
+    named = dict(module.named_parameters())
+    for name, arr in _by_name(named, tree, "load_jax_tree").items():
+        param = named[name]
+        with torch.no_grad():
+            param.copy_(host_tensor(arr))
     return module
 
 
-def params_from_jax(tree, cfg, device=None) -> Transformer:
+def params_from_jax(tree, cfg, device=None, *,
+                    param_dtype: torch.dtype = COMPUTE_DTYPE) -> Transformer:
     """A ``Transformer`` on ``device`` (cuda unless the caller names
-    another) holding the parameters of the JAX tree ``tree``."""
-    return load_jax_tree(Transformer(cfg, device=resolve_device(device)),
-                         tree)
+    another) holding the parameters of the JAX tree ``tree``: matrices
+    of ``param_dtype`` (bf16 to serve, float32 to train), gains
+    float32.  The parameters take no gradient until the caller asks
+    (``model.requires_grad_()``)."""
+    model = Transformer(cfg, device=resolve_device(device),
+                        dtype=param_dtype)
+    return load_jax_tree(model, tree)
+
+
+def opt_state_from_jax(opt_tree, model) -> dict:
+    """JAX's AdamW state (numpy leaves) as the port's, on ``model``'s
+    device: ``mu``, ``nu`` and ``master`` (when present) float32 by
+    parameter name, ``step`` an int32 scalar."""
+    named = dict(model.named_parameters())
+    dev = next(iter(named.values())).device
+    state = {}
+    for part in ("mu", "nu", "master"):
+        if part in opt_tree:
+            rows = _by_name(named, opt_tree[part], f"opt/{part}")
+            state[part] = {n: from_host(a, torch.float32, dev)
+                           for n, a in rows.items()}
+    state["step"] = torch.tensor(int(np.asarray(opt_tree["step"])),
+                                 dtype=torch.int32, device=dev)
+    return state
+
+
+def jax_tree(named: dict, *, shapes_only: bool = False) -> dict:
+    """``{name: tensor}`` as JAX's nested dict of numpy leaves, the
+    per-layer tensors stacked into ``[L, ...]``: each leaf allocated
+    once on the host and each tensor copied once into it.  With
+    ``shapes_only`` the leaves are ``meta`` tensors of those shapes and
+    dtypes, and nothing is copied."""
+    rows: dict = {}
+    for name, t in named.items():
+        path, li = _jax_path(name)
+        rows.setdefault(path, {})[li] = t
+    tree: dict = {}
+    for path, by_layer in rows.items():
+        t0 = next(iter(by_layer.values()))
+        if None in by_layer:
+            shape = tuple(t0.shape)
+        elif sorted(by_layer) == list(range(len(by_layer))):
+            shape = (len(by_layer), *t0.shape)
+        else:
+            raise KeyError(f"jax_tree: {'/'.join(path)} has the layer rows "
+                           f"{sorted(by_layer)}")
+        if shapes_only:
+            leaf = torch.empty(shape, dtype=t0.dtype, device="meta")
+        else:
+            leaf = np.empty(shape, dtype=host_dtype(t0.dtype))
+            rows_of = host_tensor(leaf)           # a view: fills ``leaf``
+            for li, t in by_layer.items():
+                (rows_of if li is None else rows_of[li]).copy_(t.detach())
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def train_state_to_jax_tree(model, opt_state: dict | None = None, *,
+                            shapes_only: bool = False) -> dict:
+    """``{"params": tree, "opt": {"mu", "nu", "step", "master"?}}`` in
+    JAX's layout, as numpy copies on the host (``opt`` only when
+    ``opt_state`` is given); with ``shapes_only``, as ``meta`` tensors
+    (:func:`jax_tree`), the template a restore needs."""
+    out = {"params": jax_tree(dict(model.named_parameters()),
+                              shapes_only=shapes_only)}
+    if opt_state is not None:
+        opt = {part: jax_tree(opt_state[part], shapes_only=shapes_only)
+               for part in ("mu", "nu", "master") if part in opt_state}
+        step = opt_state["step"]
+        opt["step"] = (torch.empty_like(step, device="meta") if shapes_only
+                       else to_host(step))
+        out["opt"] = opt
+    return out

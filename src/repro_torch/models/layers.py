@@ -4,10 +4,12 @@ and the SwiGLU/GELU MLP, in PyTorch, with a KV cache.
 Port of ``repro/models/layers.py`` (GQA and MLP; MLA is not ported
 yet).  Conventions, as in the JAX package:
 
-* matrices are stored in bf16 (``COMPUTE_DTYPE``): JAX keeps float32
-  masters and casts each to bf16 at every product, so the port casts
-  once, at load or init, and multiplies by the same values; norm gains
-  stay float32;
+* every matrix is cast to bf16 (``COMPUTE_DTYPE``) at each product, as
+  JAX casts its float32 parameters: the serving path stores its
+  matrices in bf16 already (cast once, at load or init, so the cast at
+  use is a no-op), training stores them in float32 (``param_dtype``)
+  and the cast is where the gradient turns float32; norm gains stay
+  float32;
 * normalization, RoPE and the softmax run in float32;
 * the cache is updated in place (JAX returns a new one): the decode
   loop then moves no cache bytes.
@@ -35,30 +37,38 @@ COMPUTE_DTYPE = torch.bfloat16
 ATTN_IMPLS = ("flash", "chunked", "plain")
 
 
-def _dense_init(shape, generator, device, scale=None) -> torch.Tensor:
+def _dense_init(shape, generator, device, scale=None,
+                dtype=COMPUTE_DTYPE) -> torch.Tensor:
     """``normal * (scale or 1/sqrt(shape[0]))`` drawn in float32 and
-    cast to bf16 once (``layers._dense_init``; note fan-in is
+    cast to ``dtype`` once (``layers._dense_init``; note fan-in is
     ``shape[0]``, also for the stacked ``[E, d, f]`` expert weights)."""
     scale = scale or 1.0 / math.sqrt(shape[0])
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32) * scale
-    return w.to(COMPUTE_DTYPE)
+    return w.to(dtype)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def _matrix(shape, generator, device, scale=None) -> nn.Parameter:
-    """A bf16 weight: drawn by ``_dense_init`` from ``generator``, or
-    left uninitialized (to be loaded) when ``generator`` is None."""
+def _matrix(shape, generator, device, scale=None, *,
+            dtype=COMPUTE_DTYPE) -> nn.Parameter:
+    """A weight of ``dtype`` (bf16 to serve, float32 to train): drawn by
+    ``_dense_init`` from ``generator``, or left uninitialized (to be
+    loaded) when ``generator`` is None."""
     if generator is None:
-        return _param(torch.empty(shape, dtype=COMPUTE_DTYPE, device=device))
-    return _param(_dense_init(shape, generator, device, scale))
+        return _param(torch.empty(shape, dtype=dtype, device=device))
+    return _param(_dense_init(shape, generator, device, scale, dtype))
 
 
 def _zeros_gain(n: int, device) -> nn.Parameter:
     return _param(torch.zeros((n,), dtype=torch.float32, device=device))
+
+
+def _c(w: torch.Tensor) -> torch.Tensor:
+    """``w`` in the compute dtype (a no-op for bf16 weights)."""
+    return w.to(COMPUTE_DTYPE)
 
 
 # ---------------------------------------------------------------------------
@@ -181,10 +191,11 @@ def attention(q, k, v, *, impl: str = "chunked", **kw):
 
 class GQA(nn.Module):
     """Grouped-query attention (``layers.gqa_init`` / ``gqa_apply``):
-    ``wq [d, H*hd]``, ``wk``/``wv [d, Hkv*hd]``, ``wo [H*hd, d]`` in
-    bf16, and zero biases when ``cfg.qkv_bias``."""
+    ``wq [d, H*hd]``, ``wk``/``wv [d, Hkv*hd]``, ``wo [H*hd, d]`` of
+    ``dtype``, and zero biases when ``cfg.qkv_bias``."""
 
-    def __init__(self, cfg, *, generator=None, device=None):
+    def __init__(self, cfg, *, generator=None, device=None,
+                 dtype=COMPUTE_DTYPE):
         super().__init__()
         self.cfg = cfg
         d, h, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
@@ -192,12 +203,13 @@ class GQA(nn.Module):
         shapes = {"wq": (d, h * hd), "wk": (d, hkv * hd),
                   "wv": (d, hkv * hd), "wo": (h * hd, d)}
         for name, shape in shapes.items():
-            setattr(self, name, _matrix(shape, generator, device))
+            setattr(self, name, _matrix(shape, generator, device,
+                                        dtype=dtype))
         if cfg.qkv_bias:
             for name, n in (("bq", h * hd), ("bk", hkv * hd),
                             ("bv", hkv * hd)):
                 setattr(self, name, _param(torch.zeros(
-                    (n,), dtype=COMPUTE_DTYPE, device=device)))
+                    (n,), dtype=dtype, device=device)))
 
     def forward(self, x, *, positions, cache=None, cache_index=None,
                 attn_chunk: int = 1024, attn_impl: str = "flash"):
@@ -215,11 +227,11 @@ def gqa_apply(p, x, cfg, *, positions, cache=None, cache_index=None,
     b, s, d = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     xc = x.to(COMPUTE_DTYPE)
-    q = xc @ p.wq
-    k = xc @ p.wk
-    v = xc @ p.wv
+    q = xc @ _c(p.wq)
+    k = xc @ _c(p.wk)
+    v = xc @ _c(p.wv)
     if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
+        q, k, v = q + _c(p.bq), k + _c(p.bk), v + _c(p.bv)
     q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
     k = apply_rope(k.reshape(b, s, hkv, hd), positions, cfg.rope_theta)
     v = v.reshape(b, s, hkv, hd)
@@ -245,7 +257,7 @@ def gqa_apply(p, x, cfg, *, positions, cache=None, cache_index=None,
             out = attention(q, cache["k"], cache["v"], impl=torch_impl,
                             causal=True, q_offset=ci, kv_len=ci + s,
                             chunk=attn_chunk)
-    out = out.reshape(b, s, h * hd) @ p.wo
+    out = out.reshape(b, s, h * hd) @ _c(p.wo)
     return out.to(x.dtype), cache
 
 
@@ -262,17 +274,18 @@ def gqa_cache_shape(cfg, batch, max_len, dtype=COMPUTE_DTYPE):
 
 class MLP(nn.Module):
     """SwiGLU (``act="silu"``: ``w_gate``, ``w_up``, ``w_down``) or GELU
-    MLP (``layers.mlp_init`` / ``mlp_apply``), bf16 weights."""
+    MLP (``layers.mlp_init`` / ``mlp_apply``), weights of ``dtype``."""
 
     def __init__(self, d_model: int, d_ff: int, act: str, *, generator=None,
-                 device=None):
+                 device=None, dtype=COMPUTE_DTYPE):
         super().__init__()
         self.act = act
         shapes = {"w_up": (d_model, d_ff), "w_down": (d_ff, d_model)}
         if act == "silu":
             shapes["w_gate"] = (d_model, d_ff)
         for name, shape in shapes.items():
-            setattr(self, name, _matrix(shape, generator, device))
+            setattr(self, name, _matrix(shape, generator, device,
+                                        dtype=dtype))
 
     def forward(self, x):
         return mlp_apply(self, x, self.act)
@@ -280,9 +293,9 @@ class MLP(nn.Module):
 
 def mlp_apply(p, x, act: str):
     xc = x.to(COMPUTE_DTYPE)
-    up = xc @ p.w_up
+    up = xc @ _c(p.w_up)
     if act == "silu":
-        hidden = F.silu(xc @ p.w_gate) * up
+        hidden = F.silu(xc @ _c(p.w_gate)) * up
     else:
-        hidden = F.gelu(up)
-    return (hidden @ p.w_down).to(x.dtype)
+        hidden = F.gelu(up, approximate="tanh")    # jax.nn.gelu's default
+    return (hidden @ _c(p.w_down)).to(x.dtype)

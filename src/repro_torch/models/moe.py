@@ -23,6 +23,11 @@ plain version on CPU tensors); ``False`` runs the plain version
 ``kernels.ref.moe_plan_ref``, whose ranks are the one-hot cumsum.
 Grouped dispatch plans every group in that one launch.  The expert FFNs
 are plain batched matrix products.
+
+``moe_apply`` is differentiable end to end: the gradient reaches the
+router through the gates (``moe_plan``'s backward, or autograd through
+the plain version) and the Switch aux loss, and reaches the experts,
+the shared MLP and ``x``.  The plan itself is integer and takes none.
 """
 from __future__ import annotations
 
@@ -32,15 +37,16 @@ from torch import nn
 
 from ..kernels.moe_plan import moe_plan
 from ..kernels.ref import moe_plan_ref, positions_in_expert_ref
-from .layers import COMPUTE_DTYPE, MLP, _matrix
+from .layers import COMPUTE_DTYPE, MLP, _c, _matrix
 
 
 class MoE(nn.Module):
     """``router [d, E]``; stacked expert FFNs ``w_gate``/``w_up [E, d,
     f]``, ``w_down [E, f, d]``; an optional shared SwiGLU MLP of width
-    ``f * num_shared_experts`` (``moe.moe_init``).  All bf16."""
+    ``f * num_shared_experts`` (``moe.moe_init``).  All of ``dtype``."""
 
-    def __init__(self, cfg, *, generator=None, device=None):
+    def __init__(self, cfg, *, generator=None, device=None,
+                 dtype=COMPUTE_DTYPE):
         super().__init__()
         self.cfg = cfg
         m, d = cfg.moe, cfg.d_model
@@ -49,9 +55,10 @@ class MoE(nn.Module):
                   "w_up": (m.num_experts, d, m.d_expert),
                   "w_down": (m.num_experts, m.d_expert, d)}
         for name, shape in shapes.items():
-            setattr(self, name, _matrix(shape, generator, device))
+            setattr(self, name, _matrix(shape, generator, device,
+                                        dtype=dtype))
         self.shared = (MLP(d, m.d_expert * m.num_shared_experts, "silu",
-                           generator=generator, device=device)
+                           generator=generator, device=device, dtype=dtype)
                        if m.num_shared_experts else None)
 
     def forward(self, x, *, use_pallas_dispatch: bool = False):
@@ -63,23 +70,6 @@ def _positions_in_expert(expert_of, num_experts):
     """pos[i] = rank of assignment i within its expert (arrival order):
     the one-hot cumsum, the plain version of the kernel."""
     return positions_in_expert_ref(expert_of, num_experts)
-
-
-def _top_k(probs, k: int):
-    """``lax.top_k``: the k largest along the last axis, ties broken
-    towards the lower index (a stable descending sort; ``torch.topk``
-    promises no order among ties)."""
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k].to(torch.int32)
-
-
-def _row_sum(x):
-    """Sum over the last axis, left to right, as XLA reduces the k gate
-    values: the normalized gates then equal JAX's bitwise."""
-    s = x[..., 0]
-    for i in range(1, x.shape[-1]):
-        s = s + x[..., i]
-    return s
 
 
 def dispatch_plan(probs, m, t, *, use_pallas_dispatch: bool = False):
@@ -95,42 +85,10 @@ def dispatch_plan(probs, m, t, *, use_pallas_dispatch: bool = False):
     return flat_expert[0], pos[0], gate_flat[0], keep[0], cap
 
 
-def _rebalance(probs, top_k: int, cap: int, flat_e, pos, gate):
-    """The ALB executor, per group (``probs [G, Tg, E]``; the rest
-    ``[G, Tg*K]``): deal the overflow slots (``pos >= cap``) in order
-    over the free capacity of all experts by exclusive prefix sum +
-    searchsorted (side right: where experts have no free slot, the
-    repeated ``start`` values resolve to the last of them).  Rerouted
-    slots take the router's probability of the expert they land on.
-    Identity when nothing overflows."""
-    g, _, e = probs.shape
-    overflow = pos >= cap
-    kept1 = (~overflow).to(torch.int32)
-    load = torch.zeros((g, e), dtype=torch.int32, device=pos.device) \
-        .scatter_add_(1, flat_e.long(), kept1)
-    free = cap - load                                     # >= 0
-    start = torch.cumsum(free, 1, dtype=torch.int32) - free   # exclusive
-    total_free = free.sum(1, keepdim=True, dtype=torch.int32)
-    ovf_rank = torch.cumsum(overflow.to(torch.int32), 1,
-                            dtype=torch.int32) - 1
-    j = torch.searchsorted(start, ovf_rank, right=True, out_int32=True) - 1
-    j = torch.clamp(j, 0, e - 1)
-    jl = j.long()
-    fits = overflow & (ovf_rank < total_free)
-    new_e = torch.where(fits, j, flat_e)
-    new_pos = torch.where(fits, load.gather(1, jl) + (ovf_rank -
-                                                      start.gather(1, jl)),
-                          pos)
-    grp = torch.arange(g, device=pos.device)[:, None]
-    tok = torch.arange(flat_e.shape[1], device=pos.device) // top_k
-    new_gate = torch.where(fits, probs[grp, tok, jl].to(gate.dtype), gate)
-    return new_e, new_pos, new_gate
-
-
 def router_probs(p, xf):
     """Softmax of the router logits in float32: ``xf [T, d]`` (bf16)
     -> ``[T, E]``."""
-    logits = (xf @ p.router).float()
+    logits = (xf @ _c(p.router)).float()
     return torch.softmax(logits, dim=-1)
 
 
@@ -188,9 +146,9 @@ def moe_apply(p, x, cfg, *, use_pallas_dispatch: bool = False):
     buf = buf[:scratch].view(g, e, cap, d)
 
     # ---- expert FFNs: batched over experts -------------------------------
-    gate = F.silu(torch.matmul(buf, p.w_gate))
-    up = torch.matmul(buf, p.w_up)
-    eout = torch.matmul(gate * up, p.w_down)              # [G, E, C, D]
+    gate = F.silu(torch.matmul(buf, _c(p.w_gate)))
+    up = torch.matmul(buf, _c(p.w_up))
+    eout = torch.matmul(gate * up, _c(p.w_down))          # [G, E, C, D]
 
     # ---- combine: gather expert outputs back to token slots ---------------
     pos_c = torch.where(keep, pos, 0)

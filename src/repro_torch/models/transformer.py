@@ -1,37 +1,49 @@
-"""Decoder-only LM of the port: the serving path (init -> prefill ->
-decode_step) of the ``dense`` and ``moe`` families with GQA attention.
+"""Decoder-only LM of the port: the training forward and the serving
+path (init -> prefill -> decode_step) of the ``dense`` and ``moe``
+families with GQA attention.
 
 Port of ``repro/models/transformer.py``.  The JAX package stacks each
 layer's parameters as ``[L, ...]`` leaves under ``lax.scan``; the port
 keeps one ``Block`` module per layer in a ``ModuleList`` and loops over
 them (``models.convert.params_from_jax`` unstacks a JAX tree).  Not
-ported yet (ROADMAP.md, Queue 1 item 11): the ``ssm`` and ``hybrid``
-families, MLA attention, multi-codebook heads, ``prefix_emb`` and the
-training ``forward``; asking for one raises ``NotImplementedError``.
+ported yet (ROADMAP.md, Queue 1 item 10): the ``ssm`` and ``hybrid``
+families, MLA attention, multi-codebook heads and ``prefix_emb``;
+asking for one raises ``NotImplementedError``.
 
 Entry points:
 
-* ``init(cfg, *, generator, device)``          -> ``Transformer``
+* ``init(cfg, *, generator, device, param_dtype)`` -> ``Transformer``
+* ``forward(params, cfg, tokens, *, remat)``   -> (logits, aux)  (training)
 * ``init_cache(cfg, batch, max_len)``          -> shapes and dtypes
 * ``zeros_cache(cfg, batch, max_len, device)`` -> cache
 * ``prefill(params, cfg, tokens, cache)``      -> (logits, cache)
 * ``decode_step(params, cfg, token, cache)``   -> (logits, cache)
+
+Parameters are made frozen.  Serving keeps bf16 matrices (``init``'s
+default); training asks for ``param_dtype=torch.float32``, JAX's float32
+parameters, cast to bf16 at each use, and turns their gradients on
+(``train.steps.init_train_state``).
+JAX's ``forward`` also takes ``shard_fn`` and ``unroll``, its pjit
+sharding hook and its HLO-cost switch: they come back with the port of
+``launch/sharding`` and ``launch/dryrun``, and the port has neither.
 
 The cache is ``{"kv": {"k": [L, B, Smax, Hkv, hd], "v": ...}, "index":
 int}``: the KV tensors are updated in place and the index is a host
 int, so a decode step needs no device-to-host sync.  The residual
 stream is bf16 (``_embed`` casts, as in JAX); logits are float32.
 
-On the serving path ``use_pallas_dispatch=True`` (the default) computes
-every MoE layer's arrival ranks with the hand-written kernel
-``positions_in_expert``, and ``attn_impl="flash"`` (the default) runs
-prefill attention through the hand-written kernel ``flash_attention``;
-on CPU tensors both wrappers compute their plain versions.
+``use_pallas_dispatch=True`` (the default, in training too) computes
+every MoE layer's dispatch plan with the hand-written kernel
+``moe_plan`` (with its gate gradient under autograd); on the serving
+path ``attn_impl="flash"`` (the default) runs prefill attention through
+the hand-written kernel ``flash_attention``, which has no backward, so
+``forward`` runs the torch ``chunked`` attention, as JAX trains.  On CPU tensors both wrappers compute their plain versions.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.graph import resolve_device
 from . import layers as L
@@ -39,7 +51,7 @@ from .layers import COMPUTE_DTYPE
 from .moe import MoE
 
 _LOGITS_DTYPE = torch.float32
-_SEE_ROADMAP = "not ported to repro_torch yet; see ROADMAP.md, Queue 1 item 11"
+_SEE_ROADMAP = "not ported to repro_torch yet; see ROADMAP.md, Queue 1 item 10"
 
 
 def check_supported(cfg) -> None:
@@ -61,44 +73,49 @@ class Block(nn.Module):
     """One layer: ``norm1``, ``attn`` (GQA), ``norm2`` and ``moe`` or
     ``mlp``; the norm gains are float32 zeros (``1 + gamma``)."""
 
-    def __init__(self, cfg, *, generator=None, device=None):
+    def __init__(self, cfg, *, generator=None, device=None,
+                 dtype=COMPUTE_DTYPE):
         super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.norm1 = L._zeros_gain(cfg.d_model, device)
         self.norm2 = L._zeros_gain(cfg.d_model, device)
-        self.attn = L.GQA(cfg, generator=generator, device=device)
+        self.attn = L.GQA(cfg, **kw)
         if cfg.family == "moe":
-            self.moe = MoE(cfg, generator=generator, device=device)
+            self.moe = MoE(cfg, **kw)
         else:
-            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.act,
-                             generator=generator, device=device)
+            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw)
 
 
 class Transformer(nn.Module):
     """``embed [Vp, d]``, ``layers``, ``final_norm [d]`` and, unless the
     embeddings are tied, ``lm_head [d, Vp]`` (the ``transformer.init``
-    layout).  Weights are bf16 and take no gradient."""
+    layout).  Matrices of ``dtype`` (bf16 by default), gains float32."""
 
-    def __init__(self, cfg, *, generator=None, device=None):
+    def __init__(self, cfg, *, generator=None, device=None,
+                 dtype=COMPUTE_DTYPE):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         vp, d = cfg.padded_vocab, cfg.d_model
-        self.embed = L._matrix((vp, d), generator, device, 0.02)
+        kw = dict(dtype=dtype)
+        self.embed = L._matrix((vp, d), generator, device, 0.02, **kw)
         self.layers = nn.ModuleList(
-            Block(cfg, generator=generator, device=device)
+            Block(cfg, generator=generator, device=device, **kw)
             for _ in range(cfg.num_layers))
         self.final_norm = L._zeros_gain(d, device)
         self.lm_head = (None if cfg.tie_embeddings
-                        else L._matrix((d, vp), generator, device))
+                        else L._matrix((d, vp), generator, device, **kw))
 
 
-def init(cfg, *, generator: torch.Generator, device=None) -> Transformer:
-    """Random bf16 weights on ``device`` (cuda unless the caller names
+def init(cfg, *, generator: torch.Generator, device=None,
+         param_dtype: torch.dtype = COMPUTE_DTYPE) -> Transformer:
+    """Random frozen weights on ``device`` (cuda unless the caller names
     another), drawn from ``generator`` (which must live on that
     device): normal with std ``1/sqrt(shape[0])``, 0.02 for the
-    embedding, as ``transformer.init`` draws them in float32."""
+    embedding, as ``transformer.init`` draws them in float32, then cast
+    to ``param_dtype`` (bf16 to serve, ``torch.float32`` to train)."""
     return Transformer(cfg, generator=generator,
-                       device=resolve_device(device))
+                       device=resolve_device(device), dtype=param_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -122,13 +139,57 @@ def _dense_block(p, x, cfg, *, positions, cache=None, cache_index=None,
 def _embed(p, cfg, tokens, prefix_emb=None):
     if prefix_emb is not None:
         raise NotImplementedError(f"prefix_emb is {_SEE_ROADMAP}")
-    return p.embed[tokens]                # bf16: the residual stream dtype
+    # bf16, the residual stream's dtype; cast before the gather, as JAX
+    # takes from the cast table (its gradient then sums in bf16 too)
+    return L._c(p.embed)[tokens]
 
 
 def _head(p, cfg, x):
     xn = L.rms_norm(x, p.final_norm, cfg.norm_eps).to(COMPUTE_DTYPE)
-    w = p.embed.T if cfg.tie_embeddings else p.lm_head
+    w = L._c(p.embed).T if cfg.tie_embeddings else L._c(p.lm_head)
     return (xn @ w).to(_LOGITS_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# forward (training: no cache)
+# ---------------------------------------------------------------------------
+
+def _train_block(blk, x, cfg, positions, use_pallas_dispatch: bool):
+    # chunked attention, as JAX trains: the flash kernel has no backward
+    x, _, aux = _dense_block(blk, x, cfg, positions=positions,
+                             use_pallas_dispatch=use_pallas_dispatch,
+                             attn_impl="chunked")
+    if not isinstance(aux, torch.Tensor):            # dense: no aux loss
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def forward(params, cfg, tokens, *, remat: bool = True,
+            use_pallas_dispatch: bool = True):
+    """tokens: ``[B, S]`` int.  Returns (logits ``[B, S, Vp]`` float32,
+    aux), ``aux`` the float32 sum of the MoE layers' load-balancing
+    losses (0 for ``dense``).  All positions at once, no cache, under
+    autograd.
+
+    ``remat`` runs each block under ``torch.utils.checkpoint`` (as JAX
+    wraps the scanned body in ``jax.checkpoint``): the backward
+    recomputes the block, so a step launches ``moe_plan`` twice a MoE
+    layer.  Attention is the torch ``chunked`` version, JAX's training
+    attention: the flash kernel has no backward."""
+    check_supported(cfg)
+    x = _embed(params, cfg, tokens)
+    s = x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in params.layers:
+        args = (blk, x, cfg, positions, use_pallas_dispatch)
+        if remat:            # the block draws no random numbers
+            x, a = checkpoint(_train_block, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = _train_block(*args)
+        aux = aux + a
+    return _head(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,94 @@
+"""train_step / serve_step factories.
+
+Port of ``repro/train/steps.py``.  A train step is the forward under
+autograd (``models.transformer.forward``), ``torch.autograd.grad`` over
+every parameter and an in-place AdamW update (``optim.adamw``).  It
+returns device tensors and reads nothing back to the host, so the caller
+decides when to wait.  JAX's ``shard_fn`` and ``unroll`` hooks are not
+taken (``models.transformer``'s docstring says why).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..models import transformer as T
+from ..models.layers import COMPUTE_DTYPE
+from ..optim import OptConfig, adamw_init, adamw_update
+from ..optim.adamw import leaf_ndim
+
+
+def cross_entropy(logits, labels):
+    """logits: ``[B, S, V]``; labels: int ``[B, S]``.  The mean of
+    logsumexp minus the gold logit, reduced in float32."""
+    logz = torch.logsumexp(logits.to(torch.float32), dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0] \
+        .to(torch.float32)
+    return torch.mean(logz - gold)
+
+
+def make_loss_fn(cfg, remat: bool = True, use_pallas_dispatch: bool = True):
+    """``loss_fn(params, batch) -> (ce + aux, ce)``; ``use_pallas_dispatch``
+    False plans through the plain version (``transformer.forward``)."""
+    def loss_fn(params, batch):
+        if batch.get("prefix_emb") is not None:
+            raise NotImplementedError(
+                "prefix_emb is not ported to repro_torch yet; see "
+                "ROADMAP.md, Queue 1 item 10")
+        logits, aux = T.forward(params, cfg, batch["tokens"], remat=remat,
+                                use_pallas_dispatch=use_pallas_dispatch)
+        ce = cross_entropy(logits, batch["labels"])
+        return ce + aux, ce
+    return loss_fn
+
+
+def make_train_step(cfg, opt_cfg: OptConfig, remat: bool = True):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "ce", "grad_norm"})``: ``params`` a ``Transformer`` whose
+    parameters take a gradient, updated in place with ``opt_state``;
+    the metrics are float32 device scalars."""
+    loss_fn = make_loss_fn(cfg, remat)
+
+    def train_step(params, opt_state, batch):
+        named = dict(params.named_parameters())
+        loss, ce = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        grads = dict(zip(named, grads))
+        params, opt_state, gnorm = adamw_update(params, grads, opt_state,
+                                                opt_cfg)
+        metrics = {"loss": loss.detach(), "ce": ce.detach(),
+                   "grad_norm": gnorm}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_prefill_step(cfg, **kw):
+    def prefill_step(params, tokens, cache, prefix_emb=None):
+        return T.prefill(params, cfg, tokens, cache, prefix_emb=prefix_emb,
+                         **kw)
+    return prefill_step
+
+
+def make_decode_step(cfg, **kw):
+    def decode_step(params, token, cache):
+        return T.decode_step(params, cfg, token, cache, **kw)
+    return decode_step
+
+
+def init_train_state(cfg, *, generator: torch.Generator, device=None,
+                     master_weights: bool = False):
+    """``(params, opt_state)``: float32 parameters that take a gradient,
+    drawn from ``generator`` (on ``device``, cuda unless the caller names
+    another).  With ``master_weights`` (H2), as JAX casts every leaf of
+    ``ndim > 1`` to bf16, the matrices and the layers' norm gains
+    (stacked leaves in JAX) are bf16, the final norm's gain float32,
+    and the optimizer state holds float32 masters."""
+    params = T.init(cfg, generator=generator, device=device,
+                    param_dtype=torch.float32).requires_grad_()
+    if master_weights:
+        for name, p in params.named_parameters():
+            if leaf_ndim(name, p) > 1:
+                p.data = p.data.to(COMPUTE_DTYPE)
+    return params, adamw_init(params, master_weights=master_weights)

@@ -12,6 +12,8 @@ on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -886,3 +888,163 @@ def test_cuda_replicated_shared_labels_equal_private_copies(cuda_device,
     for o in outs[1:]:
         red = red + o if delta else torch.minimum(red, o)
     assert torch.equal(shared, labels + red if delta else red)
+
+
+# ---- the training path on the card --------------------------------------------
+
+def _train_probs(g, t, e, k, seed, device):
+    """Softmax rows where the first K experts take most, so slots
+    overflow and the ALB rebalance moves some."""
+    gen = torch.Generator().manual_seed(seed)
+    logits = torch.randn((g, t, e), generator=gen)
+    logits[..., :k] += 2.0
+    return torch.softmax(logits, -1).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["smoke", "train"])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_cuda_moe_plan_autograd_matches_plain(cuda_device, shape, groups):
+    """``moe_plan`` under autograd on the card: its forward (one launch)
+    bitwise equal to the plain version, and the gate gradient of its
+    hand-written backward within 1e-6 of its largest magnitude of
+    autograd through the plain version, at the SMOKE config's shape
+    (64 tokens, E 8, top-2) and the training shape of chip_smoke.py's
+    phase 6 (8,192 tokens, E 64, top-6, cap 960)."""
+    t, e, k = (64, 8, 2) if shape == "smoke" else (8192, 64, 6)
+    tg = t // groups
+    cap = max(int(1.25 * tg * k / e), 4)
+    probs = _train_probs(groups, tg, e, k, groups, cuda_device)
+    w = torch.randn((groups, tg * k), device=cuda_device)
+    kw = dict(top_k=k, cap=cap, groups=groups, adaptive=True)
+    outs, grads = [], []
+    before = tmplan.moe_plan.launches
+    for plan in (tmplan.moe_plan, tref.moe_plan_ref):
+        p = probs.clone().requires_grad_()
+        out = plan(p, **kw)
+        (out[2] * w).sum().backward()
+        outs.append(out)
+        grads.append(p.grad)
+    assert tmplan.moe_plan.launches == before + 1
+    for a, b in zip(_plan_bits(outs[0]), _plan_bits(outs[1])):
+        assert torch.equal(a, b)
+    top = tmoe_top_k(probs, k)
+    assert int((outs[0][0].reshape(groups, tg, k) != top).sum()) > 0
+    err = float((grads[0] - grads[1]).abs().max() / grads[1].abs().max())
+    assert err <= 1e-6, err
+
+
+def tmoe_top_k(probs, k):
+    from repro_torch.kernels import ref
+    return ref._top_k(probs, k)[1]
+
+
+def _smoke_state(device, seed=3):
+    from repro_torch import configs
+    from repro_torch.train import steps
+    cfg = configs.get_smoke_config("deepseek-moe-16b")
+    params, opt = steps.init_train_state(
+        cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
+    return cfg, params.to(device), {
+        k: ({n: t.to(device) for n, t in v.items()} if isinstance(v, dict)
+            else v.to(device)) for k, v in opt.items()}
+
+
+@contextlib.contextmanager
+def _compute_float32():
+    from repro_torch.models import layers, moe, transformer
+    mods = (layers, moe, transformer)
+    old = [m.COMPUTE_DTYPE for m in mods]
+    for m in mods:
+        m.COMPUTE_DTYPE = torch.float32
+    try:
+        yield
+    finally:
+        for m, o in zip(mods, old):
+            m.COMPUTE_DTYPE = o
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_cuda_train_steps_match_cpu(cuda_device, compute):
+    """Two ``make_train_step`` steps of the MoE SMOKE config on the card
+    (``moe_plan`` launched twice a layer a step: forward and remat)
+    against the same steps on the CPU from the same state.  float32
+    compute: losses within 1e-5 and grad norms within 1e-4 relative
+    (cuBLAS and the CPU sum in other orders); bf16: the first step's
+    loss within 2e-3 and grad norm within 5% (bf16 products)."""
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import steps
+    ctx = _compute_float32() if compute == "float32" else \
+        contextlib.nullcontext()
+    runs = []
+    with ctx:
+        for dev in (torch.device("cpu"), cuda_device):
+            cfg, params, opt = _smoke_state(dev)
+            data = SyntheticDataset(1, 2, 32, cfg.vocab_size)
+            step = steps.make_train_step(cfg, OptConfig(lr=3e-3))
+            before = tmplan.moe_plan.launches
+            out = []
+            for i in range(2):
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in data.batch(i).items()}
+                params, opt, m = step(params, opt, batch)
+                assert m["loss"].device.type == dev.type
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+            launched = tmplan.moe_plan.launches - before
+            assert launched == (4 * cfg.num_layers if dev.type == "cuda"
+                                else 0)
+            runs.append(out)
+    cpu, card = runs
+    if compute == "float32":
+        for (a, b), (c, d) in zip(card, cpu):
+            assert abs(a - c) <= 1e-5 * c and abs(b - d) <= 1e-4 * d
+    else:
+        assert abs(card[0][0] - cpu[0][0]) <= 2e-3 * cpu[0][0]
+        assert abs(card[0][1] - cpu[0][1]) <= 0.05 * cpu[0][1]
+    assert all(np.isfinite(v) for r in runs for s in r for v in s)
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_crosses_devices(cuda_device, tmp_path):
+    """A train state written from tensors on the card restores onto the
+    CPU bitwise, and one written from the CPU restores onto the card
+    (the template's device), bf16 leaves included."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.models import convert
+    _, params, opt = _smoke_state(cuda_device)
+    tree = {"params": dict(params.named_parameters()),
+            "mu": opt["mu"], "step": opt["step"],
+            "bf16": params.embed.detach().bfloat16()}
+    save_checkpoint(str(tmp_path / "card"), 1, tree)
+    cpu_tmpl = {k: ({n: t.detach().cpu() for n, t in v.items()}
+                    if isinstance(v, dict) else v.detach().cpu())
+                for k, v in tree.items()}
+    back, _ = restore_checkpoint(str(tmp_path / "card"), 1, cpu_tmpl)
+    save_checkpoint(str(tmp_path / "cpu"), 2, cpu_tmpl)
+    again, _ = restore_checkpoint(str(tmp_path / "cpu"), 2, tree)
+    for key in tree:
+        a = tree[key] if isinstance(tree[key], dict) else {"": tree[key]}
+        b = back[key] if isinstance(back[key], dict) else {"": back[key]}
+        c = again[key] if isinstance(again[key], dict) else {"": again[key]}
+        for n in a:
+            assert b[n].device.type == "cpu"
+            assert c[n].device.type == "cuda"
+            assert b[n].dtype == c[n].dtype == a[n].dtype
+            assert torch.equal(b[n], a[n].detach().cpu())
+            assert torch.equal(c[n], a[n].detach())
+    state = convert.train_state_to_jax_tree(params, opt)
+    assert state["params"]["layers"]["moe"]["w_up"].shape[0] == 2
+
+
+@pytest.mark.gpu
+def test_cuda_trainer_runs_and_resumes(cuda_device, tmp_path, capsys):
+    """``launch.train.main`` on the card: 4 steps with a checkpoint, then
+    resumed to 6 from it."""
+    from repro_torch.launch import train
+    args = ["--arch", "deepseek-moe-16b", "--smoke", "--batch", "2",
+            "--seq", "32", "--ckpt-dir", str(tmp_path), "--log-every", "1"]
+    assert np.isfinite(train.main(args + ["--steps", "4"]))
+    assert np.isfinite(train.main(args + ["--steps", "6"]))
+    assert "[restore] resumed from step 3" in capsys.readouterr().out

@@ -14,6 +14,7 @@ import torch
 from repro.configs import get_smoke_config as jax_smoke
 from repro.configs.base import ModelConfig, MoEConfig
 from repro.models import moe as jmoe
+from repro_torch.kernels import ref as tref
 from repro_torch.models import convert
 from repro_torch.models import moe as tmoe
 
@@ -76,7 +77,7 @@ def test_top_k_ties_lowest_index_first():
     probs = np.array([[0.25] * 4, [0.1, 0.4, 0.4, 0.1],
                       [0.3, 0.2, 0.3, 0.2]], np.float32)
     _, jidx = jax.lax.top_k(jnp.asarray(probs), 2)
-    _, tidx = tmoe._top_k(torch.from_numpy(probs), 2)
+    _, tidx = tref._top_k(torch.from_numpy(probs), 2)
     np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
     assert tidx.tolist() == [[0, 1], [1, 2], [0, 2]]
 
