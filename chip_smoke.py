@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py            # full size: rmat scale 22, and
-                                     # deepseek-moe-16b at 28 layers
+    python3 chip_smoke.py            # full size: rmat scale 22,
+                                     # deepseek-moe-16b at 28 layers and
+                                     # the other archs at full width
     python3 chip_smoke.py --scale 16 # a quicker graph rehearsal
 
 Phases (any failure raises and exits non-zero; nothing is caught):
@@ -150,9 +151,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    training shapes; then ``launch.train`` on the SMOKE config on the
    card to 6 steps and resumed to 10, the restored state bitwise the
    saved checkpoint;
-7. a ``{"kernels": [...]}`` line (``moe_plan``'s launches of phases 5
-   and 6, and its training-shape times), the ``nvidia-smi`` name and
-   power limit line again, and last the ``{"ok": true, "device":
+7. the other eight architectures of the registry served at full width
+   (``SERVE_ARCHS``: qwen2.5-14b, minicpm-2b, llama4-scout at 8 of its
+   48 layers, minicpm3-4b (MLA), paligemma-3b (256 prefix embeddings),
+   musicgen-large (4 codebooks), mamba2-2.7b (SSD) and zamba2-2.7b
+   (hybrid)), one model on the card at a time, random bf16 weights from
+   a seeded generator, 4 requests of 1024 prompt positions and 16
+   greedy tokens, launch counts reset just before and read just after
+   (``flash_attention`` once an attention layer at prefill, on the
+   route its head width takes: wgmma at 64 and 128, simt at zamba2's
+   80 and paligemma's 256; ``moe_plan`` a layer a step for
+   llama4-scout; nothing else); finite logits of the expected shape;
+   the median of 2 runs, peak memory, syncing calls per decode step,
+   the prefill's device busy share and, for the Mamba2 models, the SSD
+   path's share of its device time; the first layer (and zamba2's
+   shared block) on the card against a CPU copy through the plain route
+   (``LAYER_RTOL``); then every kernel phase 7 launched against its
+   plain version on the inputs phase 7 gave it, one call at each shape
+   of each config (``moe_plan`` bitwise, ``flash_attention`` within
+   ``FLASH_TOL`` on both routes), each flash shape timed beside its
+   plain version, ``scaled_dot_product_attention`` and its bound;
+8. a ``{"kernels": [...]}`` line (``moe_plan``'s launches of phases 5,
+   6 and 7, its phase 7 checks and its training-shape times;
+   ``flash_attention``'s wgmma launches of phases 5 and 7 with each
+   phase 7 shape's error and times, its simt rows), the ``nvidia-smi`` name
+   and power limit line again, and last the ``{"ok": true, "device":
    {...}}`` line.
 
 Imports neither ``jax`` nor the JAX package ``repro``.
@@ -619,6 +642,10 @@ def lm_kernels_vs_plain(dev) -> dict:
     sweep = [(s, hd, dtype) for s in (1, 100, 128, 1024, 2048)
              for hd in (16, 64, 128) for dtype in ("bfloat16", "float32")]
     sweep += [(s, 128, "bfloat16") for s in (127, 129, 1000)]
+    # the simt route's wide heads: zamba2's 80 (run at its 128
+    # instantiation) and paligemma's 256
+    sweep += [(s, hd, dtype) for s in (1, 100, 1024) for hd in (80, 256)
+              for dtype in ("bfloat16", "float32")]
     for s, hd, dtype in sweep:
         b = 1 if s > 1024 else 2
         for h, hkv in ((16, 16), (4, 2), (8, 1)):
@@ -2969,26 +2996,28 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def serve(model, cfg, prompts, gen: int, **kw) -> dict:
-    """Prefill ``prompts`` into an empty cache, then ``gen - 1`` greedy
-    decode steps: ``gen`` tokens per request.  Host clock around work
-    that ends in a device synchronize; the tokens stay on the card until
-    the end."""
+def serve(model, cfg, prompts, gen: int, prefix_emb=None, **kw) -> dict:
+    """Prefill ``prompts`` (``[B, S]``, or ``[B, S, ncb]``; behind
+    ``prefix_emb`` when given) into an empty cache, then ``gen - 1``
+    greedy decode steps: ``gen`` tokens per request.  Host clock around
+    work that ends in a device synchronize; the tokens stay on the card
+    until the end."""
     import torch
     from repro_torch.models import transformer as T
-    b, p = prompts.shape
-    cache = T.zeros_cache(cfg, b, p + gen, device=prompts.device)
+    b, p = prompts.shape[:2]
+    pl = 0 if prefix_emb is None else prefix_emb.shape[1]
+    cache = T.zeros_cache(cfg, b, pl + p + gen, device=prompts.device)
     (logits, cache), prefill_s = timed(
-        lambda: T.prefill(model, cfg, prompts, cache, **kw))
+        lambda: T.prefill(model, cfg, prompts, cache, prefix_emb, **kw))
     first_logits = logits
-    toks = [logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)]
+    # [B, 1] (or [B, 1, ncb]): the greedy token of the last position
+    toks = [logits.argmax(-1).to(torch.int32)]
 
     def decode():
         nonlocal logits, cache
         for _ in range(gen - 1):
             logits, cache = T.decode_step(model, cfg, toks[-1], cache, **kw)
-            toks.append(logits[:, -1].argmax(-1, keepdim=True)
-                        .to(torch.int32))
+            toks.append(logits.argmax(-1).to(torch.int32))
     _, decode_s = timed(decode)
     return {"first_logits": first_logits, "tokens": torch.cat(toks, 1),
             "prefill_s": prefill_s,
@@ -3396,6 +3425,30 @@ def plan_work(a, k):
     return 4 * g * t * e + 13 * n, g * t * e * k["top_k"] + 10 * n
 
 
+def sdpa(q, k, v, causal=True):
+    """``flash_attention``'s yardstick, one PyTorch call the port never
+    makes: ``scaled_dot_product_attention`` on the ``[B, H, S, hd]``
+    views."""
+    import torch.nn.functional as F
+    kw = {"enable_gqa": True} if q.shape[2] != k.shape[2] else {}
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, **kw)
+
+
+def fa_work(a, k):
+    """(bytes, operations) of one attention: q, k, v read and the output
+    written once; q.k and p.v over the causal triangle (the full square
+    when not causal)."""
+    q, kk = a[0], a[1]
+    b, s, h, hd = q.shape
+    byts = (2 * q.numel() + 2 * kk.numel()) * q.element_size()
+    flops = 2 * b * h * s * s * hd
+    if not k.get("causal", True):
+        flops *= 2
+    return byts, flops
+
+
 def time_lm_kernels(lm: dict) -> list:
     """The LM kernels' rows: each kernel and its plain version on the card
     at the shapes phase 5 gave it (CUDA events, stream held busy), beside
@@ -3407,7 +3460,6 @@ def time_lm_kernels(lm: dict) -> list:
     main path, so it is timed on the top-k expert ids of the same
     plans."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, moe_dispatch, moe_plan
     from repro_torch.kernels import ref
     from repro_torch.models import moe as MOE
@@ -3418,23 +3470,8 @@ def time_lm_kernels(lm: dict) -> list:
               a[0].shape[-1]), {}) for ph, a, k in calls["moe_plan"]]
     steps = {"prefill": 1, "decode": LM_GEN - 1}
 
-    def sdpa(q, k, v, causal=True):
-        kw = {"enable_gqa": True} if q.shape[2] != k.shape[2] else {}
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, **kw)
-
     def pie_work(a, k):
         return 8 * a[0].numel(), 0
-
-    def fa_work(a, k):
-        q, kk = a[0], a[1]
-        b, s, h, hd = q.shape
-        byts = (2 * q.numel() + 2 * kk.numel()) * q.element_size()
-        flops = 2 * b * h * s * s * hd
-        if not k.get("causal", True):
-            flops *= 2
-        return byts, flops
 
     def abs_err(got, want):
         return float((got.float() - want.float()).abs().max())
@@ -3814,6 +3851,299 @@ def trainer_restart(dev) -> dict:
             "leaves": len(saved), "checkpoints": steps}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: every other architecture of the registry served at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept on the card; None: all).  llama4-scout's layers
+# hold about 2.2 B parameters each (16 experts of width 8192 and a
+# shared one at d_model 5120), 4.4 GB in bf16: its 48 layers would take
+# about 216 GB, so 8 of 48 are kept, at the published widths
+SERVE_ARCHS = (("qwen2.5-14b", None), ("minicpm-2b", None),
+               ("llama4-scout-17b-a16e", 8), ("minicpm3-4b", None),
+               ("paligemma-3b", None), ("musicgen-large", None),
+               ("mamba2-2.7b", None), ("zamba2-2.7b", None))
+# 4 requests of 1024 prompt positions (paligemma: 256 seeded prefix
+# embeddings + 768 tokens; musicgen: 4 codebook tokens a position) and
+# 16 greedy tokens each
+SERVE_BATCH, SERVE_LEN, SERVE_GEN = 4, 1024, 16
+# Each config's first layer (and a hybrid's shared block) on the card,
+# kernel route, against its plain route on the CPU (plain attention,
+# one-hot dispatch), on the first request's first LAYER_CHECK_POS
+# positions behind its prefix: per token, max |diff| over the largest
+# |plain output|.  bf16 products round differently in cuBLAS and the
+# CPU's GEMMs, and flash differs from plain attention by a rounding
+# (LM_ATTN_RTOL), so LAYER_RTOL; a top-1 router's bf16 logits can tie
+# within an ulp, so up to LAYER_MOE_SWAPS of an MoE layer's tokens may
+# take another expert and exceed it.
+LAYER_CHECK_POS = 128
+LAYER_RTOL = 1 / 32
+LAYER_MOE_SWAPS = 0.02
+
+
+def first_layer_check(model, cfg, prompts, prefix) -> dict:
+    """``layers.0`` (and ``shared_attn`` of a hybrid, on layer 0's
+    output) on the card through the kernels against a CPU copy through
+    the plain route: ``{block: {"max_rel_err", "tokens_over"}}``."""
+    import torch
+    from repro_torch.models import transformer as T
+    dev = prompts.device
+    x = T._embed(model, cfg, prompts[:1, :LAYER_CHECK_POS],
+                 None if prefix is None else prefix[:1])
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=dev)[None]
+    blocks = [("layers.0", model.layers[0],
+               T._as_ssm(cfg) if cfg.family == "hybrid" else cfg)]
+    if cfg.family == "hybrid":
+        blocks.append(("shared_attn", model.shared_attn, cfg))
+    out = {}
+    for name, blk, bcfg in blocks:
+        cpu_blk = type(blk)(bcfg, device="cpu")
+        cpu_blk.load_state_dict(blk.state_dict())
+        if isinstance(blk, T.SSMBlock):     # torch ops on both sides
+            card = T._ssm_block(blk, x, bcfg)[0]
+            plain = T._ssm_block(cpu_blk, x.cpu(), bcfg)[0]
+        else:
+            card = T._dense_block(blk, x, bcfg, positions=pos)[0]
+            plain = T._dense_block(cpu_blk, x.cpu(), bcfg,
+                                   positions=pos.cpu(), attn_impl="plain",
+                                   use_pallas_dispatch=False)[0]
+        plain = plain.float()
+        err = ((card.float().cpu() - plain).abs().amax(-1)[0]
+               / plain.abs().max())
+        over = float((err > LAYER_RTOL).float().mean())
+        out[name] = {"max_rel_err": float(err.max()), "tokens_over": over}
+        allowed = LAYER_MOE_SWAPS if bcfg.family == "moe" else 0.0
+        check(over <= allowed, f"{cfg.name} {name}: card (kernel route) "
+              f"!= CPU plain route: {out[name]} (tolerance {LAYER_RTOL}, "
+              f"{allowed} of the tokens may exceed it)")
+        del cpu_blk
+        x = card
+    return out
+
+
+def ssd_share(model, cfg, prompts, prefix, cache) -> dict:
+    """The SSD path's share of one prefill's device time: CUDA events
+    around each ``mamba2.ssd_chunked`` call, summed, over the events
+    around the whole prefill (the stream is busy throughout: its
+    tensors are hundreds of MB)."""
+    import torch
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import transformer as T
+    spans, real = [], M.ssd_chunked
+
+    def timed_ssd(*a, **k):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = real(*a, **k)
+        e.record()
+        spans.append((s, e))
+        return out
+    s0, e0 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    M.ssd_chunked = timed_ssd
+    try:
+        torch.cuda.synchronize()
+        s0.record()
+        T.prefill(model, cfg, prompts, cache, prefix)
+        e0.record()
+        torch.cuda.synchronize()
+    finally:
+        M.ssd_chunked = real
+    ssd_ms = sum(s.elapsed_time(e) for s, e in spans)
+    total_ms = s0.elapsed_time(e0)
+    return {"calls": len(spans), "ssd_ms": ssd_ms, "prefill_ms": total_ms,
+            "share": ssd_ms / total_ms if total_ms else None}
+
+
+def serve_arch(dev, arch: str, depth, smoke: bool = False,
+               length: int = SERVE_LEN) -> dict:
+    """One config of phase 7: random seeded bf16 weights on the card,
+    ``SERVE_BATCH`` requests of ``length`` positions and ``SERVE_GEN``
+    greedy tokens, counted (launch counts reset just before, read just
+    after), served again for the median, then profiled and checked.
+    ``smoke``: the SMOKE config, for a rehearsal on the CPU."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    cfg = (get_smoke_config if smoke else get_config)(arch)
+    if depth is not None and not smoke:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    model, init_s = timed(lambda: T.init(cfg, generator=gen, device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 1e9
+    pl = cfg.prefix_len
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    rng = np.random.default_rng(7)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, length - pl, *cb))
+        .astype(np.int32)).to(dev)
+    prefix = (torch.randn((SERVE_BATCH, pl, cfg.d_model), generator=gen,
+                          device=dev).to(torch.bfloat16) if pl else None)
+
+    # the counted run; the inputs of each kernel's first call at each
+    # shape are kept (references only) for check_served_kernels
+    real = {"flash_attention": L.flash_attention, "moe_plan": MOE.moe_plan}
+    kept = {name: {} for name in real}
+
+    def keeper(name):
+        def keep(*a, **k):
+            kept[name].setdefault(tuple(a[0].shape), (a, k))
+            return real[name](*a, **k)
+        return keep
+    L.flash_attention = keeper("flash_attention")
+    MOE.moe_plan = keeper("moe_plan")
+    kernels.reset_launch_counts()
+    try:
+        first = serve(model, cfg, prompts, SERVE_GEN, prefix)
+    finally:
+        L.flash_attention, MOE.moe_plan = (real["flash_attention"],
+                                           real["moe_plan"])
+    launches = kernels.launch_counts()
+    routes = dict(flash_attention.flash_attention.launches_by_route)
+    attn_layers = (0 if cfg.family == "ssm" or cfg.attention == "mla"
+                   else T.groups(cfg) if cfg.family == "hybrid"
+                   else cfg.num_layers)
+    route = flash_attention.route(torch.bfloat16, cfg.resolved_head_dim)
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = attn_layers
+    want["moe_plan"] = cfg.num_layers * SERVE_GEN if cfg.moe else 0
+    want_routes = {r: (attn_layers if r == route else 0) for r in routes}
+    check(launches == want, f"{arch}: launches {launches}, expected {want}")
+    check(routes == want_routes, f"{arch}: flash_attention by route "
+          f"{routes}, expected {want_routes}")
+    logits = first["first_logits"]
+    check(logits.shape == (SERVE_BATCH, 1, *cb, cfg.padded_vocab) and
+          logits.dtype == torch.float32 and
+          bool(torch.isfinite(logits).all()), f"{arch}: prefill logits")
+    check(first["tokens"].shape == (SERVE_BATCH, SERVE_GEN, *cb) and
+          first["index"] == length + SERVE_GEN - 1, f"{arch}: tokens")
+    again = serve(model, cfg, prompts, SERVE_GEN, prefix)
+    check(bool(torch.isfinite(again["first_logits"]).all()),
+          f"{arch}: logits of the second run")
+    med = {k: float(np.median([first[k], again[k]]))
+           for k in ("prefill_s", "decode_ms_per_step", "tokens_per_s")}
+
+    cache = T.zeros_cache(cfg, SERVE_BATCH, length + SERVE_GEN, device=dev)
+    _, cache = T.prefill(model, cfg, prompts, cache, prefix)
+    tok = first["tokens"][:, :1]
+    syncs = count_syncs(lambda: T.decode_step(model, cfg, tok, cache))
+    prof = profile_path(
+        {"prefill": lambda: T.prefill(model, cfg, prompts, cache, prefix)},
+        {"prefill": med["prefill_s"]}, label=f"phase 7: {arch}")["prefill"]
+    ssd = (ssd_share(model, cfg, prompts, prefix, cache)
+           if cfg.family in ("ssm", "hybrid") else None)
+    layer = first_layer_check(model, cfg, prompts, prefix)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out = {"arch": arch, "layers": cfg.num_layers, "params": n_params,
+           "weight_gb": weight_gb, "init_s": init_s,
+           "prompt": list(prompts.shape), "prefix": pl,
+           "launches": launches, "flash_launches_by_route": routes,
+           "flash_route": route if attn_layers else None,
+           "seconds": {k: [first[k], again[k]] for k in med},
+           "median": med, "syncs_per_decode_step": len(syncs),
+           "sync_sites": sorted(set(syncs)),
+           "prefill_busy_share": prof["busy_share"],
+           "prefill_device_ms": prof["device_ms"],
+           "prefill_launches": prof["launches"], "ssd": ssd,
+           "first_layer": layer, "peak_device_gb": peak_gb,
+           "kept": {n: list(c.values()) for n, c in kept.items()}}
+    busy = prof["busy_share"]
+    print(f"phase 7: {arch}: {cfg.num_layers} layers, {n_params} "
+          f"parameters ({weight_gb:.2f} GB), {SERVE_BATCH} x ({length} + "
+          f"{SERVE_GEN}) positions: prefill {med['prefill_s']:.4f} s, "
+          f"decode {med['decode_ms_per_step']:.3f} ms a step, "
+          f"{med['tokens_per_s']:.1f} generated tokens/s (median of 2); "
+          f"peak {peak_gb:.2f} GB; flash_attention by route {routes}; "
+          f"moe_plan {launches['moe_plan']} launches; "
+          f"{len(syncs)} syncing calls a decode step; prefill busy "
+          + (f"{busy:.1%}" if busy is not None else "not measured")
+          + (f"; SSD {ssd['share']:.1%} of prefill device time "
+             f"({ssd['ssd_ms']:.2f} of {ssd['prefill_ms']:.2f} ms)"
+             if ssd else "")
+          + f"; first layer vs CPU plain route {layer}", flush=True)
+    return out
+
+
+def serve_all(dev, smoke: bool = False, length: int = SERVE_LEN) -> dict:
+    """Phase 7: every config of ``SERVE_ARCHS``, each model freed before
+    the next."""
+    import torch
+    out = {}
+    for arch, depth in SERVE_ARCHS:
+        out[arch] = serve_arch(dev, arch, depth, smoke, length)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_served_kernels(served: dict, lm_rows: list) -> list:
+    """Every kernel phase 7 launched, against its plain version on the
+    inputs phase 7 gave it (the first call at each shape of each
+    config): ``moe_plan`` bitwise, ``flash_attention`` on both routes
+    within ``FLASH_TOL``.  The wgmma route's results join phase 4's
+    ``flash_attention`` row (``phase7``, by config; its ``max_abs_err``
+    becomes the largest over phases 5 and 7), and so do ``moe_plan``'s;
+    the simt route's (zamba2's hd 80, paligemma's 256) come back as rows
+    of their own.  Each is timed beside its plain version,
+    ``scaled_dot_product_attention`` and its bound."""
+    from repro_torch.kernels import flash_attention, moe_plan, ref
+    by_name = {r["name"]: r for r in lm_rows}
+    rows = []
+    for arch, res in served.items():
+        for a, k in res["kept"]["moe_plan"]:
+            err = plan_err(moe_plan.moe_plan(*a, **k),
+                           ref.moe_plan_ref(*a, **k))
+            check(err == 0, f"moe_plan at {arch}'s shape "
+                  f"{list(a[0].shape)} != plain: {err}")
+            row = by_name["moe_plan"]
+            row.setdefault("phase7", []).append({
+                "arch": arch, "shape": list(a[0].shape),
+                "top_k": k["top_k"], "max_abs_err": err,
+                "cluster": moe_plan.cluster_size(a[0].shape[1]
+                                                 * k["top_k"])})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        for a, k in res["kept"]["flash_attention"]:
+            q = a[0]
+            route = flash_attention.route(q.dtype, q.shape[-1])
+            err = float((flash_attention.flash_attention(*a, **k).float()
+                         - ref.flash_attention_ref(*a, **k).float())
+                        .abs().max())
+            check(err <= FLASH_TOL["bfloat16"], f"flash_attention ({route})"
+                  f" at {arch}'s shapes != plain: {err}")
+            byts, ops = fa_work(a, k)
+            t_b = byts / HBM_BYTES_PER_S * 1e3
+            t_o = ops / BF16_FLOPS_PER_S * 1e3
+            entry = {
+                "launches": res["flash_launches_by_route"][route],
+                "max_abs_err": err,
+                "ms": device_ms(flash_attention.flash_attention, [(a, k)]),
+                "plain_ms": device_ms(ref.flash_attention_ref, [(a, k)],
+                                      sleep_cycles=20_000_000),
+                "bound_ms": max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "library_ms": device_ms(sdpa, [(a, k)]),
+                "shape": [list(t.shape) for t in a[:2]]}
+            if route == "wgmma":
+                row = by_name["flash_attention"]
+                row.setdefault("phase7", {})[arch] = entry
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                continue
+            rows.append({
+                "name": f"flash_attention (simt, hd {q.shape[-1]})",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:68",
+                **entry, "arch": arch})
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -3966,13 +4296,44 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tp["trainer"] = trainer_restart(dev)
-    row = lm_rows[0]                      # moe_plan: phases 5 and 6
-    row["launches_by_phase"] = {"5": row["launches"],
-                                "6": tp["launches"]["moe_plan"]}
-    row["launches"] += tp["launches"]["moe_plan"]
-    row["train"] = train_plan
     print(json.dumps({"train_path": tp}), flush=True)
-    print(json.dumps({"kernels": rows + lm_rows}), flush=True)
+
+    # phase 7 needs the card's memory too: phase 6's state is gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = serve_all(dev)
+    simt_rows = check_served_kernels(served, lm_rows)
+    by_name = {r["name"]: r for r in lm_rows}
+    fa7 = [{"name": f"{by_name['flash_attention']['name']} (wgmma)", **r,
+            "arch": arch}
+           for arch, r in by_name["flash_attention"].get("phase7", {}).items()]
+    for r in fa7 + simt_rows:
+        print(f"phase 4: {r['name']} at {r['arch']}'s prefill {r['shape']}: "
+              f"{r['ms']:.4f} ms per launch (plain {r['plain_ms']:.4f} ms, "
+              f"scaled_dot_product_attention {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}); max "
+              f"error against plain {r['max_abs_err']}; {r['launches']} "
+              f"launches in phase 7", flush=True)
+    for r in by_name["moe_plan"].get("phase7", []):
+        print(f"phase 4: moe_plan at {r['arch']}'s {r['shape']} (top_k "
+              f"{r['top_k']}, cluster {r['cluster']}): max error against "
+              f"plain {r['max_abs_err']}", flush=True)
+    row = by_name["moe_plan"]             # phases 5, 6 and 7
+    row["launches_by_phase"] = {
+        "5": row["launches"], "6": tp["launches"]["moe_plan"],
+        "7": sum(r["launches"]["moe_plan"] for r in served.values())}
+    row["launches"] = sum(row["launches_by_phase"].values())
+    row["train"] = train_plan
+    row = by_name["flash_attention"]      # wgmma: phases 5 and 7
+    row["launches_by_phase"] = {
+        "5": row["launches"],
+        "7": sum(r["flash_launches_by_route"]["wgmma"]
+                 for r in served.values())}
+    row["launches"] = sum(row["launches_by_phase"].values())
+    for r in served.values():
+        r.pop("kept")
+    print(json.dumps({"serve_archs": served}), flush=True)
+    print(json.dumps({"kernels": rows + lm_rows + simt_rows}), flush=True)
     print(card, flush=True)              # as nvidia-smi prints it
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,27 @@
 """Config registry of the port: ``get_config(arch)`` /
-``get_smoke_config(arch)`` for the architectures whose model family the
-port runs (``dense`` and ``moe``, GQA attention).  The others stay in
-the JAX package's registry until their family is ported (ROADMAP.md,
-Queue 1 item 10); asking for one raises a ``KeyError`` that says so.
+``get_smoke_config(arch)`` for every architecture of the JAX package's
+registry (``repro/configs``), in its ``ARCH_IDS`` order.  The port keeps
+its own copies of the config modules; an unknown arch raises
+``KeyError``.
 """
 from .base import (ModelConfig, MoEConfig, MLAConfig, SSMConfig,
                    ShapeConfig, SHAPES, shape_by_name, applicable_shapes)
 
-from . import deepseek_moe_16b, llama3_8b
+from . import (zamba2_2p7b, minicpm3_4b, llama3_8b, minicpm_2b,
+               qwen2p5_14b, paligemma_3b, mamba2_2p7b, deepseek_moe_16b,
+               llama4_scout_17b, musicgen_large)
 
 _MODULES = {
+    "zamba2-2.7b": zamba2_2p7b,
+    "minicpm3-4b": minicpm3_4b,
     "llama3-8b": llama3_8b,
+    "minicpm-2b": minicpm_2b,
+    "qwen2.5-14b": qwen2p5_14b,
+    "paligemma-3b": paligemma_3b,
+    "mamba2-2.7b": mamba2_2p7b,
     "deepseek-moe-16b": deepseek_moe_16b,
+    "llama4-scout-17b-a16e": llama4_scout_17b,
+    "musicgen-large": musicgen_large,
 }
 
 ARCH_IDS = tuple(_MODULES.keys())
@@ -19,9 +29,8 @@ ARCH_IDS = tuple(_MODULES.keys())
 
 def _module(arch: str):
     if arch not in _MODULES:
-        raise KeyError(f"{arch!r} is not ported to repro_torch yet (ported: "
-                       f"{', '.join(ARCH_IDS)}); see ROADMAP.md, Queue 1 "
-                       f"item 10")
+        raise KeyError(f"unknown arch {arch!r} (known: "
+                       f"{', '.join(ARCH_IDS)})")
     return _MODULES[arch]
 
 

@@ -57,6 +57,28 @@ class AppResult:
     host_transfers: int = 0
 
 
+#: executors whose LB or merge-path edge tile must be a multiple of this
+#: (the TPU kernels' lane width: ``repro/kernels/edge_lb.py`` and
+#: ``merge_path.py`` assert it)
+TILE_LANES = 128
+
+
+def check_tile(cfg: BalancerConfig) -> None:
+    """Refuse a ``lb_tile_edges`` that is not a positive multiple of
+    :data:`TILE_LANES` for the ``pallas`` and ``merge_path`` executors,
+    in every mode.  The JAX package refuses it (an ``assert``) whenever
+    it traces ``edge_lb_map`` or ``merge_path_map``: always in spmd and
+    fused mode, in host mode on the first round that reaches one.  The
+    port's kernels would run such a tile, so every driver checks once,
+    on entry, whether or not a round would reach a kernel.  ``xla``
+    takes any tile, as in JAX."""
+    t = cfg.lb_tile_edges
+    if cfg.executor in ("pallas", "merge_path") and (t <= 0 or
+                                                     t % TILE_LANES):
+        raise ValueError(f"lb_tile_edges={t}: the {cfg.executor} executor "
+                         f"takes a positive multiple of {TILE_LANES}")
+
+
 def relax_round(g, values, labels, frontier, cfg, op,
                 collect_stats=False, mode="host", return_active=False):
     """One balancer round in ``mode`` ``"host"`` | ``"spmd"``; returns
@@ -86,6 +108,7 @@ def step_batch(g, labels, frontier, cfg, op, mode="host",
     if op.combine != "min":
         raise ValueError(f"step_batch serves min-combine point queries; "
                          f"got {op.name} (combine={op.combine!r})")
+    check_tile(cfg)
     old = labels
     labels, st = relax_round(g, labels, labels, frontier, cfg, op,
                              collect_stats=collect_stats, mode=mode)
@@ -152,6 +175,7 @@ def _loop(g: Graph, values_of, labels, frontier, cfg, op,
     transfer the round pays); ``mode="fused"`` hands the whole loop to
     ``balancer.run_fused`` (min-combine: ``new < old``).  Returns
     ``(labels, rounds, seconds, stats, host_transfers)``."""
+    check_tile(cfg)
     t_sync = host_transfer_count()
     if mode == "fused":
         t0 = time.perf_counter()
@@ -309,6 +333,7 @@ def kcore(g: Graph, k: int, cfg: BalancerConfig = BalancerConfig(),
 
     Push formulation (integer add): when a vertex dies its neighbours
     lose one degree.  Expects a symmetrized graph."""
+    check_tile(cfg)
     deg = g.out_degrees()
     alive = deg >= k
     frontier = ~alive & (deg > 0)          # initially-dead vertices push
@@ -421,7 +446,17 @@ def pagerank(g: Graph, damping: float = 0.85, tol: float = 1e-6,
     vertices (out-degree 0) redistribute their mass uniformly, so
     ``sum(rank) == 1`` holds on graphs with sinks.  Host and spmd mode
     pay two counted transfers a round (the round's, the residual
-    check); fused mode none."""
+    check); fused mode none.
+
+    Against ``repro.core.apps.drivers.pagerank`` on the same graph the
+    bound is: rounds within one of JAX's, and ranks within ``tol``
+    absolute.  The arithmetic follows JAX's operation order, but XLA
+    contracts the update into an FMA and sums in another order, so a
+    rank may sit an ulp or two away and ``delta`` carries about 1e-8 of
+    noise; when the residual lands that close to ``tol``, one package
+    stops a round before the other (``rtol`` 2e-6 holds only when the
+    rounds agree)."""
+    check_tile(cfg)
     n = g.num_vertices
     if rg is None:
         rg = g.reverse()                   # pull traverses in-edges

@@ -12,9 +12,13 @@
 //   out[b,s,h] = sum_c softmax_c(q.k_c / sqrt(hd)) v_c       (c <= s if causal)
 //
 // in float32, written in the input type.  Any S: rows and keys past S
-// are masked here (the TPU kernel needed S % block == 0).  hd up to 128:
-// the kernel is instantiated for padded widths 16, 32, 64 and 128, and
-// the lanes past hd are zeros in shared memory.
+// are masked here (the TPU kernel needed S % block == 0).  hd up to 256:
+// the kernel is instantiated for padded widths 16, 32, 64, 128 and 256,
+// and the lanes past hd are zeros in shared memory (zamba2's hd 80 runs
+// at 128, paligemma's hd 256 at 256).  At 256 the float32 variant's
+// tiles take 64 x 257 x 4 (q) + 2 x 64 x 257 x 4 (K, V) + 64 x 80 x 4
+// (p) = 217,856 bytes of the 232,448 a block may have, so one block
+// runs per SM; the bf16 variant takes 152,320.
 //
 // Design: one block of 256 threads per (batch*head, 64-query block).
 // The block keeps its 64 scaled query rows in shared memory (float32)
@@ -79,6 +83,9 @@ constexpr size_t smem_bytes() {
          2 * sizeof(T) * kBK * KVStride<T, HD>::value +
          sizeof(float) * kBQ * kPStride;
 }
+
+// every instantiation fits a block's dynamic shared memory on sm_90
+static_assert(smem_bytes<float, 256>() <= 232448, "hd 256 tiles");
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -254,6 +261,8 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
   if (hd <= 64) return launch<T, 64>(q, k, v, o, B, S, H, Hkv, hd, causal, st);
   if (hd <= 128)
     return launch<T, 128>(q, k, v, o, B, S, H, Hkv, hd, causal, st);
+  if (hd <= 256)
+    return launch<T, 256>(q, k, v, o, B, S, H, Hkv, hd, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -265,7 +274,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int H, int Hkv, int hd, int causal,
                                       int dtype, void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (hd < 1 || hd > 128 || Hkv < 1 || H % Hkv != 0 ||
+  if (hd < 1 || hd > 256 || Hkv < 1 || H % Hkv != 0 ||
       (S + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

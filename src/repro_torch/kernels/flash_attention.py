@@ -9,8 +9,9 @@ C++ kernels, chosen by :func:`route` from (dtype, head width):
   blocks, TMA loads into an mbarrier ring, both products ``wgmma`` on
   the tensor cores, two consumer warpgroups taking turns;
 * ``"simt"`` — ``csrc/flash_attention.cu``, float32 and every other
-  head width up to 128: the products on the CUDA cores in float32 (a
-  TF32 product would not hold float32's tolerance).
+  head width up to 256 (zamba2's 80, paligemma's 256): the products on
+  the CUDA cores in float32 (a TF32 product would not hold float32's
+  tolerance).
 
 Both: query head ``i`` reads KV head ``i // (H // Hkv)`` without a
 materialized repeat, float32 (max, sum, acc) per row, causal key tiles
@@ -35,8 +36,8 @@ from .ref import flash_attention_ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: widest head the kernels take
-MAX_HEAD_DIM = 128
+#: widest head the kernels take (the simt route's widest instantiation)
+MAX_HEAD_DIM = 256
 #: head widths of the wgmma route (its TMA boxes are 64 lanes wide)
 WGMMA_HEAD_DIMS = (64, 128)
 #: TMA reads and writes from 16-byte aligned addresses only

@@ -1,4 +1,5 @@
 """The language-model stack of the port: ``layers`` (RMSNorm, RoPE, GQA
-attention, MLP), ``moe`` (ALB-adaptive MoE dispatch), ``transformer``
-(init, cache, prefill, decode_step) and ``convert`` (JAX parameters
+and MLA attention, MLP), ``mamba2`` (the SSD block), ``moe``
+(ALB-adaptive MoE dispatch), ``transformer`` (init, cache, prefill,
+decode_step, forward, every family) and ``convert`` (JAX parameters
 into the port's modules)."""

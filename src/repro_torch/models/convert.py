@@ -7,7 +7,10 @@ state as ``{"mu": tree, "nu": tree, "step": int32, "master"?: tree}``
 (``repro.optim.adamw``).  The port keeps one ``Block`` per layer and an
 optimizer state keyed by parameter name (``optim.adamw``).  This module
 maps one to the other by name (``layers.3.moe.w_up`` is row 3 of the
-leaf ``layers/moe/w_up``); it imports no JAX: the caller passes numpy.
+leaf ``layers/moe/w_up``; under hybrid, whose layer leaves are stacked
+``[G, attn_every, ...]``, ``layers.{g * attn_every + l}`` is row
+``[g, l]``, and ``shared_attn.*`` is unstacked); it imports no JAX: the
+caller passes numpy.
 
 * :func:`params_from_jax` / :func:`load_jax_tree` -- a params tree into a
   ``Transformer``, each leaf cast to its parameter's dtype (float32 ->
@@ -32,7 +35,7 @@ import torch
 from ..core.graph import resolve_device
 from ..core.host import from_host, host_dtype, host_tensor, to_host
 from .layers import COMPUTE_DTYPE
-from .transformer import Transformer
+from .transformer import Transformer, layer_stack
 
 
 def _leaves(tree, prefix=()):
@@ -43,22 +46,34 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def _jax_path(name: str):
-    """Parameter name -> (path in the JAX tree, layer index or None):
-    ``layers.3.moe.w_up`` -> ``(("layers", "moe", "w_up"), 3)``."""
+def _lead(module):
+    """The leading dimensions of a model's stacked layer leaves
+    (``transformer.layer_stack``); None for a module that is not a whole
+    model."""
+    return layer_stack(module.cfg) if isinstance(module, Transformer) else None
+
+
+def _jax_path(name: str, lead=None):
+    """Parameter name -> (path in the JAX tree, row or None):
+    ``layers.3.moe.w_up`` -> ``(("layers", "moe", "w_up"), (3,))``; the
+    row is layer 3's index into leaves stacked over ``lead`` (``(1, 1)``
+    for ``lead=(2, 2)``), ``(3,)`` without ``lead``."""
     parts = name.split(".")
     if parts[0] == "layers":
-        return ("layers", *parts[2:]), int(parts[1])
+        li = int(parts[1])
+        row = ((li,) if lead is None
+               else tuple(int(i) for i in np.unravel_index(li, lead)))
+        return ("layers", *parts[2:]), row
     return tuple(parts), None
 
 
-def _by_name(named: dict, tree, what: str) -> dict:
+def _by_name(named: dict, tree, what: str, lead=None) -> dict:
     """``{name: numpy leaf (row)}`` for every name of ``named`` from the
     JAX tree ``tree``, shapes checked, no leaf left over."""
     leaves = {path: np.asarray(a) for path, a in _leaves(tree)}
     out, used = {}, set()
     for name, ref in named.items():
-        path, li = _jax_path(name)
+        path, li = _jax_path(name, lead)
         if path not in leaves:
             raise KeyError(f"{what}: no leaf {'/'.join(path)} for {name}")
         arr = leaves[path] if li is None else leaves[path][li]
@@ -79,7 +94,8 @@ def load_jax_tree(module, tree):
     leaves), matched by name, each cast to the parameter's dtype.
     Returns ``module``."""
     named = dict(module.named_parameters())
-    for name, arr in _by_name(named, tree, "load_jax_tree").items():
+    for name, arr in _by_name(named, tree, "load_jax_tree",
+                              _lead(module)).items():
         param = named[name]
         with torch.no_grad():
             param.copy_(host_tensor(arr))
@@ -107,7 +123,8 @@ def opt_state_from_jax(opt_tree, model) -> dict:
     state = {}
     for part in ("mu", "nu", "master"):
         if part in opt_tree:
-            rows = _by_name(named, opt_tree[part], f"opt/{part}")
+            rows = _by_name(named, opt_tree[part], f"opt/{part}",
+                            _lead(model))
             state[part] = {n: from_host(a, torch.float32, dev)
                            for n, a in rows.items()}
     state["step"] = torch.tensor(int(np.asarray(opt_tree["step"])),
@@ -115,23 +132,25 @@ def opt_state_from_jax(opt_tree, model) -> dict:
     return state
 
 
-def jax_tree(named: dict, *, shapes_only: bool = False) -> dict:
+def jax_tree(named: dict, *, shapes_only: bool = False, lead=None) -> dict:
     """``{name: tensor}`` as JAX's nested dict of numpy leaves, the
-    per-layer tensors stacked into ``[L, ...]``: each leaf allocated
-    once on the host and each tensor copied once into it.  With
-    ``shapes_only`` the leaves are ``meta`` tensors of those shapes and
-    dtypes, and nothing is copied."""
+    per-layer tensors stacked into ``[*lead, ...]`` (``[L, ...]``
+    without ``lead``, L the layers named): each leaf allocated once on
+    the host and each tensor copied once into it.  With ``shapes_only``
+    the leaves are ``meta`` tensors of those shapes and dtypes, and
+    nothing is copied."""
     rows: dict = {}
     for name, t in named.items():
-        path, li = _jax_path(name)
+        path, li = _jax_path(name, lead)
         rows.setdefault(path, {})[li] = t
     tree: dict = {}
     for path, by_layer in rows.items():
         t0 = next(iter(by_layer.values()))
+        stack = lead if lead is not None else (len(by_layer),)
         if None in by_layer:
             shape = tuple(t0.shape)
-        elif sorted(by_layer) == list(range(len(by_layer))):
-            shape = (len(by_layer), *t0.shape)
+        elif sorted(by_layer) == list(np.ndindex(*stack)):
+            shape = (*stack, *t0.shape)
         else:
             raise KeyError(f"jax_tree: {'/'.join(path)} has the layer rows "
                            f"{sorted(by_layer)}")
@@ -155,10 +174,12 @@ def train_state_to_jax_tree(model, opt_state: dict | None = None, *,
     JAX's layout, as numpy copies on the host (``opt`` only when
     ``opt_state`` is given); with ``shapes_only``, as ``meta`` tensors
     (:func:`jax_tree`), the template a restore needs."""
+    lead = _lead(model)
     out = {"params": jax_tree(dict(model.named_parameters()),
-                              shapes_only=shapes_only)}
+                              shapes_only=shapes_only, lead=lead)}
     if opt_state is not None:
-        opt = {part: jax_tree(opt_state[part], shapes_only=shapes_only)
+        opt = {part: jax_tree(opt_state[part], shapes_only=shapes_only,
+                              lead=lead)
                for part in ("mu", "nu", "master") if part in opt_state}
         step = opt_state["step"]
         opt["step"] = (torch.empty_like(step, device="meta") if shapes_only

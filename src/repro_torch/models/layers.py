@@ -1,8 +1,8 @@
 """Transformer building blocks of the port: RMSNorm, RoPE, GQA attention
 and the SwiGLU/GELU MLP, in PyTorch, with a KV cache.
 
-Port of ``repro/models/layers.py`` (GQA and MLP; MLA is not ported
-yet).  Conventions, as in the JAX package:
+Port of ``repro/models/layers.py``: GQA and MLA attention and the MLP.
+Conventions, as in the JAX package:
 
 * every matrix is cast to bf16 (``COMPUTE_DTYPE``) at each product, as
   JAX casts its float32 parameters: the serving path stores its
@@ -20,7 +20,8 @@ the hand-written kernel ``kernels.flash_attention``; that is the route
 of ``attn_impl="flash"`` (the default).  Decode steps (Sq < Skv) run
 ``chunked_attention`` in torch ops, as the JAX package does everywhere.
 ``attn_impl="chunked"`` or ``"plain"`` sends prefill through the torch
-versions instead.
+versions instead.  MLA attention always takes a torch route (its qk and
+v head widths differ), ``chunked`` unless ``"plain"`` is asked for.
 """
 from __future__ import annotations
 
@@ -266,6 +267,103 @@ def gqa_cache_shape(cfg, batch, max_len, dtype=COMPUTE_DTYPE):
     hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     return {"k": ((batch, max_len, hkv, hd), dtype),
             "v": ((batch, max_len, hkv, hd), dtype)}
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (MiniCPM3 / DeepSeek-V2): low-rank compressed Q and KV;
+# the decode cache keeps only the compressed latent and the rope key
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """Multi-head latent attention (``layers.mla_init`` / ``mla_apply``):
+    ``wq_a [d, q_lora]``, ``wq_b [q_lora, H*(nope+rope)]``,
+    ``wkv_a [d, kv_lora+rope]``, ``wkv_b [kv_lora, H*(nope+vd)]`` and
+    ``wo [H*vd, d]`` of ``dtype``; ``q_norm`` and ``kv_norm`` float32
+    gains."""
+
+    def __init__(self, cfg, *, generator=None, device=None,
+                 dtype=COMPUTE_DTYPE):
+        super().__init__()
+        self.cfg = cfg
+        d, h, m = cfg.d_model, cfg.num_heads, cfg.mla
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        shapes = {"wq_a": (d, m.q_lora_rank),
+                  "wq_b": (m.q_lora_rank, h * qk),
+                  "wkv_a": (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                  "wkv_b": (m.kv_lora_rank,
+                            h * (m.qk_nope_head_dim + m.v_head_dim)),
+                  "wo": (h * m.v_head_dim, d)}
+        for name, shape in shapes.items():
+            setattr(self, name, _matrix(shape, generator, device,
+                                        dtype=dtype))
+        self.q_norm = _zeros_gain(m.q_lora_rank, device)
+        self.kv_norm = _zeros_gain(m.kv_lora_rank, device)
+
+    def forward(self, x, *, positions, cache=None, cache_index=None,
+                attn_chunk: int = 1024, attn_impl: str = "flash"):
+        return mla_apply(self, x, self.cfg, positions=positions,
+                         cache=cache, cache_index=cache_index,
+                         attn_chunk=attn_chunk, attn_impl=attn_impl)
+
+
+def mla_apply(p, x, cfg, *, positions, cache=None, cache_index=None,
+              attn_chunk: int = 1024, attn_impl: str = "flash"):
+    """cache: optional ``{ckv: [B, Smax, kv_lora], k_rope: [B, Smax, 1,
+    rope]}``, updated in place at ``cache_index`` (a host int).  Returns
+    (out, cache).
+
+    Attention is the torch ``chunked`` version for ``attn_impl``
+    ``"flash"`` and ``"chunked"`` (``"plain"``: plain), as JAX's
+    ``mla_apply`` calls ``layers.attention``: the qk head width
+    (nope + rope) differs from v's, which ``flash_attention`` does not
+    take.  With a cache, only the ``cache_index + S`` positions written
+    so far are decompressed (JAX decompresses all ``Smax`` and masks the
+    rest: the same values)."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
+    b, s, _ = x.shape
+    h, m = cfg.num_heads, cfg.mla
+    nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    r = m.kv_lora_rank
+    xc = x.to(COMPUTE_DTYPE)
+
+    cq = rms_norm(xc @ _c(p.wq_a), p.q_norm, cfg.norm_eps)
+    q = (cq @ _c(p.wq_b)).reshape(b, s, h, nope + rope_d)
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    q_full = torch.cat([q[..., :nope], q_rope], dim=-1)
+
+    ckv_full = xc @ _c(p.wkv_a)
+    ckv = rms_norm(ckv_full[..., :r], p.kv_norm, cfg.norm_eps)
+    k_rope = apply_rope(ckv_full[:, :, None, r:], positions,
+                        cfg.rope_theta)                    # [B,S,1,rope]
+    if cache is None:
+        q_offset, kv_len = 0, None
+    else:
+        ci = int(cache_index)
+        cache["ckv"][:, ci:ci + s] = ckv.to(cache["ckv"].dtype)
+        cache["k_rope"][:, ci:ci + s] = k_rope.to(cache["k_rope"].dtype)
+        q_offset, kv_len = ci, ci + s
+        ckv = cache["ckv"][:, :kv_len]
+        k_rope = cache["k_rope"][:, :kv_len]
+
+    # decompress k and v from the latent (MLA's FLOPs-for-memory trade)
+    skv = ckv.shape[1]
+    kv = (ckv @ _c(p.wkv_b)).reshape(b, skv, h, nope + vd)
+    k = torch.cat([kv[..., :nope],
+                   k_rope.expand(b, skv, h, rope_d)], dim=-1)
+    out = attention(q_full, k, kv[..., nope:],
+                    impl="plain" if attn_impl == "plain" else "chunked",
+                    causal=True, q_offset=q_offset, kv_len=kv_len,
+                    chunk=attn_chunk)
+    out = out.reshape(b, s, h * vd) @ _c(p.wo)
+    return out.to(x.dtype), cache
+
+
+def mla_cache_shape(cfg, batch, max_len, dtype=COMPUTE_DTYPE):
+    """``{name: (shape, dtype)}`` of one layer's latent cache."""
+    m = cfg.mla
+    return {"ckv": ((batch, max_len, m.kv_lora_rank), dtype),
+            "k_rope": ((batch, max_len, 1, m.qk_rope_head_dim), dtype)}
 
 
 # ---------------------------------------------------------------------------

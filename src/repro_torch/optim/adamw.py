@@ -23,6 +23,8 @@ from typing import Callable
 
 import torch
 
+from ..models.transformer import Transformer, layer_stack
+
 
 @dataclasses.dataclass(frozen=True)
 class OptConfig:
@@ -36,10 +38,21 @@ class OptConfig:
     master_weights: bool = False
 
 
-def leaf_ndim(name: str, p: torch.Tensor) -> int:
+def layer_dims(params) -> int:
+    """Dimensions JAX stacks a layer leaf over: those of
+    ``transformer.layer_stack`` for a model (2 for a hybrid's ``[G,
+    attn_every, ...]``), else 1 (``[L, ...]``)."""
+    if isinstance(params, Transformer):
+        return len(layer_stack(params.cfg))
+    return 1
+
+
+def leaf_ndim(name: str, p: torch.Tensor, stacked: int = 1) -> int:
     """``p.ndim`` as a leaf of JAX's tree: a module's per-layer parameter
-    (``layers.<i>.…``) is one row of a leaf stacked over layers."""
-    return p.ndim + int(name.startswith("layers."))
+    (``layers.<i>.…``) is one row of a leaf stacked over ``stacked``
+    dimensions (:func:`layer_dims`); the others (``shared_attn.…``,
+    ``embed``, …) are leaves of their own."""
+    return p.ndim + (stacked if name.startswith("layers.") else 0)
 
 
 def _named(params) -> dict:
@@ -93,6 +106,7 @@ def adamw_update(params, grads, state: dict, cfg: OptConfig):
         m  = m - lr * delta;  p = m cast to p's dtype
     """
     named = _named(params)
+    stacked = layer_dims(params)
     state["step"] += 1
     step = state["step"]
     lr = cfg.lr(step) if callable(cfg.lr) else cfg.lr
@@ -112,7 +126,7 @@ def adamw_update(params, grads, state: dict, cfg: OptConfig):
         nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         delta = (mu / bc1).div_(torch.sqrt(nu / bc2).add_(cfg.eps))
         mf = m.to(torch.float32)
-        if leaf_ndim(name, p) > 1:
+        if leaf_ndim(name, p, stacked) > 1:
             delta.add_(cfg.weight_decay * mf)
         new_m = mf - lr * delta
         if masters is not None:

@@ -14,12 +14,13 @@ import torch
 from ..models import transformer as T
 from ..models.layers import COMPUTE_DTYPE
 from ..optim import OptConfig, adamw_init, adamw_update
-from ..optim.adamw import leaf_ndim
+from ..optim.adamw import layer_dims, leaf_ndim
 
 
 def cross_entropy(logits, labels):
-    """logits: ``[B, S, V]``; labels: int ``[B, S]``.  The mean of
-    logsumexp minus the gold logit, reduced in float32."""
+    """logits: ``[B, S, V]`` (``[B, S, ncb, V]``); labels: int ``[B, S]``
+    (``[B, S, ncb]``).  The mean of logsumexp minus the gold logit,
+    reduced in float32."""
     logz = torch.logsumexp(logits.to(torch.float32), dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0] \
         .to(torch.float32)
@@ -28,14 +29,15 @@ def cross_entropy(logits, labels):
 
 def make_loss_fn(cfg, remat: bool = True, use_pallas_dispatch: bool = True):
     """``loss_fn(params, batch) -> (ce + aux, ce)``; ``use_pallas_dispatch``
-    False plans through the plain version (``transformer.forward``)."""
+    False plans through the plain version (``transformer.forward``).  A
+    vlm batch's ``prefix_emb`` goes in front of the tokens, and the
+    loss reads the logits from ``cfg.prefix_len`` on, as JAX's does."""
     def loss_fn(params, batch):
-        if batch.get("prefix_emb") is not None:
-            raise NotImplementedError(
-                "prefix_emb is not ported to repro_torch yet; see "
-                "ROADMAP.md, Queue 1 item 10")
-        logits, aux = T.forward(params, cfg, batch["tokens"], remat=remat,
+        logits, aux = T.forward(params, cfg, batch["tokens"],
+                                batch.get("prefix_emb"), remat=remat,
                                 use_pallas_dispatch=use_pallas_dispatch)
+        if cfg.prefix_len:
+            logits = logits[:, cfg.prefix_len:]
         ce = cross_entropy(logits, batch["labels"])
         return ce + aux, ce
     return loss_fn
@@ -88,7 +90,8 @@ def init_train_state(cfg, *, generator: torch.Generator, device=None,
     params = T.init(cfg, generator=generator, device=device,
                     param_dtype=torch.float32).requires_grad_()
     if master_weights:
+        stacked = layer_dims(params)
         for name, p in params.named_parameters():
-            if leaf_ndim(name, p) > 1:
+            if leaf_ndim(name, p, stacked) > 1:
                 p.data = p.data.to(COMPUTE_DTYPE)
     return params, adamw_init(params, master_weights=master_weights)

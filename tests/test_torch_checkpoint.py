@@ -297,6 +297,40 @@ def test_port_written_train_state_restores_in_jax(tmp_path):
         2e-3 * float(jm["loss"])
 
 
+def test_hybrid_train_state_round_trips(tmp_path):
+    """zamba2's float32 state after one port step: its layer leaves
+    stacked ``[G, attn_every, ...]`` and ``shared_attn`` whole, in JAX's
+    layout.  Saved by the port, restored bitwise by JAX's
+    ``restore_checkpoint`` into JAX's own template, and by the port into
+    a ``shapes_only`` template, then loaded into a fresh state bitwise
+    the saved one."""
+    arch = "zamba2-2.7b"
+    cfg = tconfigs.get_smoke_config(arch)
+    model, opt = tsteps.init_train_state(
+        cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+    data = SyntheticDataset(3, 2, 16, cfg.vocab_size)
+    model, opt, _ = tsteps.make_train_step(cfg, OptConfig(lr=3e-3))(
+        model, opt, torch_batch(data, 0))
+    saved = convert.train_state_to_jax_tree(model, opt)
+    g, a = cfg.num_layers // cfg.attn_every, cfg.attn_every
+    assert saved["params"]["layers"]["mamba"]["w_in"].shape[:2] == (g, a)
+    assert saved["opt"]["mu"]["shared_attn"]["attn"]["wq"].shape == \
+        tuple(model.shared_attn.attn.wq.shape)
+    save_checkpoint(str(tmp_path), 0, saved, extra={"arch": arch})
+    jp, jo = jsteps.init_train_state(jax.random.PRNGKey(0), jax_smoke(arch))
+    back, _ = jax_restore(str(tmp_path), 0, {"params": jp, "opt": jo})
+    assert_trees_bitwise(back, saved)
+    other, other_opt = tsteps.init_train_state(
+        cfg, generator=torch.Generator().manual_seed(2), device="cpu")
+    tmpl = convert.train_state_to_jax_tree(other, other_opt,
+                                           shapes_only=True)
+    mine, _ = restore_checkpoint(str(tmp_path), 0, tmpl)
+    convert.load_jax_tree(other, mine["params"])
+    other_opt = convert.opt_state_from_jax(mine["opt"], other)
+    assert_trees_bitwise(convert.train_state_to_jax_tree(other, other_opt),
+                         saved)
+
+
 def test_bf16_state_round_trips_in_port_only(tmp_path):
     """The H2 state (bf16 matrices, float32 masters): a port checkpoint
     restores in the port bitwise, and so does one JAX writes; JAX's own

@@ -114,6 +114,22 @@ def test_flash_attention_matches_jax(s, h, hkv, dtype, causal):
                                    rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("hd,h,hkv", [(80, 4, 4), (256, 4, 1)])
+def test_flash_attention_wide_heads_match_jax(hd, h, hkv):
+    """The head widths of zamba2's shared block (80) and paligemma (256,
+    GQA 8:1 there), which the simt kernel takes: the plain version
+    against the Pallas kernel (interpret mode), bf16, causal, at the
+    tolerance of ``test_flash_attention_matches_jax``."""
+    arrs = _qkv(hd, 1, 128, h, hkv, hd, "bfloat16")
+    got = tfa.flash_attention(*(torch.from_numpy(a).bfloat16()
+                                for a in arrs))
+    want = jflash(*(jnp.asarray(a, jnp.bfloat16) for a in arrs),
+                  causal=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2e-2,
+                               atol=2e-2)
+
+
 @pytest.mark.parametrize("s", [1, 37, 100])
 def test_flash_attention_ragged_lengths_match_the_jax_oracle(s):
     """Any S (the CUDA kernel masks the ragged edge; the TPU kernel
@@ -135,7 +151,7 @@ def test_flash_attention_validation():
         tfa.flash_attention(q, torch.zeros((1, 8, 3, 16)),
                             torch.zeros((1, 8, 3, 16)))
     with pytest.raises(ValueError, match="head dim"):
-        big = torch.zeros((1, 8, 2, 256))
+        big = torch.zeros((1, 8, 2, tfa.MAX_HEAD_DIM + 1))
         tfa.flash_attention(big, big, big)
     with pytest.raises(TypeError, match="dtype"):
         tfa.flash_attention(q, q.bfloat16(), q)
@@ -148,7 +164,8 @@ def test_flash_attention_validation():
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 16, "simt"), (torch.bfloat16, 96, "simt"),
     (torch.bfloat16, 32, "simt"), (torch.float32, 128, "simt"),
-    (torch.float32, 64, "simt")])
+    (torch.float32, 64, "simt"), (torch.bfloat16, 80, "simt"),
+    (torch.bfloat16, 256, "simt")])
 def test_flash_attention_route(dtype, hd, want):
     """bf16 at head width 64 or 128 goes to the wgmma kernel; float32
     (whose tolerance a TF32 product would break) and other widths to

@@ -413,8 +413,12 @@ def test_forward_refuses_flash_and_unported(arch):
     # the flash kernel, which has no backward
     with pytest.raises(TypeError, match="attn_impl"):
         tt.forward(model, cfg, tok, attn_impl="flash")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tt.forward(model, jax_smoke("mamba2-2.7b"), tok)
+    # every family trains now (tests/test_torch_arch.py): the SSM model
+    # takes the same call
+    ssm = tconfigs.get_smoke_config("mamba2-2.7b")
+    logits, _ = tt.forward(tsteps.init_train_state(
+        ssm, generator=torch.Generator(), device="cpu")[0], ssm, tok)
+    assert logits.shape == (1, 4, ssm.padded_vocab)
 
 
 # ---- training trajectory ---------------------------------------------------------
