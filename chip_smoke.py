@@ -9,17 +9,20 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card's name and power limit (``nvidia-smi``), then an ``nvcc``
-   build of every kernel source in the checkout, all in parallel;
+   build of every kernel source in the checkout, all in parallel, and
+   ptxas's 0 spill bytes in each instantiation of the wgmma flash
+   kernel (this run's report, or the one kept beside a reused
+   library);
 2. each CUDA kernel against its plain PyTorch version on the card over
    swept shapes: the index kernels exactly (tolerance 0: int32 and
    bit-copied outputs); the fused relax kernels ``twc_bin_relax`` and
    ``edge_lb_relax`` for every operator and pull twin, B in {1, 3, 8},
    every bin width and chunk, both deals, exactly for min and int add
    and within ``RELAX_FLOAT_RTOL`` for float add; ``flash_attention``
-   within ``FLASH_TOL`` on both routes (wgmma: bf16 at head width 64
-   and 128, ragged S included; simt: float32 and other widths), each
-   case counted on its route; ``moe_plan`` bitwise over T x (E, K) x G
-   x adaptive x (uniform, skewed, tied, NaN-row probabilities), every
+   within ``FLASH_TOL`` on both routes (wgmma: bf16 at head width 64,
+   80, 128 and 256, ragged S included; simt: float32 and other widths),
+   each case counted on its route; ``moe_plan`` bitwise over T x (E, K)
+   x G x adaptive x (uniform, skewed, tied, NaN-row probabilities), every
    cluster size the wrapper picks; the static round's device-int32
    entries (``twc_bin_relax`` with its first chunk and pass count on the
    device, over V rows; ``edge_lb_relax``, ``merge_path_map`` and
@@ -158,10 +161,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (hybrid)), one model on the card at a time, random bf16 weights from
    a seeded generator, 4 requests of 1024 prompt positions and 16
    greedy tokens, launch counts reset just before and read just after
-   (``flash_attention`` once an attention layer at prefill, on the
-   route its head width takes: wgmma at 64 and 128, simt at zamba2's
-   80 and paligemma's 256; ``moe_plan`` a layer a step for
-   llama4-scout; nothing else); finite logits of the expected shape;
+   (``flash_attention`` once an attention layer at prefill, all on its
+   wgmma route, zamba2's 80 and paligemma's 256 included, simt 0;
+   ``moe_plan`` a layer a step for llama4-scout; nothing else); finite
+   logits of the expected shape;
    the median of 2 runs, peak memory, syncing calls per decode step,
    the prefill's device busy share and, for the Mamba2 models, the SSD
    path's share of its device time; the first layer (and zamba2's
@@ -169,14 +172,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (``LAYER_RTOL``); then every kernel phase 7 launched against its
    plain version on the inputs phase 7 gave it, one call at each shape
    of each config (``moe_plan`` bitwise, ``flash_attention`` within
-   ``FLASH_TOL`` on both routes), each flash shape timed beside its
-   plain version, ``scaled_dot_product_attention`` and its bound;
+   ``FLASH_TOL``), each flash shape timed beside its plain version,
+   ``scaled_dot_product_attention`` and its bound;
 8. a ``{"kernels": [...]}`` line (``moe_plan``'s launches of phases 5,
    6 and 7, its phase 7 checks and its training-shape times;
    ``flash_attention``'s wgmma launches of phases 5 and 7 with each
-   phase 7 shape's error and times, its simt rows), the ``nvidia-smi`` name
-   and power limit line again, and last the ``{"ok": true, "device":
-   {...}}`` line.
+   phase 7 shape's error and times), the ``nvidia-smi`` name and power
+   limit line again, and last the ``{"ok": true, "device": {...}}``
+   line.
 
 Imports neither ``jax`` nor the JAX package ``repro``.
 """
@@ -612,10 +615,10 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 def lm_kernels_vs_plain(dev) -> dict:
     """``positions_in_expert`` exactly over N x E x (uniform, one-expert,
     out-of-range ids); ``flash_attention`` over S x (H, Hkv) x hd x
-    causal x dtype, and bf16 hd = 128 at S = 127, 129 and 1000 (the
-    wgmma route's ragged tiles), within ``FLASH_TOL``, each launch
-    counted on the route ``flash_attention.route`` gives it.  Returns
-    the max errors."""
+    causal x dtype, and bf16 hd = 80, 128 and 256 at S = 127, 129 and
+    1000 (the wgmma route's ragged tiles), within ``FLASH_TOL``, each
+    launch counted on the route ``flash_attention.route`` gives it.
+    Returns the max errors."""
     import torch
     from repro_torch.kernels import flash_attention, moe_dispatch, ref
     rng = np.random.default_rng(1)
@@ -641,9 +644,11 @@ def lm_kernels_vs_plain(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     sweep = [(s, hd, dtype) for s in (1, 100, 128, 1024, 2048)
              for hd in (16, 64, 128) for dtype in ("bfloat16", "float32")]
-    sweep += [(s, 128, "bfloat16") for s in (127, 129, 1000)]
-    # the simt route's wide heads: zamba2's 80 (run at its 128
-    # instantiation) and paligemma's 256
+    sweep += [(s, hd, "bfloat16") for s in (127, 129, 1000)
+              for hd in (80, 128, 256)]
+    # the wide heads, zamba2's 80 and paligemma's 256: bf16 on the wgmma
+    # route (16-lane boxes at 80, 64-key tiles at 256), float32 on the
+    # simt route's 128 and 256 instantiations
     sweep += [(s, hd, dtype) for s in (1, 100, 1024) for hd in (80, 256)
               for dtype in ("bfloat16", "float32")]
     for s, hd, dtype in sweep:
@@ -4083,19 +4088,16 @@ def serve_all(dev, smoke: bool = False, length: int = SERVE_LEN) -> dict:
     return out
 
 
-def check_served_kernels(served: dict, lm_rows: list) -> list:
+def check_served_kernels(served: dict, lm_rows: list) -> None:
     """Every kernel phase 7 launched, against its plain version on the
     inputs phase 7 gave it (the first call at each shape of each
-    config): ``moe_plan`` bitwise, ``flash_attention`` on both routes
-    within ``FLASH_TOL``.  The wgmma route's results join phase 4's
-    ``flash_attention`` row (``phase7``, by config; its ``max_abs_err``
-    becomes the largest over phases 5 and 7), and so do ``moe_plan``'s;
-    the simt route's (zamba2's hd 80, paligemma's 256) come back as rows
-    of their own.  Each is timed beside its plain version,
-    ``scaled_dot_product_attention`` and its bound."""
+    config): ``moe_plan`` bitwise, ``flash_attention`` (every served
+    width on its wgmma route) within ``FLASH_TOL``.  The results join
+    phase 4's rows (``phase7``, by config; ``max_abs_err`` becomes the
+    largest over phases 5 and 7).  Each flash shape is timed beside its
+    plain version, ``scaled_dot_product_attention`` and its bound."""
     from repro_torch.kernels import flash_attention, moe_plan, ref
     by_name = {r["name"]: r for r in lm_rows}
-    rows = []
     for arch, res in served.items():
         for a, k in res["kept"]["moe_plan"]:
             err = plan_err(moe_plan.moe_plan(*a, **k),
@@ -4112,15 +4114,18 @@ def check_served_kernels(served: dict, lm_rows: list) -> list:
         for a, k in res["kept"]["flash_attention"]:
             q = a[0]
             route = flash_attention.route(q.dtype, q.shape[-1])
+            check(route == "wgmma", f"flash_attention at {arch}'s shapes "
+                  f"takes the {route} route, expected wgmma")
             err = float((flash_attention.flash_attention(*a, **k).float()
                          - ref.flash_attention_ref(*a, **k).float())
                         .abs().max())
-            check(err <= FLASH_TOL["bfloat16"], f"flash_attention ({route})"
-                  f" at {arch}'s shapes != plain: {err}")
+            check(err <= FLASH_TOL["bfloat16"], f"flash_attention at "
+                  f"{arch}'s shapes != plain: {err}")
             byts, ops = fa_work(a, k)
             t_b = byts / HBM_BYTES_PER_S * 1e3
             t_o = ops / BF16_FLOPS_PER_S * 1e3
-            entry = {
+            row = by_name["flash_attention"]
+            row.setdefault("phase7", {})[arch] = {
                 "launches": res["flash_launches_by_route"][route],
                 "max_abs_err": err,
                 "ms": device_ms(flash_attention.flash_attention, [(a, k)]),
@@ -4130,18 +4135,26 @@ def check_served_kernels(served: dict, lm_rows: list) -> list:
                 "bound_by": "bytes" if t_b >= t_o else "operations",
                 "library_ms": device_ms(sdpa, [(a, k)]),
                 "shape": [list(t.shape) for t in a[:2]]}
-            if route == "wgmma":
-                row = by_name["flash_attention"]
-                row.setdefault("phase7", {})[arch] = entry
-                row["max_abs_err"] = max(row["max_abs_err"], err)
-                continue
-            rows.append({
-                "name": f"flash_attention (simt, hd {q.shape[-1]})",
-                "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-                "replaces": "src/repro/kernels/flash_attention.py:68",
-                **entry, "arch": arch})
-    return rows
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+
+
+def check_wgmma_spills(log) -> None:
+    """Phase 1: ptxas's report of ``flash_attention_wgmma`` (this run's
+    build, or the one kept beside a reused library) shows one
+    instantiation per head width of the wgmma route, each with 0 spill
+    bytes."""
+    import re
+    from repro_torch.kernels.flash_attention import WGMMA_HEAD_DIMS
+    check(log is not None, "flash_attention_wgmma: no ptxas report")
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                        r"loads", log)
+    check(len(spills) == len(WGMMA_HEAD_DIMS) and
+          all(st == ld == "0" for st, ld in spills),
+          f"flash_attention_wgmma: ptxas spills {spills}, expected 0 "
+          f"bytes for each of hd {WGMMA_HEAD_DIMS}")
+    print(f"phase 1: flash_attention_wgmma: 0 spill bytes in each of its "
+          f"{len(spills)} instantiations (hd {WGMMA_HEAD_DIMS})",
+          flush=True)
 
 
 def main() -> int:
@@ -4174,6 +4187,7 @@ def main() -> int:
                 "Performance" in ln]
         print(f"phase 1: {name}: {' | '.join(info)}", flush=True)
     built = len(build.BUILD_LOG)
+    check_wgmma_spills(build.build_log("flash_attention_wgmma"))
 
     errs = kernel_vs_plain(dev)
     relax_vs_plain(dev)
@@ -4302,18 +4316,27 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     served = serve_all(dev)
-    simt_rows = check_served_kernels(served, lm_rows)
+    simt7 = {a: r["flash_launches_by_route"]["simt"]
+             for a, r in served.items()}
+    check(not any(simt7.values()), f"phase 7 launched the simt kernel: "
+          f"{simt7}, expected none (every served width is on wgmma)")
+    check_served_kernels(served, lm_rows)
     by_name = {r["name"]: r for r in lm_rows}
     fa7 = [{"name": f"{by_name['flash_attention']['name']} (wgmma)", **r,
             "arch": arch}
            for arch, r in by_name["flash_attention"].get("phase7", {}).items()]
-    for r in fa7 + simt_rows:
+    for r in fa7:
         print(f"phase 4: {r['name']} at {r['arch']}'s prefill {r['shape']}: "
               f"{r['ms']:.4f} ms per launch (plain {r['plain_ms']:.4f} ms, "
               f"scaled_dot_product_attention {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}); max "
               f"error against plain {r['max_abs_err']}; {r['launches']} "
               f"launches in phase 7", flush=True)
+    print("phase 4: flash_attention at phase 7's shapes, ms (bound, "
+          "SDPA): " + "; ".join(
+              f"{r['arch']} {r['name'].split('(')[-1].rstrip(')')} "
+              f"{r['ms']:.4f} ({r['bound_ms']:.4f}, {r['library_ms']:.4f})"
+              for r in fa7), flush=True)
     for r in by_name["moe_plan"].get("phase7", []):
         print(f"phase 4: moe_plan at {r['arch']}'s {r['shape']} (top_k "
               f"{r['top_k']}, cluster {r['cluster']}): max error against "
@@ -4333,7 +4356,7 @@ def main() -> int:
     for r in served.values():
         r.pop("kept")
     print(json.dumps({"serve_archs": served}), flush=True)
-    print(json.dumps({"kernels": rows + lm_rows + simt_rows}), flush=True)
+    print(json.dumps({"kernels": rows + lm_rows}), flush=True)
     print(card, flush=True)              # as nvidia-smi prints it
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,9 +18,9 @@
   off the main path since ``moe_plan``);
 * ``flash_attention.flash_attention`` — the prefill attention of the LM
   serving path, two CUDA C++ kernels chosen by ``flash_attention.route``:
-  ``csrc/flash_attention_wgmma.cu`` (bf16, head width 64 or 128: TMA
-  and ``wgmma``) and ``csrc/flash_attention.cu`` (float32 and other
-  head widths: CUDA cores);
+  ``csrc/flash_attention_wgmma.cu`` (bf16, head width 64, 80, 128 or
+  256: TMA and ``wgmma``) and ``csrc/flash_attention.cu`` (float32 and
+  other head widths: CUDA cores);
 * ``csrc/graph_loop.cu``        — no TPU kernel: the conditional graph
   nodes (IF, WHILE) and their condition kernel, for
   ``core.graph_loop``'s device control flow;

@@ -5,7 +5,8 @@ shared library with a plain C interface, and loaded with ``ctypes``.
 The libraries go to ``<repo>/build/repro_torch/`` (listed in
 ``.gitignore``), named by a hash of the source, every ``csrc/*.cuh``
 header and the flags, so a changed source or header is rebuilt and an
-unchanged one is reused.  Every source builds with ``NVCC_FLAGS`` alone:
+unchanged one is reused; each build's ``nvcc`` output is kept beside its
+library (:func:`build_log`).  Every source builds with ``NVCC_FLAGS`` alone:
 none needs an include path or a library of its own (the wgmma kernel
 reaches the CUDA driver's tensor-map encoder through the runtime).
 Nothing is built when this module is imported: :func:`load_all` builds
@@ -63,10 +64,10 @@ def _lib_path(name: str) -> Path:
 
 
 def _start(name: str):
-    """Start ``nvcc`` for one source unless its library exists; returns
-    ``(name, out, tmp, process)`` or None."""
+    """Start ``nvcc`` for one source unless its library and that build's
+    log exist; returns ``(name, out, tmp, process)`` or None."""
     out = _lib_path(name)
-    if out.exists():
+    if out.exists() and out.with_suffix(".log").exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -84,7 +85,19 @@ def _finish(job) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    tmp.with_suffix(".log").write_text(log)
+    os.replace(tmp.with_suffix(".log"), out.with_suffix(".log"))
     os.replace(tmp, out)                # atomic: readers never see half
+
+
+def build_log(name: str):
+    """The ``nvcc`` output (ptxas report) of ``csrc/<name>.cu``'s library:
+    this process's build, else the log kept beside the library when it
+    was built; None if neither exists."""
+    if name in BUILD_LOG:
+        return BUILD_LOG[name]
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else None
 
 
 def check_vec(kernel: str, name: str, t, n: int, device,

@@ -1,8 +1,8 @@
 // flash_attention: causal or non-causal attention forward with an
 // online softmax, grouped-query heads, for Hopper (sm_90a), on the CUDA
 // cores: the "simt" route of kernels/flash_attention.py, which takes
-// float32 and the head widths other than 64 and 128 (bf16 at 64 and 128
-// takes flash_attention_wgmma.cu).
+// float32 and the head widths other than 64, 80, 128 and 256 (bf16 at
+// those takes flash_attention_wgmma.cu).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:68
 // (flash_attention; kernel body _flash_kernel at :28).  For q [B,S,H,hd]

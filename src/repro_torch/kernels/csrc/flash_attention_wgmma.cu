@@ -1,5 +1,5 @@
 // flash_attention_wgmma: causal or non-causal attention forward in bf16
-// for head widths 64 and 128, on Hopper's tensor cores (sm_90a).
+// for head widths 64, 80, 128 and 256, on Hopper's tensor cores (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:68
 // (flash_attention; kernel body _flash_kernel at :28) on the bf16 route;
@@ -14,37 +14,49 @@
 // zero-fills rows and keys past S, keys past S are masked and rows past
 // S are not stored.
 //
-// What bounds it on this card: bytes.  At the prefill shape (B=4,
-// S=1024, H=16, hd=128, causal) it must read q, k, v and write out,
-// 67.1 MB, 0.0200 ms at 3.35 TB/s; its 17.2 GFLOP of q.k and p.v over
-// the lower triangle take 0.0174 ms at 989 TFLOP/s.  Both are close, so
-// the design keeps the products on the tensor cores, the loads off the
-// threads and the softmax in the products' shadow:
+// What bounds it on this card: bytes, closely followed by operations.
+// At the prefill shape (B=4, S=1024, H=16, hd=128, causal) it must read
+// q, k, v and write out, 67.1 MB, 0.0200 ms at 3.35 TB/s; its 17.2
+// GFLOP of q.k and p.v over the lower triangle take 0.0174 ms at 989
+// TFLOP/s (at hd 256 with GQA 8:1 the operations bound).  So the design
+// keeps the products on the tensor cores, the loads off the threads and
+// the softmax in the products' shadow:
 //
 // * A persistent grid, one block of three warpgroups per SM.  The work
 //   items (batch*head, 128-query block) are ordered heaviest query
 //   block first and dealt to the blocks in a snake (Work::item).
 // * Warpgroup 0 is the producer: one thread issues the TMA loads (each
 //   item's Q once, into a buffer that an mbarrier releases after the
-//   item's last q.k; K and V tiles of 128 keys into a two-stage ring,
-//   each tile with its own "full" mbarrier and K and V each released by
-//   an "empty" mbarrier that lane 0 of every consumer warp arrives on),
-//   running ahead across items, so the next item's loads overlap this
-//   item's last tile and its stores.  The warpgroup gives its registers
-//   to the consumers (setmaxnreg 24 / 240).  Warpgroups 1 and 2 each
-//   own 64 query rows of the item, and store them through a shared
-//   staging buffer by TMA, asynchronously.
+//   item's last q.k; K and V tiles into a two-stage ring, each tile with
+//   its own "full" mbarrier and K and V each released by an "empty"
+//   mbarrier that lane 0 of every consumer warp arrives on), running
+//   ahead across items, so the next item's loads overlap this item's
+//   last tile and its stores.  The warpgroup gives its registers to the
+//   consumers (setmaxnreg 24 / 240).  Warpgroups 1 and 2 each own 64
+//   query rows of the item, and store them through a shared staging
+//   buffer by TMA, asynchronously.
+// * Tile geometry by head width (Geo), every width exact, none padded:
+//   a tile row is TMA boxes of 64 lanes (128 bytes) in the 128-byte
+//   swizzle where 64 divides hd (64: one box, 128: two, 256: four), and
+//   of 16 lanes (32 bytes) in the 32-byte swizzle at hd 80 (five
+//   boxes: 80 = 5 x 16, a depth and a width that wgmma takes).  Each
+//   wgmma descriptor carries its box's layout type and row stride.  K
+//   and V tiles are 128 keys, and 64 at hd 256, where 128-key tiles
+//   would need 384 KB; at 64 keys q 64 KB + K 64 KB + V 64 KB and O
+//   staged in two passes of 16 KB per consumer take 231,424 of the
+//   232,448 bytes a block may use (a static_assert holds every width).
 // * Tensor maps over the tensors' real strides, [B, S, H(kv), hd], with
-//   the head in the box coordinate, 64-lane boxes (128 bytes) in the
-//   128-byte swizzle that wgmma reads; hd = 128 is two boxes.  They are
-//   encoded on the host (cuTensorMapEncodeTiled through the runtime's
-//   driver entry point), cached per (pointer, shape, box height) and
-//   passed as __grid_constant__ parameters.
-// * S = Q K^T: wgmma m64n128k16 with Q and K both K-major in shared
-//   memory.  O += P V: P goes from the score registers to bf16 pairs in
-//   registers as the A operand (the accumulator layout is the A
-//   layout); V is read from shared memory as an MN-major B with the
-//   transpose bit.  Tile kt's q.k is issued with tile kt-1's p.v, and
+//   the head in the box coordinate; encoded on the host
+//   (cuTensorMapEncodeTiled through the runtime's driver entry point),
+//   cached per (pointer, shape, box width, box height) and passed as
+//   __grid_constant__ parameters.
+// * S = Q K^T: wgmma m64nBKk16 (BK = 128 or 64 keys), hd / 16 steps,
+//   with Q and K both K-major in shared memory.  O += P V: P goes from
+//   the score registers to bf16 pairs in registers as the A operand (the
+//   accumulator layout is the A layout); V is read from shared memory as
+//   an MN-major B with the transpose bit, its boxes a leading byte
+//   offset apart: m64n64k16, n80 (five 16-lane boxes), n128, or two
+//   n128 at hd 256.  Tile kt's q.k is issued with tile kt-1's p.v, and
 //   tile kt's softmax runs while that p.v is on the tensor cores; the
 //   two consumer warpgroups take turns to issue (named barriers 1 and
 //   2, FA3's ping-pong), so one's softmax overlaps the other's
@@ -54,12 +66,14 @@
 //   masked score is -inf and contributes exactly 0 (a row with nothing
 //   visible yet keeps max -inf, sum 0, acc 0: the guard of
 //   layers.chunked_attention).  Causal: key tiles wholly above the
-//   diagonal are not loaded; only the last tile (the diagonal, or the
-//   keys past S) is masked.  Output = acc / max(sum, 1e-30).
+//   item's last row are not loaded; a warpgroup masks the tiles that
+//   reach past S or past its first row (the diagonal; with 64-key tiles
+//   warpgroup 0's last tile is masked whole).  Output = acc / max(sum,
+//   1e-30).
 //
 // Not done (ROADMAP): a dynamic tile scheduler, overlap of one item's
-// first q.k with the last p.v of the one before, and skipping the half
-// of the diagonal tile that lies above warpgroup 0's rows (a branch
+// first q.k with the last p.v of the one before, and skipping the part
+// of the diagonal tiles that lies above warpgroup 0's rows (a branch
 // around wgmma there makes ptxas serialize every wgmma of the kernel).
 // The kernel allocates nothing and launches on the caller's stream.
 #include <cuda.h>
@@ -74,19 +88,40 @@
 
 namespace {
 
-constexpr int kBQ = 128;                 // query rows per block
-constexpr int kBK = 128;                 // keys per tile
+constexpr int kBQ = 128;                 // query rows per work item
 constexpr int kStages = 2;               // K/V ring depth
 constexpr int kThreads = 384;            // producer + 2 consumer warpgroups
-constexpr int kBox = 64;                 // lanes per TMA box: 128 bytes
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr size_t kSmemMax = 232448;      // shared memory a block may use
+
+// The tile geometry of one head width.  A row of a tile is kNB TMA
+// boxes of kBox lanes, each box row kBox * 2 bytes in the swizzle of
+// that span: 64 lanes in the 128-byte swizzle where 64 divides hd, else
+// 16 lanes in the 32-byte swizzle (hd 80 = 5 x 16, a wgmma depth and
+// width).  K/V tiles hold kBK keys: 64 at hd 256, where 128 would not
+// fit in shared memory, else 128.  O leaves in kOPass passes through a
+// staging buffer of kNB / kOPass boxes per consumer.
+template <int HD>
+struct Geo {
+  static constexpr int kBox = HD % 64 == 0 ? 64 : 16;
+  static constexpr int kRowBytes = kBox * 2;
+  static constexpr int kNB = HD / kBox;
+  static constexpr int kBK = HD > 128 ? 64 : 128;
+  static constexpr int kOPass = HD > 128 ? 2 : 1;
+  // wgmma descriptor layout type (1 = B128, 3 = B32) and the stride of
+  // eight rows of a box
+  static constexpr uint32_t kLayout = kBox == 64 ? 1 : 3;
+  static constexpr uint32_t kSBO = 8 * kRowBytes;
+  static_assert(HD % kBox == 0 && kNB % kOPass == 0, "tile geometry");
+};
 
 template <int HD>
 struct alignas(1024) Smem {
-  __nv_bfloat16 q[HD / kBox][kBQ * kBox];            // 16 KB boxes
-  __nv_bfloat16 k[kStages][HD / kBox][kBK * kBox];
-  __nv_bfloat16 v[kStages][HD / kBox][kBK * kBox];
-  __nv_bfloat16 o[2][HD / kBox][64 * kBox];          // per consumer, 8 KB
+  using G = Geo<HD>;
+  __nv_bfloat16 q[G::kNB][kBQ * G::kBox];
+  __nv_bfloat16 k[kStages][G::kNB][G::kBK * G::kBox];
+  __nv_bfloat16 v[kStages][G::kNB][G::kBK * G::kBox];
+  __nv_bfloat16 o[2][G::kNB / G::kOPass][64 * G::kBox];   // per consumer
   uint64_t q_full, q_empty, k_full[kStages], v_full[kStages];
   uint64_t k_empty[kStages], v_empty[kStages];
 };
@@ -155,13 +190,14 @@ __device__ __forceinline__ void tma_store_drain() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
-// address, leading and stride byte offsets (all >> 4), layout 1 = B128
+// wgmma shared-memory descriptor of a swizzled tile: start address,
+// leading and stride byte offsets (all >> 4), layout type (Geo::kLayout)
 __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo, uint32_t layout) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
          static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+         static_cast<uint64_t>(sbo >> 4) << 32 |
+         static_cast<uint64_t>(layout) << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -207,6 +243,12 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// the float32 accumulator operands of a wgmma, eight at a time
+#define WG_ACC8(i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_ACC32(i) WG_ACC8(i), WG_ACC8(i + 8), WG_ACC8(i + 16), WG_ACC8(i + 24)
+
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A and B K-major in shared
 // memory (descriptors), D float32 in registers; accumulate = 0 sets D
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
@@ -214,27 +256,27 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : WG_ACC32(0), WG_ACC32(32)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: as wgmma_ss_n128, for 64 keys
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32(0)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -246,103 +288,122 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : WG_ACC32(0), WG_ACC32(32)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers (bf16 pairs in
-// the accumulator layout), B MN-major in shared memory (transpose bit)
+// D[64 x 80] += A[64 x 16] B[16 x 80]: as wgmma_rs_n128, 80 lanes
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+      "%39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : WG_ACC32(0), WG_ACC8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64]: as wgmma_rs_n128, 64 lanes
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+      : WG_ACC32(0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// ---- one consumer warpgroup's steps over a 128-key tile ----
+// a float[N] window of a larger accumulator, as a wgmma operand
+template <int N, int M>
+__device__ __forceinline__ float (&part(float (&d)[M], int at))[N] {
+  return *reinterpret_cast<float(*)[N]>(&d[at]);
+}
 
-// S = Q K^T over hd in steps of 16 (32 bytes into a 128-byte row)
+// ---- one consumer warpgroup's steps over a tile of BK keys ----
+
+// S = Q K^T over hd in steps of 16 lanes (32 bytes of a box row)
 template <int HD>
-__device__ __forceinline__ void issue_qk(float (&s)[kBK / 2],
+__device__ __forceinline__ void issue_qk(float (&s)[Geo<HD>::kBK / 2],
                                          const __nv_bfloat16* q_rows,
                                          const __nv_bfloat16* k_tile) {
+  using G = Geo<HD>;
+  constexpr int kSteps = G::kBox / 16;   // k16 steps in a box row
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    const int box = kk / 4, off = (kk % 4) * 16;
-    wgmma_ss_n128(s, smem_desc(q_rows + box * kBQ * kBox + off, 16, 1024),
-                  smem_desc(k_tile + box * kBK * kBox + off, 16, 1024),
-                  kk > 0);
+    const int box = kk / kSteps, off = (kk % kSteps) * 16;
+    const uint64_t da = smem_desc(q_rows + box * kBQ * G::kBox + off, 16,
+                                  G::kSBO, G::kLayout);
+    const uint64_t db = smem_desc(k_tile + box * G::kBK * G::kBox + off, 16,
+                                  G::kSBO, G::kLayout);
+    if constexpr (G::kBK == 128)
+      wgmma_ss_n128(s, da, db, kk > 0);
+    else
+      wgmma_ss_n64(s, da, db, kk > 0);
   }
   wgmma_commit();
 }
 
-// O += P V over the tile's keys in steps of 16 (2 KB of V rows)
+// O += P V over the tile's keys in steps of 16 (16 rows of each V box);
+// V is MN-major: the leading byte offset steps from box to box
 template <int HD>
-__device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
-                                         const uint32_t (&p)[kBK / 16][4],
-                                         const __nv_bfloat16* v_tile) {
+__device__ __forceinline__ void issue_pv(
+    float (&acc)[HD / 2], const uint32_t (&p)[Geo<HD>::kBK / 16][4],
+    const __nv_bfloat16* v_tile) {
+  using G = Geo<HD>;
+  constexpr uint32_t kBoxBytes = G::kBK * G::kRowBytes;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    const uint64_t dv =
-        smem_desc(v_tile + kk * 16 * kBox, kBK * kBox * 2, 1024);
-    if constexpr (HD == 128)
+  for (int kk = 0; kk < G::kBK / 16; ++kk) {
+    const __nv_bfloat16* rows = v_tile + kk * 16 * G::kBox;
+    const uint64_t dv = smem_desc(rows, kBoxBytes, G::kSBO, G::kLayout);
+    if constexpr (HD == 256) {           // two n128 halves, two boxes each
+      wgmma_rs_n128(part<64>(acc, 0), p[kk], dv);
+      wgmma_rs_n128(part<64>(acc, 64), p[kk],
+                    smem_desc(rows + 2 * G::kBK * G::kBox, kBoxBytes,
+                              G::kSBO, G::kLayout));
+    } else if constexpr (HD == 128) {
       wgmma_rs_n128(acc, p[kk], dv);
-    else
+    } else if constexpr (HD == 80) {
+      wgmma_rs_n80(acc, p[kk], dv);
+    } else {
       wgmma_rs_n64(acc, p[kk], dv);
+    }
   }
   wgmma_commit();
 }
 
 // One online-softmax step in float32 on a tile's scores: scale, mask
-// (the edge tile only), and turn s into the bf16-rounded probabilities
+// (edge tiles only), and turn s into the bf16-rounded probabilities
 // exp2(s - max) that P V multiplies; the row sums take those same values,
 // so the output stays a weighted average of V's rows.  `rescale` is the
 // factor that takes the output to the new max.  This thread's rows are
 // r0 and r0 + 8; its columns in each 8-wide group c0 and c0 + 1.
-__device__ __forceinline__ void softmax_step(float (&s)[kBK / 2],
+template <int BK>
+__device__ __forceinline__ void softmax_step(float (&s)[BK / 2],
                                              float (&m)[2], float (&l)[2],
                                              float (&rescale)[2], bool edge,
                                              int k0, int r0, int c0, int S,
                                              int causal, float qscale) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int r = 0; r < kBK / 2; ++r) {
+  for (int r = 0; r < BK / 2; ++r) {
     float x = s[r];
     if (edge) {
       const int col = k0 + 8 * (r / 4) + c0 + (r & 1);
@@ -364,7 +425,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[kBK / 2],
     l[i] *= rescale[i];                  // this thread's part of the sum
   }
 #pragma unroll
-  for (int r = 0; r < kBK / 2; r += 2) {
+  for (int r = 0; r < BK / 2; r += 2) {
     const int i = (r >> 1) & 1;
     const float2 pf = __bfloat1622float2(__floats2bfloat162_rn(
         exp2_approx(fmaf(s[r], qscale, -m_use[i])),      // masked: 0
@@ -377,10 +438,11 @@ __device__ __forceinline__ void softmax_step(float (&s)[kBK / 2],
 
 // the probabilities as wgmma A fragments: the accumulator layout of 16
 // keys is the A layout, so fragment kk is registers 8kk .. 8kk + 7
-__device__ __forceinline__ void pack_p(const float (&s)[kBK / 2],
-                                       uint32_t (&p)[kBK / 16][4]) {
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
+                                       uint32_t (&p)[BK / 16][4]) {
 #pragma unroll
-  for (int r = 0; r < kBK / 2; r += 2) {
+  for (int r = 0; r < BK / 2; r += 2) {
     const __nv_bfloat162 pb = __floats2bfloat162_rn(s[r], s[r + 1]);
     memcpy(&p[r / 8][(r / 2) % 4], &pb, 4);          // exact: already bf16
   }
@@ -403,6 +465,8 @@ struct Item {
   int b, h, hk, q0, n_tiles;
 };
 
+// an item and its count of BK-key tiles: up to its last row if causal
+template <int BK>
 __device__ __forceinline__ Item decode(const Work& w, int item) {
   Item it;
   const int bh = item % w.n_bh;
@@ -411,7 +475,7 @@ __device__ __forceinline__ Item decode(const Work& w, int item) {
   it.hk = it.h / (w.H / w.Hkv);
   it.q0 = (w.nqb - 1 - item / w.n_bh) * kBQ;
   const int q_last = min(it.q0 + kBQ, w.S) - 1;
-  it.n_tiles = w.causal ? q_last / kBK + 1 : (w.S + kBK - 1) / kBK;
+  it.n_tiles = w.causal ? q_last / BK + 1 : (w.S + BK - 1) / BK;
   return it;
 }
 
@@ -422,8 +486,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap to, const Work w,
                    float qscale) {
-  constexpr int NB = HD / kBox;          // boxes per row of a tile
-  constexpr uint32_t kTileBytes = kBK * HD * 2;
+  using G = Geo<HD>;
+  constexpr int BK = G::kBK, NB = G::kNB, kBox = G::kBox;
+  constexpr uint32_t kTileBytes = BK * HD * 2;
   extern __shared__ unsigned char smem_raw[];
   Smem<HD>& sm = *reinterpret_cast<Smem<HD>*>(
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
@@ -453,7 +518,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid != 0) return;
     int g = 0;                           // ring position of the next tile
     for (int j = 0; w.item(j) < w.n_items; ++j) {
-      const Item it = decode(w, w.item(j));
+      const Item it = decode<BK>(w, w.item(j));
       if (j > 0) mbar_wait(&sm.q_empty, (j - 1) & 1);
       mbar_expect_tx(&sm.q_full, kBQ * HD * 2);
 #pragma unroll
@@ -468,14 +533,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int i = 0; i < NB; ++i)
           tma_load(sm.k[st][i], &tk, &sm.k_full[st], i * kBox, it.hk,
-                   kt * kBK, it.b);
+                   kt * BK, it.b);
         if (g >= kStages)                // V of tile g - kStages read
           mbar_wait(&sm.v_empty[st], parity);
         mbar_expect_tx(&sm.v_full[st], kTileBytes);
 #pragma unroll
         for (int i = 0; i < NB; ++i)
           tma_load(sm.v[st][i], &tv, &sm.v_full[st], i * kBox, it.hk,
-                   kt * kBK, it.b);
+                   kt * BK, it.b);
       }
     }
     return;
@@ -499,7 +564,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (cw == 1) bar_arrive(1);            // warpgroup 0 issues first
   int g0 = 0;                            // ring position of the item's tile 0
   for (int j = 0; w.item(j) < w.n_items; ++j) {
-    const Item it = decode(w, w.item(j));
+    const Item it = decode<BK>(w, w.item(j));
     const int n = it.n_tiles;
     // warpgroup 1 lets warpgroup 0 issue after each of its issues, but
     // the very last: each bar.sync then meets one bar.arrive
@@ -507,12 +572,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     auto hand_over = [&](int kt) {
       if (cw == 0 || !final_item || kt < n - 1) bar_arrive(2 - cw);
     };
+    // a tile is masked if it holds keys past S or, causal, keys past
+    // this warpgroup's first row (with 64-key tiles that is the last two
+    // tiles of warpgroup 0, whose last one is masked whole: both
+    // warpgroups issue every tile of the item)
+    const int row0 = it.q0 + 64 * cw;
     auto edge = [&](int kt) {
-      return kt == n - 1 && (causal || S % kBK != 0);
+      const int k_end = (kt + 1) * BK;
+      return k_end > S || (causal && k_end - 1 > row0);
     };
-    const int r0 = it.q0 + 64 * cw + 16 * warp + lane / 4;
-    float acc[HD / 2], s[kBK / 2];
-    uint32_t p[kBK / 16][4];
+    const int r0 = row0 + 16 * warp + lane / 4;
+    float acc[HD / 2], s[BK / 2];
+    uint32_t p[BK / 16][4];
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rescale[2];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
@@ -526,8 +597,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(s);
     release(&sm.k_empty[g0 % kStages]);
     if (n == 1) release(&sm.q_empty);
-    softmax_step(s, m, l, rescale, edge(0), 0, r0, c0, S, causal, qscale);
-    pack_p(s, p);
+    softmax_step<BK>(s, m, l, rescale, edge(0), 0, r0, c0, S, causal,
+                     qscale);
+    pack_p<BK>(s, p);
 
     for (int kt = 1; kt < n; ++kt) {
       const int g = g0 + kt;
@@ -544,13 +616,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(s);
       release(&sm.k_empty[st]);
       if (kt == n - 1) release(&sm.q_empty);
-      softmax_step(s, m, l, rescale, edge(kt), kt * kBK, r0, c0, S, causal,
-                   qscale);
+      softmax_step<BK>(s, m, l, rescale, edge(kt), kt * BK, r0, c0, S,
+                       causal, qscale);
       wgmma_wait<0>();                   // p.v of tile kt-1 is done
       fence_regs(acc);
       fence_regs(p);
       release(&sm.v_empty[pst]);
-      pack_p(s, p);
+      pack_p<BK>(s, p);
     }
 
     // the last tile's p.v
@@ -571,32 +643,40 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
       inv[i] = 1.f / fmaxf(l[i], 1e-30f);
     }
-    // O goes through shared memory in the 128-byte swizzle the output's
-    // tensor map reads (16-byte chunk ^ row % 8: no bank conflicts), and
-    // one thread stores it by TMA, which drops rows past S
-    if (tid == 0) tma_store_drain();     // the last item's store has read
-    warpgroup_sync(cw);
+    // O goes through shared memory in the swizzle the output's tensor
+    // map reads (16-byte chunk ^ its 128-byte line's index within the
+    // swizzle span: no bank conflicts), kOPass boxes at a time, and one
+    // thread stores it by TMA, which drops rows past S
+    constexpr int kChunks = kBox / 8;    // 16-byte chunks in a box row
+    constexpr int kOB = NB / G::kOPass;  // boxes a pass
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = 16 * warp + lane / 4 + 8 * i;   // of this warpgroup
+    for (int ps = 0; ps < G::kOPass; ++ps) {
+      if (tid == 0) tma_store_drain();   // the last store has read
+      warpgroup_sync(cw);
 #pragma unroll
-      for (int jj = 0; jj < HD / 8; ++jj) {
-        unsigned char* dst =
-            reinterpret_cast<unsigned char*>(sm.o[cw][jj / 8]) + row * 128 +
-            ((jj % 8) ^ (row & 7)) * 16 + 2 * c0;
-        *reinterpret_cast<__nv_bfloat162*>(dst) =
-            __floats2bfloat162_rn(acc[4 * jj + 2 * i] * inv[i],
-                                  acc[4 * jj + 2 * i + 1] * inv[i]);
+      for (int i = 0; i < 2; ++i) {
+        const int row = 16 * warp + lane / 4 + 8 * i;   // of this warpgroup
+        const int swz = (row * G::kRowBytes / 128) % kChunks;
+#pragma unroll
+        for (int jj = 0; jj < kOB * kChunks; ++jj) {
+          const int col8 = ps * kOB * kChunks + jj;     // 8-lane group
+          unsigned char* dst =
+              reinterpret_cast<unsigned char*>(sm.o[cw][jj / kChunks]) +
+              row * G::kRowBytes + ((jj % kChunks) ^ swz) * 16 + 2 * c0;
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(acc[4 * col8 + 2 * i] * inv[i],
+                                    acc[4 * col8 + 2 * i + 1] * inv[i]);
+        }
       }
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    warpgroup_sync(cw);
-    if (tid == 0) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      warpgroup_sync(cw);
+      if (tid == 0) {
 #pragma unroll
-      for (int bx = 0; bx < HD / kBox; ++bx)
-        tma_store(&to, sm.o[cw][bx], bx * kBox, it.h, it.q0 + 64 * cw,
-                  it.b);
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        for (int bx = 0; bx < kOB; ++bx)
+          tma_store(&to, sm.o[cw][bx], (ps * kOB + bx) * kBox, it.h, row0,
+                    it.b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
     }
   }
   if (tid == 0) tma_store_drain();       // before the block's memory goes
@@ -628,10 +708,10 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// tensor maps by (pointer, shape): a map depends on nothing else
+// tensor maps by (pointer, shape, box): a map depends on nothing else
 struct MapEntry {
   const void* ptr;
-  int B, S, heads, hd, rows;
+  int B, S, heads, hd, lanes, rows;
   CUtensorMap map;
 };
 constexpr int kMapCache = 64;
@@ -639,14 +719,15 @@ MapEntry g_maps[kMapCache];
 int g_next_map = 0;
 std::mutex g_maps_mu;
 
-// the map of a contiguous bf16 [B, S, heads, hd] tensor, boxes of 64
-// lanes x `rows` rows of one head; 0, or -CUresult on failure
-int tensor_map(const void* ptr, int B, int S, int heads, int hd, int rows,
-               CUtensorMap* out) {
+// the map of a contiguous bf16 [B, S, heads, hd] tensor, boxes of
+// `lanes` lanes (64: 128-byte swizzle, 16: 32-byte) x `rows` rows of one
+// head; 0, or -CUresult on failure
+int tensor_map(const void* ptr, int B, int S, int heads, int hd, int lanes,
+               int rows, CUtensorMap* out) {
   std::lock_guard<std::mutex> lock(g_maps_mu);
   for (const MapEntry& e : g_maps)
     if (e.ptr == ptr && e.B == B && e.S == S && e.heads == heads &&
-        e.hd == hd && e.rows == rows) {
+        e.hd == hd && e.lanes == lanes && e.rows == rows) {
       *out = e.map;
       return 0;
     }
@@ -657,18 +738,18 @@ int tensor_map(const void* ptr, int B, int S, int heads, int hd, int rows,
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
                                  (cuuint64_t)heads * hd * 2,
                                  (cuuint64_t)S * heads * hd * 2};
-  const cuuint32_t box[4] = {kBox, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)lanes, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   CUtensorMap map;
   const CUresult r = encode(
       &map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
       dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      lanes == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return -(int)r;
   MapEntry& slot = g_maps[g_next_map];
   g_next_map = (g_next_map + 1) % kMapCache;
-  slot = {ptr, B, S, heads, hd, rows, map};
+  slot = {ptr, B, S, heads, hd, lanes, rows, map};
   *out = map;
   return 0;
 }
@@ -688,8 +769,9 @@ int sm_count() {
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int H, int Hkv, int causal, cudaStream_t st) {
-  static_assert(kBQ == kBK, "Q and K/V share one box shape");
+  using G = Geo<HD>;
   constexpr size_t bytes = sizeof(Smem<HD>) + 1024;   // + alignment
+  static_assert(bytes <= kSmemMax, "tiles exceed a block's shared memory");
   static bool attr_set = false;          // once per instantiation
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -701,10 +783,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const int n_sm = sm_count();
   if (n_sm < 1) return (int)cudaErrorInvalidDevice;
   CUtensorMap mq, mk, mv, mo;
-  int err = tensor_map(q, B, S, H, HD, kBQ, &mq);
-  if (err == 0) err = tensor_map(k, B, S, Hkv, HD, kBK, &mk);
-  if (err == 0) err = tensor_map(v, B, S, Hkv, HD, kBK, &mv);
-  if (err == 0) err = tensor_map(o, B, S, H, HD, 64, &mo);
+  int err = tensor_map(q, B, S, H, HD, G::kBox, kBQ, &mq);
+  if (err == 0) err = tensor_map(k, B, S, Hkv, HD, G::kBox, G::kBK, &mk);
+  if (err == 0) err = tensor_map(v, B, S, Hkv, HD, G::kBox, G::kBK, &mv);
+  if (err == 0) err = tensor_map(o, B, S, H, HD, G::kBox, 64, &mo);
   if (err != 0) return err;
   const int nqb = (S + kBQ - 1) / kBQ;
   const Work w{B * H * nqb, B * H, nqb, S, H, Hkv, causal};
@@ -716,8 +798,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// bf16 only, hd 64 or 128, pointers 16-byte aligned.  Returns 0, a CUDA
-// runtime error, or minus the CUresult of a failed tensor-map encoding.
+// bf16 only, hd 64, 80, 128 or 256, pointers 16-byte aligned.  Returns
+// 0, a CUDA runtime error, or minus the CUresult of a failed tensor-map
+// encoding.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                             const void* v, void* o, int B,
                                             int S, int H, int Hkv, int hd,
@@ -730,7 +813,11 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch<64>(q, k, v, o, B, S, H, Hkv, causal, st);
-  if (hd == 128) return launch<128>(q, k, v, o, B, S, H, Hkv, causal, st);
-  return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 64: return launch<64>(q, k, v, o, B, S, H, Hkv, causal, st);
+    case 80: return launch<80>(q, k, v, o, B, S, H, Hkv, causal, st);
+    case 128: return launch<128>(q, k, v, o, B, S, H, Hkv, causal, st);
+    case 256: return launch<256>(q, k, v, o, B, S, H, Hkv, causal, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

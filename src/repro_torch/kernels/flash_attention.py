@@ -5,13 +5,13 @@ Port of ``repro/kernels/flash_attention.py`` (Pallas, TPU) to two CUDA
 C++ kernels, chosen by :func:`route` from (dtype, head width):
 
 * ``"wgmma"`` — ``csrc/flash_attention_wgmma.cu``, bf16 with head width
-  64 or 128 (the LM serving path): a persistent grid over 128-query
-  blocks, TMA loads into an mbarrier ring, both products ``wgmma`` on
-  the tensor cores, two consumer warpgroups taking turns;
+  64, 80, 128 or 256 (the LM serving path; zamba2's shared block is
+  80, paligemma 256): a persistent grid over 128-query blocks, TMA
+  loads into an mbarrier ring, both products ``wgmma`` on the tensor
+  cores, two consumer warpgroups taking turns;
 * ``"simt"`` — ``csrc/flash_attention.cu``, float32 and every other
-  head width up to 256 (zamba2's 80, paligemma's 256): the products on
-  the CUDA cores in float32 (a TF32 product would not hold float32's
-  tolerance).
+  head width up to 256: the products on the CUDA cores in float32 (a
+  TF32 product would not hold float32's tolerance).
 
 Both: query head ``i`` reads KV head ``i // (H // Hkv)`` without a
 materialized repeat, float32 (max, sum, acc) per row, causal key tiles
@@ -38,15 +38,17 @@ _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: widest head the kernels take (the simt route's widest instantiation)
 MAX_HEAD_DIM = 256
-#: head widths of the wgmma route (its TMA boxes are 64 lanes wide)
-WGMMA_HEAD_DIMS = (64, 128)
+#: head widths of the wgmma route, each at its exact width (TMA boxes of
+#: 64 lanes, or of 16 at hd 80)
+WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 #: TMA reads and writes from 16-byte aligned addresses only
 TMA_ALIGN = 16
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
     """The kernel that computes ``flash_attention`` for this dtype and
-    head width: ``"wgmma"`` (bf16, hd 64 or 128) or ``"simt"``."""
+    head width: ``"wgmma"`` (bf16, hd 64, 80, 128 or 256) or
+    ``"simt"``."""
     if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"

@@ -190,6 +190,30 @@ def test_build_cache_key_covers_headers(tmp_path, monkeypatch):
     assert build._lib_path("a") not in (first, second)
 
 
+def test_build_log_kept_beside_library(tmp_path, monkeypatch):
+    """A library without its build's log is built again (its ptxas
+    report would be lost); with it, the log is read back when no build
+    of this process has one."""
+    from repro_torch.kernels import build
+    (tmp_path / "a.cu").write_text("// a\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "BUILD_LOG", {})
+    assert build.build_log("a") is None
+    lib = build._lib_path("a")
+    lib.parent.mkdir()
+    lib.write_bytes(b"")
+    monkeypatch.setattr(build, "_nvcc", lambda: "true")
+    job = build._start("a")                # library alone: rebuilt
+    assert job is not None
+    job[3].communicate()
+    lib.with_suffix(".log").write_text("0 bytes spill stores")
+    assert build._start("a") is None       # library and log: reused
+    assert build.build_log("a") == "0 bytes spill stores"
+    build.BUILD_LOG["a"] = "this process"
+    assert build.build_log("a") == "this process"
+
+
 # ---- merge_path_map ---------------------------------------------------------
 
 def check_merge_path(deg, row_start, total, tile_edges, ecap=None):

@@ -164,12 +164,13 @@ def test_flash_attention_validation():
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 16, "simt"), (torch.bfloat16, 96, "simt"),
     (torch.bfloat16, 32, "simt"), (torch.float32, 128, "simt"),
-    (torch.float32, 64, "simt"), (torch.bfloat16, 80, "simt"),
-    (torch.bfloat16, 256, "simt")])
+    (torch.float32, 64, "simt"), (torch.bfloat16, 80, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 80, "simt"),
+    (torch.float32, 256, "simt")])
 def test_flash_attention_route(dtype, hd, want):
-    """bf16 at head width 64 or 128 goes to the wgmma kernel; float32
-    (whose tolerance a TF32 product would break) and other widths to
-    the CUDA-core kernel."""
+    """bf16 at head width 64, 80, 128 or 256 goes to the wgmma kernel;
+    float32 (whose tolerance a TF32 product would break) and other
+    widths to the CUDA-core kernel."""
     assert tfa.route(dtype, hd) == want
 
 
@@ -202,3 +203,18 @@ def test_lm_kernels_count_no_launch_on_cpu():
     assert tfa.flash_attention.launches_by_route == {"wgmma": 0, "simt": 0}
     assert tk.KERNELS["flash_attention"] is tfa.flash_attention
     assert tk.KERNELS["positions_in_expert"] is tmd.positions_in_expert
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd,h,hkv", [(80, 4, 4), (256, 8, 1)])
+def test_flash_attention_wide_heads_launch_nothing_on_cpu(dtype, hd, h,
+                                                          hkv):
+    """CPU tensors at zamba2's and paligemma's head widths take the
+    plain version, whichever route the card would give them: neither
+    route counts a launch."""
+    tk.reset_launch_counts()
+    q, k = (torch.zeros((1, 5, n, hd), dtype=dtype) for n in (h, hkv))
+    got = tfa.flash_attention(q, k, k)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert tfa.flash_attention.launches_by_route == {"wgmma": 0, "simt": 0}
+    assert tfa.flash_attention.launches == 0
