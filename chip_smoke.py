@@ -174,9 +174,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    of each config (``moe_plan`` bitwise, ``flash_attention`` within
    ``FLASH_TOL``), each flash shape timed beside its plain version,
    ``scaled_dot_product_attention`` and its bound;
-8. a ``{"kernels": [...]}`` line (``moe_plan``'s launches of phases 5,
-   6 and 7, its phase 7 checks and its training-shape times;
-   ``flash_attention``'s wgmma launches of phases 5 and 7 with each
+8. the multi-device launch (``launch/``) on DTensor, with nothing else
+   resident: ``maybe_initialize_distributed`` from ``REPRO_COORDINATOR``
+   (a localhost port, 1 process) gives a 1-rank NCCL group and
+   ``make_host_mesh`` its ``(1, 1)`` ``("data", "model")`` mesh; phase
+   6's model, batches and schedule with parameters and AdamW state laid
+   out by ``param_specs`` / ``opt_specs`` run 3 steps of
+   ``make_train_step(cfg, opt, shard_fn)`` (losses and grad norms held
+   against phase 6's steps 0-2: bitwise, else within 1e-6; ``moe_plan``
+   2 x 4 x 3 launches); phase 5's 28-layer weights from its seed,
+   wrapped by ``DTensor.from_local``, serve the same 4 x (1024 + 32)
+   greedy tokens through ``make_prefill_step`` / ``make_decode_step``
+   (tokens equal to phase 5's, ``moe_plan`` 28 x 32 and
+   ``flash_attention`` 28 on wgmma, counts reset just before and read
+   just after; walls beside phase 5's; ``CommDebugMode``'s counts of one
+   prefill and one decode step); then ``python -m
+   repro_torch.launch.dryrun`` for deepseek-moe-16b ``train_4k`` and
+   ``decode_32k`` on the 16 x 16 production mesh, each a subprocess on
+   the host's CPU with a time limit of its own, each JSON line printed.
+   No multi-card run: the machine has one card;
+9. a ``{"kernels": [...]}`` line (``moe_plan``'s launches of phases 5,
+   6, 7 and 8, its phase 7 checks and its training-shape times;
+   ``flash_attention``'s wgmma launches of phases 5, 7 and 8 with each
    phase 7 shape's error and times), the ``nvidia-smi`` name and power
    limit line again, and last the ``{"ok": true, "device": {...}}``
    line.
@@ -3356,6 +3375,7 @@ def lm_path(dev, smoke: bool = False) -> dict:
             "plans_compared": n_plans, "attn_sublayer_err": attn_err,
             "depth_sweep": depth, "tokens_agree_28_layers": agree,
             "first_tokens": kern["tokens"][:, 0].tolist(),
+            "tokens": kern["tokens"].cpu(),
             "seconds": {k: [r[k] for r in runs] for k in med},
             "median": med, "median_replaced_route": med_replaced,
             "seconds_replaced_route": {k: [r[k] for r in replaced]
@@ -4138,6 +4158,289 @@ def check_served_kernels(served: dict, lm_rows: list) -> None:
             row["max_abs_err"] = max(row["max_abs_err"], err)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the multi-device launch on one card (DTensor, a 1-rank NCCL mesh)
+# ---------------------------------------------------------------------------
+
+LAUNCH_TRAIN_STEPS = 3
+# the dry-run cells phase 8 traces on the 16 x 16 production mesh, each
+# in a subprocess of its own with this time limit (seconds)
+LAUNCH_DRYRUN_CELLS = ("train_4k", "decode_32k")
+LAUNCH_DRYRUN_TIMEOUT = 300
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_dryruns() -> list:
+    """The dry-run cells of phase 8, started together (each a process
+    on the host's CPU, the fake backend at 256 ranks)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = []
+    for shape in LAUNCH_DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               LM_ARCH, "--shape", shape, "--out",
+               str(ROOT / "build" / "dryrun")]
+        out.append((shape, subprocess.Popen(
+            cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return out
+
+
+def finish_dryruns(procs) -> dict:
+    """Each cell's JSON line; a cell that fails or outlasts its limit
+    fails the phase (its process is killed)."""
+    out = {}
+    for shape, proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=LAUNCH_DRYRUN_TIMEOUT)
+        finally:
+            proc.kill()
+        check(proc.returncode == 0, f"dry-run {shape}: rc "
+              f"{proc.returncode}: {stderr[-2000:]}")
+        line = stdout.strip().splitlines()[-1]
+        print(f"phase 8: dry-run {LM_ARCH} {shape} 16x16: {line}",
+              flush=True)
+        out[shape] = json.loads(line)
+        check(out[shape]["ok"] and out[shape]["devices"] == 256,
+              f"dry-run {shape}: {line}")
+    return out
+
+
+def serve_sharded(model, cfg, prompts, gen: int, mesh, shard_fn) -> dict:
+    """``serve`` through ``make_prefill_step`` / ``make_decode_step`` on
+    DTensor parameters, cache and tokens (the cache and tokens wrapped
+    with ``DTensor.from_local``: no copy on a 1-rank mesh)."""
+    import torch
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+    b, p = prompts.shape[:2]
+    cache = SH.distribute_tree(
+        T.zeros_cache(cfg, b, p + gen, device=prompts.device), mesh,
+        SH.cache_specs(cfg, False, 0, p + gen, 1), from_local=True)
+
+    def tok(t):
+        return SH.distribute_tree(t, mesh, ("data", None), from_local=True)
+    prefill = make_prefill_step(cfg, shard_fn)
+    decode_fn = make_decode_step(cfg, shard_fn)
+    (logits, cache), prefill_s = timed(
+        lambda: prefill(model, tok(prompts), cache))
+    toks = [logits.to_local().argmax(-1).to(torch.int32)]
+
+    def decode():
+        nonlocal logits, cache
+        for _ in range(gen - 1):
+            logits, cache = decode_fn(model, tok(toks[-1]), cache)
+            toks.append(logits.to_local().argmax(-1).to(torch.int32))
+    _, decode_s = timed(decode)
+    return {"tokens": torch.cat(toks, 1), "prefill_s": prefill_s,
+            "decode_ms_per_step": decode_s / max(gen - 1, 1) * 1e3,
+            "cache": cache, "tok": tok, "prefill": prefill,
+            "decode": decode_fn}
+
+
+def comm_counts(fn, model) -> dict:
+    """``CommDebugMode``'s collective counts of ``fn()``, by op name.
+    The mode's module tracker registers a forward hook each time a
+    module runs, keyed by the module's name, and names a module it meets
+    outside a known root by its class: the port calls the layers, not
+    the root, so the root's names are given to it first (else two
+    layers' hooks share a key and one outlives the mode)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    with CommDebugMode() as comm:
+        comm.advanced_module_tracker._get_mod_name(model)
+        fn()
+    return {str(k).split(".")[-1]: v
+            for k, v in comm.get_comm_counts().items()}
+
+
+def launch_path(dev, lm5: dict, tp6: dict) -> dict:
+    """Phase 8: the multi-device launch (``launch/``: distributed init,
+    mesh, sharding rules, dry-run) and the models' ``shard_fn`` hooks on
+    DTensor, on a 1-rank NCCL group's ``(1, 1)`` mesh: phase 6's first
+    three train steps and phase 5's serving run through DTensor
+    parameters, held against those phases' losses, grad norms and
+    tokens, with the kernels' launch counts; and two dry-run cells of
+    the 16 x 16 production mesh on the host's CPU.  No multi-card run:
+    the machine has one card."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.launch import distributed_init as DI
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptConfig, cosine_schedule
+    from repro_torch.train.steps import init_train_state, make_train_step
+    t_phase = time.perf_counter()
+    env = {"REPRO_COORDINATOR": f"127.0.0.1:{free_port()}",
+           "REPRO_NUM_PROCESSES": "1", "REPRO_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        check(DI.maybe_initialize_distributed(), "distributed init")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "a 1-rank NCCL group")
+        mesh = M.make_host_mesh()
+        check(tuple(mesh.mesh.shape) == (1, 1) and
+              mesh.mesh_dim_names == ("data", "model") and
+              mesh.device_type == "cuda", f"host mesh {mesh}")
+        shard_fn = SH.make_shard_fn(mesh, False)
+        print(f"phase 8: {env['REPRO_COORDINATOR']}: a 1-rank "
+              f"{dist.get_backend()} group, mesh {tuple(mesh.mesh.shape)} "
+              f"over {mesh.mesh_dim_names} on {mesh.device_type}",
+              flush=True)
+
+        # training: phase 6's model, state, batches and schedule, its
+        # parameters and AdamW state as DTensors by param_specs / opt_specs
+        full = get_config(LM_ARCH)
+        cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params, opt = init_train_state(cfg, generator=gen, device=dev)
+        specs = SH.param_specs(params)
+        SH.distribute_params(params, mesh, specs, from_local=True)
+        opt = SH.distribute_tree(opt, mesh, SH.opt_specs(specs),
+                                 from_local=True)
+        data = SyntheticDataset(0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+        bspec = SH.batch_specs(False, cfg.num_codebooks)
+        batches = [SH.distribute_tree(
+            {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch(i).items()}, mesh, bspec,
+            from_local=True) for i in range(LAUNCH_TRAIN_STEPS)]
+        sched = cosine_schedule(TRAIN_LR, max(TRAIN_STEPS // 20, 1),
+                                TRAIN_STEPS)
+        step_fn = make_train_step(cfg, OptConfig(lr=sched), shard_fn)
+        kernels.reset_launch_counts()
+        losses, gnorms, walls = [], [], []
+        for i in range(LAUNCH_TRAIN_STEPS):
+            (out, wall) = timed(lambda i=i: step_fn(params, opt, batches[i]))
+            params, opt, met = out
+            losses.append(float(met["loss"].full_tensor()))
+            gnorms.append(float(met["grad_norm"].full_tensor()))
+            walls.append(wall)
+        train_launches = kernels.launch_counts()
+        want = 2 * cfg.num_layers * LAUNCH_TRAIN_STEPS
+        check(isinstance(params.embed, torch.distributed.tensor.DTensor),
+              "DTensor parameters")
+        check(train_launches["moe_plan"] == want, f"moe_plan: "
+              f"{train_launches['moe_plan']} launches in "
+              f"{LAUNCH_TRAIN_STEPS} sharded train steps, expected {want}")
+        ref_l = tp6["losses"][:LAUNCH_TRAIN_STEPS]
+        ref_g = tp6["grad_norms"][:LAUNCH_TRAIN_STEPS]
+        bitwise = losses == ref_l and gnorms == ref_g
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(losses + gnorms, ref_l + ref_g))
+        for i in range(LAUNCH_TRAIN_STEPS):
+            print(f"phase 8: sharded train step {i}: loss {losses[i]!r} "
+                  f"(phase 6 {ref_l[i]!r}) grad norm {gnorms[i]!r} (phase "
+                  f"6 {ref_g[i]!r}) wall {walls[i]:.4f} s", flush=True)
+        print(f"phase 8: {LAUNCH_TRAIN_STEPS} sharded train steps: losses "
+              f"and grad norms {'bitwise' if bitwise else 'not bitwise'} "
+              f"phase 6's (max relative difference {rel:.3e}); moe_plan "
+              f"{train_launches['moe_plan']} launches (expected {want}); "
+              f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+              f" GB", flush=True)
+        check(rel <= 1e-6, f"sharded train steps != phase 6: {losses} "
+              f"{gnorms} vs {ref_l} {ref_g}")
+        train = {"losses": losses, "grad_norms": gnorms, "walls_s": walls,
+                 "bitwise": bitwise, "max_rel_diff": rel,
+                 "launches": train_launches,
+                 "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del params, opt, batches, step_fn, out, met
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # serving: phase 5's weights from its seed, wrapped as DTensors
+        cfg = get_config(LM_ARCH)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = T.init(cfg, generator=gen, device=dev)
+        SH.distribute_params(model, mesh, SH.param_specs(model),
+                             from_local=True)
+        rng = np.random.default_rng(0)
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)) \
+            .to(dev)
+        kernels.reset_launch_counts()
+        run = serve_sharded(model, cfg, prompts, LM_GEN, mesh, shard_fn)
+        launches = kernels.launch_counts()
+        routes = dict(kernels.KERNELS["flash_attention"].launches_by_route)
+        want = {"moe_plan": cfg.num_layers * LM_GEN,
+                "positions_in_expert": 0,
+                "flash_attention": cfg.num_layers}
+        print(f"phase 8: sharded serving {LM_BATCH} x ({LM_PROMPT} + "
+              f"{LM_GEN}) tokens: kernel launches {launches} (expected "
+              f"{want}, phase 5 {lm5['launches']}); flash_attention by "
+              f"route {routes}", flush=True)
+        for name, n in want.items():
+            check(launches[name] == n == lm5["launches"][name],
+                  f"{name}: {launches[name]} launches on the sharded "
+                  f"serving path, expected {n}")
+        check(routes == {"wgmma": cfg.num_layers, "simt": 0},
+              f"flash_attention routes {routes}")
+        same = torch.equal(run["tokens"].cpu(), lm5["tokens"])
+        print(f"phase 8: sharded serving tokens == phase 5's: {same}; "
+              f"prefill {run['prefill_s']:.4f} s (phase 5 median "
+              f"{lm5['median']['prefill_s']:.4f} s), decode "
+              f"{run['decode_ms_per_step']:.3f} ms per step (phase 5 "
+              f"median {lm5['median']['decode_ms_per_step']:.3f} ms)",
+              flush=True)
+        check(same, "sharded serving tokens != phase 5's")
+        reps = [run]
+        for _ in range(2):
+            reps.append(serve_sharded(model, cfg, prompts, LM_GEN, mesh,
+                                      shard_fn))
+            check(torch.equal(reps[-1]["tokens"].cpu(), lm5["tokens"]),
+                  "sharded serving tokens changed between runs")
+        med = {k: float(np.median([r[k] for r in reps]))
+               for k in ("prefill_s", "decode_ms_per_step")}
+        cache, tok = run["cache"], run["tok"]
+        first = run["tokens"][:, :1].to(dev)
+        comm = {"prefill": comm_counts(lambda: run["prefill"](
+                    model, tok(prompts), cache), model),
+                "decode_step": comm_counts(lambda: run["decode"](
+                    model, tok(first), {**cache, "index": LM_PROMPT}),
+                    model)}
+        print(f"phase 8: median of 3 sharded runs: prefill "
+              f"{med['prefill_s']:.4f} s, decode "
+              f"{med['decode_ms_per_step']:.3f} ms per step (phase 5: "
+              f"{lm5['median']['prefill_s']:.4f} s, "
+              f"{lm5['median']['decode_ms_per_step']:.3f} ms); CommDebugMode "
+              f"collectives {comm}", flush=True)
+        serve_out = {"tokens_equal_phase5": same, "launches": launches,
+                     "flash_launches_by_route": routes,
+                     "seconds": {k: [r[k] for r in reps] for k in med},
+                     "median": med, "phase5_median": lm5["median"],
+                     "comm_counts": comm}
+        del model, run, reps, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        # after the timed runs: the cells' processes take host cores
+        dry = start_dryruns()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    dryrun = finish_dryruns(dry)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 8: {seconds:.1f} s", flush=True)
+    return {"train": train, "serve": serve_out, "dryrun": dryrun,
+            "seconds": seconds,
+            "launches": {"moe_plan": train["launches"]["moe_plan"]
+                         + launches["moe_plan"],
+                         "flash_attention": launches["flash_attention"]}}
+
+
+
 def check_wgmma_spills(log) -> None:
     """Phase 1: ptxas's report of ``flash_attention_wgmma`` (this run's
     build, or the one kept beside a reused library) shows one
@@ -4297,6 +4600,8 @@ def main() -> int:
               f"{t['plain_ms']:.4f} ms; the route it replaced "
               f"{t['unfused_ms']:.4f} ms; positions_in_expert alone "
               f"{t['positions_in_expert_ms']:.4f} ms", flush=True)
+    lm5 = {"tokens": lm.pop("tokens"), "median": dict(lm["median"]),
+           "launches": dict(lm["launches"])}
     for k in ("model", "cfg", "prompts", "cache", "tok"):
         lm.pop(k)
     print(json.dumps({"lm_path": lm}), flush=True)
@@ -4356,6 +4661,18 @@ def main() -> int:
     for r in served.values():
         r.pop("kept")
     print(json.dumps({"serve_archs": served}), flush=True)
+
+    # phase 8 runs with nothing else resident: phase 7's models are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    lp = launch_path(dev, lm5, tp)
+    row = by_name["moe_plan"]
+    row["launches_by_phase"]["8"] = lp["launches"]["moe_plan"]
+    row["launches"] += lp["launches"]["moe_plan"]
+    row = by_name["flash_attention"]
+    row["launches_by_phase"]["8"] = lp["launches"]["flash_attention"]
+    row["launches"] += lp["launches"]["flash_attention"]
+    print(json.dumps({"launch_path": lp}), flush=True)
     print(json.dumps({"kernels": rows + lm_rows}), flush=True)
     print(card, flush=True)              # as nvidia-smi prints it
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,8 @@ of ``attn_impl="flash"`` (the default).  Decode steps (Sq < Skv) run
 ``attn_impl="chunked"`` or ``"plain"`` sends prefill through the torch
 versions instead.  MLA attention always takes a torch route (its qk and
 v head widths differ), ``chunked`` unless ``"plain"`` is asked for.
+On DTensors every route runs on local shards, batch over the data axes
+and heads over ``model`` (``models.dist.attend``).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.flash_attention import flash_attention
+from .dist import attend, split_last, unshard, write_seq
 
 COMPUTE_DTYPE = torch.bfloat16
 ATTN_IMPLS = ("flash", "chunked", "plain")
@@ -233,32 +236,34 @@ def gqa_apply(p, x, cfg, *, positions, cache=None, cache_index=None,
     v = xc @ _c(p.wv)
     if cfg.qkv_bias:
         q, k, v = q + _c(p.bq), k + _c(p.bk), v + _c(p.bv)
-    q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(b, s, hkv, hd), positions, cfg.rope_theta)
-    v = v.reshape(b, s, hkv, hd)
+    q = apply_rope(split_last(q, h, hd), positions, cfg.rope_theta)
+    k = apply_rope(split_last(k, hkv, hd), positions, cfg.rope_theta)
+    v = split_last(v, hkv, hd)
 
     torch_impl = "plain" if attn_impl == "plain" else "chunked"
+    flash = lambda q, k, v: flash_attention(q, k, v, causal=True)
     if cache is None:
         if attn_impl == "flash":
-            out = flash_attention(q, k, v, causal=True)
+            out = attend(flash, q, k, v)
         else:
-            out = attention(q, k, v, impl=torch_impl, causal=True,
-                            chunk=attn_chunk)
+            out = attend(lambda q, k, v: attention(
+                q, k, v, impl=torch_impl, causal=True, chunk=attn_chunk),
+                q, k, v)
     else:
         ci = int(cache_index)
         k = k.to(cache["k"].dtype)
         v = v.to(cache["v"].dtype)
-        cache["k"][:, ci:ci + s] = k
-        cache["v"][:, ci:ci + s] = v
+        write_seq(cache["k"], k, ci)
+        write_seq(cache["v"], v, ci)
         if ci == 0 and attn_impl == "flash":
             # prefill from an empty cache: causal attention of the prompt
             # over cache[:, :s], which holds exactly these k and v
-            out = flash_attention(q, k, v, causal=True)
+            out = attend(flash, q, k, v)
         else:
-            out = attention(q, cache["k"], cache["v"], impl=torch_impl,
-                            causal=True, q_offset=ci, kv_len=ci + s,
-                            chunk=attn_chunk)
-    out = out.reshape(b, s, h * hd) @ _c(p.wo)
+            out = attend(lambda q, k, v: attention(
+                q, k, v, impl=torch_impl, causal=True, q_offset=ci,
+                kv_len=ci + s, chunk=attn_chunk), q, cache["k"], cache["v"])
+    out = out @ _c(p.wo)                      # out: [B, S, H * hd]
     return out.to(x.dtype), cache
 
 
@@ -328,7 +333,7 @@ def mla_apply(p, x, cfg, *, positions, cache=None, cache_index=None,
     xc = x.to(COMPUTE_DTYPE)
 
     cq = rms_norm(xc @ _c(p.wq_a), p.q_norm, cfg.norm_eps)
-    q = (cq @ _c(p.wq_b)).reshape(b, s, h, nope + rope_d)
+    q = split_last(cq @ _c(p.wq_b), h, nope + rope_d)
     q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
     q_full = torch.cat([q[..., :nope], q_rope], dim=-1)
 
@@ -340,22 +345,22 @@ def mla_apply(p, x, cfg, *, positions, cache=None, cache_index=None,
         q_offset, kv_len = 0, None
     else:
         ci = int(cache_index)
-        cache["ckv"][:, ci:ci + s] = ckv.to(cache["ckv"].dtype)
-        cache["k_rope"][:, ci:ci + s] = k_rope.to(cache["k_rope"].dtype)
+        write_seq(cache["ckv"], ckv.to(cache["ckv"].dtype), ci)
+        write_seq(cache["k_rope"], k_rope.to(cache["k_rope"].dtype), ci)
         q_offset, kv_len = ci, ci + s
-        ckv = cache["ckv"][:, :kv_len]
-        k_rope = cache["k_rope"][:, :kv_len]
+        ckv = unshard(cache["ckv"], 1)[:, :kv_len]
+        k_rope = unshard(cache["k_rope"], 1)[:, :kv_len]
 
     # decompress k and v from the latent (MLA's FLOPs-for-memory trade)
     skv = ckv.shape[1]
-    kv = (ckv @ _c(p.wkv_b)).reshape(b, skv, h, nope + vd)
+    kv = split_last(ckv @ _c(p.wkv_b), h, nope + vd)
     k = torch.cat([kv[..., :nope],
                    k_rope.expand(b, skv, h, rope_d)], dim=-1)
-    out = attention(q_full, k, kv[..., nope:],
-                    impl="plain" if attn_impl == "plain" else "chunked",
-                    causal=True, q_offset=q_offset, kv_len=kv_len,
-                    chunk=attn_chunk)
-    out = out.reshape(b, s, h * vd) @ _c(p.wo)
+    out = attend(lambda q, k, v: attention(
+        q, k, v, impl="plain" if attn_impl == "plain" else "chunked",
+        causal=True, q_offset=q_offset, kv_len=kv_len, chunk=attn_chunk),
+        q_full, k, kv[..., nope:])
+    out = out @ _c(p.wo)                      # out: [B, S, H * vd]
     return out.to(x.dtype), cache
 
 

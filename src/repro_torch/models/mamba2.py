@@ -34,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import dist as D
+from .dist import split_last
 from .layers import (COMPUTE_DTYPE, _c, _matrix, _param, _zeros_gain,
                      rms_norm)
 
@@ -198,6 +200,43 @@ def ssd_step(h_state, x, dt, a_log, b, c):
     return y.to(x.dtype), h_new
 
 
+def _on_heads(fn, hdim: int, x, dt, a_log, b, c, h_state=None):
+    """``fn`` of the SSD (``ssd_chunked``, or ``ssd_step`` with
+    ``h_state`` first); on DTensors on each rank's local shards: batch
+    over the data axes, heads (``x``'s dim ``hdim``) over ``model`` when
+    it divides them, as GSPMD keeps the per-head scan local."""
+    if not D.is_dtensor(x):
+        args = (x, dt, a_log, b, c)
+        return fn(*args) if h_state is None else fn(h_state, *args)
+    mesh = x.device_mesh
+    heads = x.shape[hdim] % D.model_size(mesh) == 0
+    on = D.Shard(hdim) if heads else D.Replicate()
+    xpl = D.batch_and((x, b), on)
+    dpl = D.batch_and((x, b), D.Shard(dt.ndim - 1) if heads
+                      else D.Replicate())
+    apl = tuple(D.Shard(0) if n == D.MODEL_AXIS and heads else D.Replicate()
+                for n in mesh.mesh_dim_names)
+    bpl = D.batch_and((x, b), D.Replicate())
+    hpl = D.batch_and((x, b), D.Shard(1) if heads else D.Replicate())
+    ypl = xpl if hdim == 2 else hpl
+    # a rank's gradient of what it holds whole is a share of the sum:
+    # ``a_log`` over the batch axes, ``b`` and ``c`` over the heads
+    names = mesh.mesh_dim_names
+    agrad = tuple(D.Partial() if isinstance(q, D.Shard) and
+                  n != D.MODEL_AXIS else p
+                  for n, p, q in zip(names, apl, xpl))
+    bgrad = D.partial_over_model(xpl, names) if heads else bpl
+    bgrad = tuple(q if n == D.MODEL_AXIS else p
+                  for n, p, q in zip(names, bpl, bgrad))
+    grads = (xpl, dpl, agrad, bgrad, bgrad)
+    if h_state is None:
+        return D.run_local(fn, (ypl, hpl), (xpl, dpl, apl, bpl, bpl),
+                           x, dt, a_log, b, c, in_grad_placements=grads)
+    return D.run_local(fn, (ypl, hpl), (hpl, xpl, dpl, apl, bpl, bpl),
+                       h_state, x, dt, a_log, b, c,
+                       in_grad_placements=(hpl, *grads))
+
+
 def mamba2_apply(p, x, cfg, *, state=None, return_state: bool = False):
     """x: ``[B, S, D]``.  ``state``: None (training, or prefill from
     scratch) or ``{h: [B, H, P, N], conv: [B, d_conv - 1, C]}`` for a
@@ -212,18 +251,21 @@ def mamba2_apply(p, x, cfg, *, state=None, return_state: bool = False):
 
     conv_state = None if state is None else state["conv"]
     xbc, new_conv = _causal_conv(xbc, p.conv_w, p.conv_b, conv_state)
-    xs = xbc[..., :d_inner].reshape(bsz, s, nheads, pdim)
+    xs = split_last(xbc[..., :d_inner], nheads, pdim)
     b = xbc[..., d_inner:d_inner + n]
     c = xbc[..., d_inner + n:]
 
     if state is None:
-        y, h_t = ssd_chunked(xs, dt, p.a_log, b, c, scfg.chunk)
+        y, h_t = _on_heads(
+            lambda x, dt, a_log, b, c: ssd_chunked(x, dt, a_log, b, c,
+                                                   scfg.chunk),
+            2, xs, dt, p.a_log, b, c)
     else:
         if s != 1:
             raise ValueError(f"the stateful Mamba2 path takes one token a "
                              f"step, got {s}")
-        y1, h_t = ssd_step(state["h"], xs[:, 0], dt[:, 0], p.a_log,
-                           b[:, 0], c[:, 0])
+        y1, h_t = _on_heads(ssd_step, 1, xs[:, 0], dt[:, 0], p.a_log,
+                            b[:, 0], c[:, 0], h_state=state["h"])
         y = y1[:, None]
     y = y + xs * p.d_skip.to(y.dtype)[None, None, :, None]
     y = rms_norm(y.reshape(bsz, s, d_inner), p.out_norm, cfg.norm_eps)

@@ -28,6 +28,15 @@ are plain batched matrix products.
 router through the gates (``moe_plan``'s backward, or autograd through
 the plain version) and the Switch aux loss, and reaches the experts,
 the shared MLP and ``x``.  The plan itself is integer and takes none.
+
+On DTensors (a sharded step, ``launch.sharding``) the plan runs on
+replicated probabilities (``models.dist.replicated_call``: every rank
+plans every token of its group, as GSPMD all-gathers them), and the
+scatter into the ``[G, E, C, D]`` buffers, the expert FFNs and the
+gather back are local to each rank's experts (experts over ``model``):
+a rank's gather gives the rows of its own experts and zeros elsewhere,
+summed over the model axis.  ``_cap_of`` sees the global token count.
+``shard_fn`` is called at JAX's points (``"moe_tok"``, ``"moe_buf"``).
 """
 from __future__ import annotations
 
@@ -37,7 +46,10 @@ from torch import nn
 
 from ..kernels.moe_plan import moe_plan
 from ..kernels.ref import moe_plan_ref, positions_in_expert_ref
+from . import dist as D
 from .layers import COMPUTE_DTYPE, MLP, _c, _matrix
+
+_IDENT = lambda name, x: x
 
 
 class MoE(nn.Module):
@@ -61,9 +73,11 @@ class MoE(nn.Module):
                            generator=generator, device=device, dtype=dtype)
                        if m.num_shared_experts else None)
 
-    def forward(self, x, *, use_pallas_dispatch: bool = False):
+    def forward(self, x, *, use_pallas_dispatch: bool = False,
+                shard_fn=_IDENT):
         return moe_apply(self, x, self.cfg,
-                         use_pallas_dispatch=use_pallas_dispatch)
+                         use_pallas_dispatch=use_pallas_dispatch,
+                         shard_fn=shard_fn)
 
 
 def _positions_in_expert(expert_of, num_experts):
@@ -79,10 +93,18 @@ def dispatch_plan(probs, m, t, *, use_pallas_dispatch: bool = False):
     ``[T*K]``, ``gate_flat`` float32, ``keep`` bool; ``cap`` a host int.
     """
     cap = _cap_of(m, t)
-    plan = moe_plan if use_pallas_dispatch else moe_plan_ref
-    flat_expert, pos, gate_flat, keep = plan(
-        probs[None], top_k=m.top_k, cap=cap, groups=1, adaptive=m.adaptive)
+    flat_expert, pos, gate_flat, keep = _plan(
+        probs[None], m, cap, 1, use_pallas_dispatch)
     return flat_expert[0], pos[0], gate_flat[0], keep[0], cap
+
+
+def _plan(probs, m, cap, groups, use_pallas_dispatch):
+    """``moe_plan`` (or its plain version) of ``probs [G, Tg, E]``; on
+    a DTensor, on the replicated probabilities."""
+    plan = moe_plan if use_pallas_dispatch else moe_plan_ref
+    return D.replicated_call(
+        lambda pr: plan(pr, top_k=m.top_k, cap=cap, groups=groups,
+                        adaptive=m.adaptive), 4, probs)
 
 
 def router_probs(p, xf):
@@ -92,7 +114,8 @@ def router_probs(p, xf):
     return torch.softmax(logits, dim=-1)
 
 
-def moe_apply(p, x, cfg, *, use_pallas_dispatch: bool = False):
+def moe_apply(p, x, cfg, *, use_pallas_dispatch: bool = False,
+              shard_fn=_IDENT):
     """x: [B, S, D] -> (out, aux_loss).
 
     Grouped (GShard-style) dispatch when ``m.dispatch_groups > 1``:
@@ -109,7 +132,8 @@ def moe_apply(p, x, cfg, *, use_pallas_dispatch: bool = False):
     tg = t // g
     e, k = m.num_experts, m.top_k
     xf = x.reshape(t, d).to(COMPUTE_DTYPE)
-    probs = router_probs(p, xf)                           # [T, E]
+    # replicated on a mesh: the plan needs every token of its group
+    probs = D.replicate(router_probs(p, xf))              # [T, E]
 
     # aux load-balancing loss (Switch-style); one-hot by comparison, as
     # F.one_hot checks its range with a device-to-host sync
@@ -121,46 +145,144 @@ def moe_apply(p, x, cfg, *, use_pallas_dispatch: bool = False):
 
     if g > 1:
         cap = _cap_of(m, tg)
-        plan = moe_plan if use_pallas_dispatch else moe_plan_ref
-        flat_expert, pos, gate_flat, keep = plan(
-            probs.reshape(g, tg, e), top_k=k, cap=cap, groups=g,
-            adaptive=m.adaptive)
+        flat_expert, pos, gate_flat, keep = _plan(
+            probs.reshape(g, tg, e), m, cap, g, use_pallas_dispatch)
     else:
         flat_expert, pos, gate_flat, keep, cap = dispatch_plan(
             probs, m, t, use_pallas_dispatch=use_pallas_dispatch)
         flat_expert, pos = flat_expert[None], pos[None]
         gate_flat, keep = gate_flat[None], keep[None]
 
-    # ---- dispatch: [G, E, C, D] buffers ----------------------------------
-    # Kept slots have unique (expert, pos) in their group, so a plain
-    # (non-accumulating) store of each kept row gives the buffer that
-    # JAX's scatter-add builds; dropped slots (which add zeros there) go
-    # to one scratch row past the buffer, which is discarded.
-    xk = xf.reshape(g, tg, 1, d).expand(g, tg, k, d).reshape(g * tg * k, d)
-    grp = torch.arange(g, device=x.device)[:, None]
-    slot = (grp * e + flat_expert) * cap + pos
-    scratch = g * e * cap
-    slot = torch.where(keep, slot, scratch).reshape(-1)
-    buf = torch.zeros((scratch + 1, d), dtype=COMPUTE_DTYPE, device=x.device)
-    buf[slot] = xk
-    buf = buf[:scratch].view(g, e, cap, d)
-
-    # ---- expert FFNs: batched over experts -------------------------------
-    gate = F.silu(torch.matmul(buf, _c(p.w_gate)))
-    up = torch.matmul(buf, _c(p.w_up))
-    eout = torch.matmul(gate * up, _c(p.w_down))          # [G, E, C, D]
-
-    # ---- combine: gather expert outputs back to token slots ---------------
-    pos_c = torch.where(keep, pos, 0)
-    tok_out = eout.reshape(g * e * cap, d)[
-        ((grp * e + flat_expert) * cap + pos_c).reshape(-1)]
-    tok_out = torch.where(keep.reshape(-1, 1), tok_out, 0)
-    w = gate_flat.reshape(-1, 1).to(COMPUTE_DTYPE)
-    combined = (tok_out * w).reshape(t, k, d).sum(dim=1)
+    # ---- dispatch, expert FFNs, combine ---------------------------------
+    xg = shard_fn("moe_tok", xf.reshape(g, tg, d))
+    buf = shard_fn("moe_buf", _dispatch(xg, flat_expert, pos, keep, e, cap,
+                                        k))
+    eout = shard_fn("moe_buf", _experts(p, buf))          # [G, E, C, D]
+    tok_out = shard_fn("moe_tok", _combine(eout, flat_expert, pos, keep, e))
+    combined = _weigh(tok_out, gate_flat, k)               # [T, D]
 
     if p.shared is not None:
         combined = combined + p.shared(xf)
     return combined.reshape(bsz, s, d).to(x.dtype), aux
+
+
+def _slots(flat_expert, pos, keep, e0: int, el: int, cap: int):
+    """Each slot's row of a ``[G, el, C]`` buffer of experts ``e0 ..
+    e0 + el``, or ``G * el * C`` (one scratch row past it) for a slot
+    that was dropped or belongs to another rank's experts."""
+    g = flat_expert.shape[0]
+    grp = torch.arange(g, device=flat_expert.device)[:, None]
+    local = flat_expert - e0
+    mine = keep & (local >= 0) & (local < el)
+    slot = (grp * el + local) * cap + pos
+    return torch.where(mine, slot, g * el * cap).reshape(-1), mine
+
+
+def _expert_range(x, e: int):
+    """``(e0, el)``: the experts this rank holds (all without a mesh)."""
+    if not D.is_dtensor(x):
+        return 0, e
+    pl = D.expert_placements(x, e, 1)
+    if all(not isinstance(q, D.Shard) for q in pl):
+        return 0, e
+    el = e // D.model_size(x.device_mesh)
+    return D.model_rank(x.device_mesh) * el, el
+
+
+def _dispatch(xg, flat_expert, pos, keep, e: int, cap: int, k: int):
+    """The ``[G, E, C, D]`` buffers: kept slots have unique (expert,
+    pos) in their group, so a plain (non-accumulating) store of each kept
+    row gives the buffer that JAX's scatter-add builds; other slots
+    (which add zeros there) go to one scratch row, which is discarded.
+    On DTensors each rank fills its own experts' rows."""
+    g, tg, d = xg.shape
+    e0, el = _expert_range(xg, e)
+
+    def local(xg, flat_expert, pos, keep):
+        xk = xg.reshape(g, tg, 1, d).expand(g, tg, k, d) \
+            .reshape(g * tg * k, d)
+        slot, _ = _slots(flat_expert, pos, keep, e0, el, cap)
+        scratch = g * el * cap
+        buf = torch.zeros((scratch + 1, d), dtype=COMPUTE_DTYPE,
+                          device=xg.device)
+        buf[slot] = xk
+        return buf[:scratch].view(g, el, cap, d)
+
+    if not D.is_dtensor(xg):
+        return local(xg, flat_expert, pos, keep)
+    mesh = xg.device_mesh
+    rep = D.replicated(mesh)
+    pl = D.expert_placements(xg, e, 1)
+    # a rank's gradient of the tokens comes from its own experts' rows:
+    # a share of the sum over the model axis
+    grad = D.partial_over_model(pl, mesh.mesh_dim_names)
+    return D.run_local(local, pl, (rep,) * 4, xg, flat_expert, pos, keep,
+                       in_grad_placements=(grad, rep, rep, rep))
+
+
+def _experts(p, buf):
+    """The expert FFNs, batched over experts: ``[G, E, C, D]``; on
+    DTensors on each rank's experts (its expert weights gathered over
+    the data axes, as FSDP gathers them)."""
+    def local(buf, w_gate, w_up, w_down):
+        gate = F.silu(torch.matmul(buf, _c(w_gate)))
+        up = torch.matmul(buf, _c(w_up))
+        return torch.matmul(gate * up, _c(w_down))
+
+    if not D.is_dtensor(buf):
+        return local(buf, p.w_gate, p.w_up, p.w_down)
+    e = buf.shape[1]
+    pl = D.expert_placements(buf, e, 1)
+    wpl = D.expert_placements(buf, e, 0)
+    return D.run_local(local, pl, (pl, wpl, wpl, wpl), buf, p.w_gate,
+                       p.w_up, p.w_down)
+
+
+def _combine(eout, flat_expert, pos, keep, e: int):
+    """Each slot's expert output, ``[G, Tg*K, D]`` (zeros for dropped
+    slots).  On DTensors each rank gathers its own experts' rows and the
+    rows are summed over the model axis (one non-zero term each)."""
+    g, _, cap, d = eout.shape
+    e0, el = _expert_range(eout, e)
+
+    def local(eout, flat_expert, pos, keep):
+        slot, mine = _slots(flat_expert, pos, keep, e0, el, cap)
+        slot = torch.where(mine.reshape(-1), slot, 0)
+        rows = eout.reshape(g * el * cap, d)[slot]
+        return torch.where(mine.reshape(-1, 1), rows, 0) \
+            .reshape(g, -1, d)
+
+    if not D.is_dtensor(eout):
+        return local(eout, flat_expert, pos, keep)
+    mesh = eout.device_mesh
+    pl = D.expert_placements(eout, e, 1)
+    rep = D.replicated(mesh)
+    return D.run_local(local, D.partial_over_model(pl, mesh.mesh_dim_names),
+                       (pl, rep, rep, rep), eout, flat_expert, pos, keep)
+
+
+def _weigh(tok_out, gate_flat, k: int):
+    """Each token's slots weighted by their gates and summed: ``[G, Tg*K,
+    D]`` -> ``[G*Tg, D]``.  On DTensors on the local rows, in the slots'
+    layout (groups on the data axes, or each rank's share of the sum
+    over the model axis), as DTensor cannot split a sharded token dim
+    into groups."""
+    def local(rows, gates):
+        g, n, d = rows.shape
+        w = gates.reshape(g, n, 1).to(COMPUTE_DTYPE)
+        return (rows * w).reshape(-1, k, d).sum(dim=1)
+
+    if not D.is_dtensor(tok_out):
+        return local(tok_out, gate_flat)
+    pl = tok_out.placements
+    gpl = tuple(q if isinstance(q, D.Shard) else D.Replicate() for q in pl)
+    # a share of the sum takes the whole gradient, and gives the gates a
+    # share of theirs
+    grads = (tuple(D.Replicate() if q.is_partial() else q for q in pl),
+             tuple(D.Partial() if q.is_partial() else r
+                   for q, r in zip(pl, gpl)))
+    return D.run_local(local, pl, (pl, gpl), tok_out, gate_flat,
+                       in_grad_placements=grads)
 
 
 def _cap_of(m, t):

@@ -36,12 +36,16 @@ Parameters are made frozen.  Serving keeps bf16 matrices (``init``'s
 default); training asks for ``param_dtype=torch.float32``, JAX's float32
 parameters, cast to bf16 at each use, and turns their gradients on
 (``train.steps.init_train_state``).
-JAX's ``forward`` also takes ``shard_fn`` and ``unroll``, its pjit
-sharding hook and its HLO-cost switch (with ``_step_unrolled``), and
-JAX's ``set_logits_dtype`` switches the logits to bf16 for
-``launch/dryrun``: they come back with the port of ``launch/sharding``
-and ``launch/dryrun``, and the port has neither.  The logits are
-float32, JAX's default.
+``shard_fn(name, x)`` (identity by default) is JAX's sharding hook, at
+JAX's call points: ``"hidden"`` after the embedding, ``"resid"`` on each
+residual add (``"moe_tok"`` / ``"moe_buf"`` inside ``moe_apply``); the
+launcher's ``launch.sharding.make_shard_fn`` redistributes a DTensor
+activation there, and the model runs on DTensor parameters and inputs
+as on tensors (``models.dist``).  JAX's ``unroll`` / ``_step_unrolled``
+exist only to make XLA's cost analysis see the layers that ``lax.scan``
+hides; the port's layers are a Python loop, so it has neither.  The
+logits are float32, JAX's default; :func:`set_logits_dtype` switches
+them (``launch.dryrun``'s ``logits_bf16``).
 
 The cache is ``{"kv": {...}, "index": int}`` (dense, moe: ``{"k", "v":
 [L, B, Smax, Hkv, hd]}`` under GQA, ``{"ckv": [L, B, Smax, r],
@@ -74,14 +78,23 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.graph import resolve_device
+from . import dist as D
 from . import layers as L
 from . import mamba2 as M
 from .layers import COMPUTE_DTYPE
 from .moe import MoE
 
-# the logits' dtype (JAX's default; its switch to bf16 serves only
-# launch/dryrun, which is not ported)
+_IDENT = lambda name, x: x
+
+# H4: logits dtype. f32 is the safe default; bf16 halves the dominant
+# activation (the [B, S, V] logits) for big-vocab archs — CE still
+# reduces in f32 (logsumexp upcasts).
 _LOGITS_DTYPE = torch.float32
+
+
+def set_logits_dtype(dt) -> None:
+    global _LOGITS_DTYPE
+    _LOGITS_DTYPE = dt
 
 
 def _as_ssm(cfg):
@@ -166,13 +179,16 @@ class Transformer(nn.Module):
                                   d ** -0.5, dtype=dtype))
 
 
-def init(cfg, *, generator: torch.Generator, device=None,
+def init(cfg, *, generator: torch.Generator | None, device=None,
          param_dtype: torch.dtype = COMPUTE_DTYPE) -> Transformer:
     """Random frozen weights on ``device`` (cuda unless the caller names
     another), drawn from ``generator`` (which must live on that
     device): normal with std ``1/sqrt(fan_in)``, 0.02 for the
     embedding, as ``transformer.init`` draws them in float32, then cast
-    to ``param_dtype`` (bf16 to serve, ``torch.float32`` to train)."""
+    to ``param_dtype`` (bf16 to serve, ``torch.float32`` to train).
+    ``generator=None`` draws nothing: the matrices are left
+    uninitialized, and on ``device="meta"`` the model holds no memory
+    (``launch.dryrun`` builds its shapes so)."""
     return Transformer(cfg, generator=generator,
                        device=resolve_device(device), dtype=param_dtype)
 
@@ -182,23 +198,28 @@ def init(cfg, *, generator: torch.Generator, device=None,
 # ---------------------------------------------------------------------------
 
 def _dense_block(p, x, cfg, *, positions, cache=None, cache_index=None,
-                 use_pallas_dispatch: bool = True, attn_impl: str = "flash"):
-    attn_in = L.rms_norm(x, p.norm1, cfg.norm_eps)
+                 use_pallas_dispatch: bool = True, attn_impl: str = "flash",
+                 shard_fn=_IDENT):
+    # a sequence-parallel residual (seqpar) is gathered before the
+    # products, as Megatron's sequence parallelism all-gathers it
+    attn_in = D.unshard(L.rms_norm(x, p.norm1, cfg.norm_eps), 1)
     a, new_cache = p.attn(attn_in, positions=positions, cache=cache,
                           cache_index=cache_index, attn_impl=attn_impl)
-    x = x + a
-    ff_in = L.rms_norm(x, p.norm2, cfg.norm_eps)
+    x = x + shard_fn("resid", a)
+    ff_in = D.unshard(L.rms_norm(x, p.norm2, cfg.norm_eps), 1)
     if cfg.family == "moe":
-        f, aux = p.moe(ff_in, use_pallas_dispatch=use_pallas_dispatch)
+        f, aux = p.moe(ff_in, use_pallas_dispatch=use_pallas_dispatch,
+                       shard_fn=shard_fn)
     else:
         f, aux = p.mlp(ff_in), 0.0
-    return x + f, new_cache, aux
+    return x + shard_fn("resid", f), new_cache, aux
 
 
-def _ssm_block(p, x, cfg, *, state=None, return_state: bool = False):
-    h = L.rms_norm(x, p.norm, cfg.norm_eps)
+def _ssm_block(p, x, cfg, *, state=None, return_state: bool = False,
+               shard_fn=_IDENT):
+    h = D.unshard(L.rms_norm(x, p.norm, cfg.norm_eps), 1)
     out, new_state = p.mamba(h, state=state, return_state=return_state)
-    return x + out, new_state
+    return x + shard_fn("resid", out), new_state
 
 
 def _embed(p, cfg, tokens, prefix_emb=None):
@@ -206,18 +227,19 @@ def _embed(p, cfg, tokens, prefix_emb=None):
     # takes from the cast table (its gradient then sums in bf16 too)
     if cfg.num_codebooks > 1:                # tokens [B, S, ncb]
         table = L._c(p.embed)
-        x = table[0][tokens[..., 0]]
+        x = D.embed_rows(table[0], tokens[..., 0])
         for i in range(1, cfg.num_codebooks):
-            x = x + table[i][tokens[..., i]]
+            x = x + D.embed_rows(table[i], tokens[..., i])
     else:
-        x = L._c(p.embed)[tokens]
+        x = D.embed_rows(L._c(p.embed), tokens)
     if prefix_emb is not None:
         x = torch.cat([prefix_emb.to(x.dtype), x], dim=1)
     return x
 
 
 def _head(p, cfg, x):
-    xn = L.rms_norm(x, p.final_norm, cfg.norm_eps).to(COMPUTE_DTYPE)
+    xn = D.unshard(L.rms_norm(x, p.final_norm, cfg.norm_eps), 1) \
+        .to(COMPUTE_DTYPE)
     if cfg.tie_embeddings:
         return (xn @ L._c(p.embed).T).to(_LOGITS_DTYPE)
     if cfg.num_codebooks > 1:                # "bsd,ndv->bsnv"
@@ -234,28 +256,29 @@ def _zero(x):
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _train_block(blk, x, cfg, positions, use_pallas_dispatch: bool):
+def _train_block(blk, x, cfg, positions, use_pallas_dispatch: bool,
+                 shard_fn):
     # chunked attention, as JAX trains: the flash kernel has no backward
     x, _, aux = _dense_block(blk, x, cfg, positions=positions,
                              use_pallas_dispatch=use_pallas_dispatch,
-                             attn_impl="chunked")
+                             attn_impl="chunked", shard_fn=shard_fn)
     if not isinstance(aux, torch.Tensor):            # dense: no aux loss
         aux = _zero(x)
     return x, aux
 
 
-def _train_ssm_block(blk, x, cfg):
-    return _ssm_block(blk, x, cfg)[0]
+def _train_ssm_block(blk, x, cfg, shard_fn):
+    return _ssm_block(blk, x, cfg, shard_fn=shard_fn)[0]
 
 
-def _train_group(params, gi, x, cfg, positions):
+def _train_group(params, gi, x, cfg, positions, shard_fn):
     """Group ``gi`` of a hybrid: its Mamba2 blocks, then the shared
     block."""
     a = cfg.attn_every
     for blk in params.layers[gi * a:(gi + 1) * a]:
-        x = _train_ssm_block(blk, x, cfg)
+        x = _train_ssm_block(blk, x, cfg, shard_fn)
     return _dense_block(params.shared_attn, x, cfg, positions=positions,
-                        attn_impl="chunked")[0]
+                        attn_impl="chunked", shard_fn=shard_fn)[0]
 
 
 def _maybe_remat(remat: bool, fn, *args):
@@ -266,8 +289,8 @@ def _maybe_remat(remat: bool, fn, *args):
     return fn(*args)
 
 
-def forward(params, cfg, tokens, prefix_emb=None, *, remat: bool = True,
-            use_pallas_dispatch: bool = True):
+def forward(params, cfg, tokens, prefix_emb=None, shard_fn=_IDENT, *,
+            remat: bool = True, use_pallas_dispatch: bool = True):
     """tokens: ``[B, S]`` int (``[B, S, ncb]`` multi-codebook).  Returns
     (logits ``[B, P + S, Vp]`` (``[B, P + S, ncb, Vp]``), aux), ``aux``
     the float32 sum of the MoE layers' load-balancing losses (0 for the
@@ -280,21 +303,28 @@ def forward(params, cfg, tokens, prefix_emb=None, *, remat: bool = True,
     ``moe_plan`` twice a MoE layer.  Attention is the torch ``chunked``
     version, JAX's training attention: the flash kernel has no
     backward."""
-    x = _embed(params, cfg, tokens, prefix_emb)
+    with D.scope(params.embed):
+        return _forward(params, cfg, tokens, prefix_emb, shard_fn, remat,
+                        use_pallas_dispatch)
+
+
+def _forward(params, cfg, tokens, prefix_emb, shard_fn, remat: bool,
+             use_pallas_dispatch: bool):
+    x = shard_fn("hidden", _embed(params, cfg, tokens, prefix_emb))
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
     aux = _zero(x)
     if cfg.family == "hybrid":
         for gi in range(groups(cfg)):
             x = _maybe_remat(remat, _train_group, params, gi, x, cfg,
-                             positions)
+                             positions, shard_fn)
     elif cfg.family == "ssm":
         for blk in params.layers:
-            x = _maybe_remat(remat, _train_ssm_block, blk, x, cfg)
+            x = _maybe_remat(remat, _train_ssm_block, blk, x, cfg, shard_fn)
     else:
         for blk in params.layers:
             x, a = _maybe_remat(remat, _train_block, blk, x, cfg, positions,
-                                use_pallas_dispatch)
+                                use_pallas_dispatch, shard_fn)
             aux = aux + a
     return _head(params, cfg, x), aux
 
@@ -354,7 +384,8 @@ def _put(state: dict, new: dict) -> None:
         t.copy_(new[n])
 
 
-def _ssm_layers(params, cfg, x, cache, *, gi=None, stateful: bool):
+def _ssm_layers(params, cfg, x, cache, *, gi=None, stateful: bool,
+                shard_fn=_IDENT):
     """The Mamba2 blocks of the ``ssm`` model (``gi`` None) or of
     hybrid group ``gi``, each writing its state into ``cache["ssm"]``:
     ``stateful`` steps from the cached state (decode), else from none,
@@ -367,20 +398,28 @@ def _ssm_layers(params, cfg, x, cache, *, gi=None, stateful: bool):
     for idx, blk in rows:
         st = _rows(cache["ssm"], idx)
         x, new = _ssm_block(blk, x, cfg, state=st if stateful else None,
-                            return_state=True)
+                            return_state=True, shard_fn=shard_fn)
         _put(st, new)
     return x
 
 
-def _step(params, cfg, tokens, cache, cache_index: int, prefix_emb=None, *,
-          stateful: bool, use_pallas_dispatch: bool = True,
-          attn_impl: str = "flash"):
+def _step(params, cfg, tokens, cache, cache_index: int, prefix_emb=None,
+          shard_fn=_IDENT, *, stateful: bool,
+          use_pallas_dispatch: bool = True, attn_impl: str = "flash"):
     """Shared prefill/decode body: writes the new keys and values (and
     SSM states) into the cache in place and returns (logits of the last
     position, cache with the index advanced).  The Mamba2 blocks step
     from the cached state when ``stateful`` (decode), else run the
     chunked scan from no state (prefill)."""
-    x = _embed(params, cfg, tokens, prefix_emb)
+    with D.scope(params.embed):
+        return _step_body(params, cfg, tokens, cache, cache_index,
+                          prefix_emb, shard_fn, stateful,
+                          use_pallas_dispatch, attn_impl)
+
+
+def _step_body(params, cfg, tokens, cache, cache_index, prefix_emb, shard_fn,
+               stateful, use_pallas_dispatch, attn_impl):
+    x = shard_fn("hidden", _embed(params, cfg, tokens, prefix_emb))
     s = x.shape[1]
     ci = int(cache_index)
     cap = _capacity(cache)
@@ -391,26 +430,29 @@ def _step(params, cfg, tokens, cache, cache_index: int, prefix_emb=None, *,
                                   device=x.device)[None, :]
     if cfg.family == "hybrid":
         for gi in range(groups(cfg)):
-            x = _ssm_layers(params, cfg, x, cache, gi=gi, stateful=stateful)
+            x = _ssm_layers(params, cfg, x, cache, gi=gi, stateful=stateful,
+                            shard_fn=shard_fn)
             x, _, _ = _dense_block(params.shared_attn, x, cfg,
                                    positions=positions,
                                    cache=_rows(cache["attn"], gi),
-                                   cache_index=ci, attn_impl=attn_impl)
+                                   cache_index=ci, attn_impl=attn_impl,
+                                   shard_fn=shard_fn)
     elif cfg.family == "ssm":
-        x = _ssm_layers(params, cfg, x, cache, stateful=stateful)
+        x = _ssm_layers(params, cfg, x, cache, stateful=stateful,
+                        shard_fn=shard_fn)
     else:
         for li, blk in enumerate(params.layers):
             x, _, _ = _dense_block(blk, x, cfg, positions=positions,
                                    cache=_rows(cache["kv"], li),
                                    cache_index=ci,
                                    use_pallas_dispatch=use_pallas_dispatch,
-                                   attn_impl=attn_impl)
+                                   attn_impl=attn_impl, shard_fn=shard_fn)
     logits = _head(params, cfg, x[:, -1:])
     return logits, {**cache, "index": ci + s}
 
 
 @torch.no_grad()
-def prefill(params, cfg, tokens, cache, prefix_emb=None, *,
+def prefill(params, cfg, tokens, cache, prefix_emb=None, shard_fn=_IDENT, *,
             use_pallas_dispatch: bool = True, attn_impl: str = "flash"):
     """Fill the cache from a prompt ``tokens [B, S]`` (``[B, S, ncb]``)
     from position 0, behind ``prefix_emb [B, P, d]`` when given (JAX's
@@ -418,16 +460,17 @@ def prefill(params, cfg, tokens, cache, prefix_emb=None, *,
     (``[B, 1, ncb, Vp]``) float32, cache)."""
     if prefix_emb is not None and cfg.family in ("ssm", "hybrid"):
         raise ValueError(f"the {cfg.family} prefill takes no prefix_emb")
-    return _step(params, cfg, tokens, cache, 0, prefix_emb, stateful=False,
-                 use_pallas_dispatch=use_pallas_dispatch,
+    return _step(params, cfg, tokens, cache, 0, prefix_emb, shard_fn,
+                 stateful=False, use_pallas_dispatch=use_pallas_dispatch,
                  attn_impl=attn_impl)
 
 
 @torch.no_grad()
-def decode_step(params, cfg, token, cache, *,
+def decode_step(params, cfg, token, cache, shard_fn=_IDENT, *,
                 use_pallas_dispatch: bool = True, attn_impl: str = "flash"):
     """token: ``[B, 1]`` (``[B, 1, ncb]``).  One autoregressive step at
     ``cache["index"]``."""
-    return _step(params, cfg, token, cache, cache["index"], stateful=True,
+    return _step(params, cfg, token, cache, cache["index"], None, shard_fn,
+                 stateful=True,
                  use_pallas_dispatch=use_pallas_dispatch,
                  attn_impl=attn_impl)

@@ -1098,3 +1098,68 @@ def test_cuda_trainer_runs_and_resumes(cuda_device, tmp_path, capsys):
     assert np.isfinite(train.main(args + ["--steps", "4"]))
     assert np.isfinite(train.main(args + ["--steps", "6"]))
     assert "[restore] resumed from step 3" in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_prefill_launches_the_kernels(cuda_device):
+    """A SMOKE deepseek-moe-16b prefill (widened to head width 64, the
+    wgmma route) through DTensor parameters, cache and tokens on a
+    1-rank NCCL group's ``(1, 1)`` mesh: ``flash_attention`` runs on its
+    wgmma route once a layer and ``moe_plan`` once a layer, on the local
+    shards (the counters say so), and the logits and the cache are
+    bitwise those of the unsharded call."""
+    import dataclasses
+    import os
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch import configs, kernels
+    from repro_torch.launch import distributed_init as DI
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"REPRO_COORDINATOR": f"127.0.0.1:{port}",
+           "REPRO_NUM_PROCESSES": "1", "REPRO_PROCESS_ID": "0"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        assert DI.maybe_initialize_distributed()
+        assert dist.get_backend() == "nccl"
+        mesh = M.make_host_mesh()
+        cfg = dataclasses.replace(
+            configs.get_smoke_config("deepseek-moe-16b"), d_model=256)
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        model = T.init(cfg, generator=gen, device=cuda_device)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 64)).astype(np.int32)).to(cuda_device)
+        cache = T.zeros_cache(cfg, 2, 64, device=cuda_device)
+        want, want_cache = T.prefill(model, cfg, toks, cache)
+        SH.distribute_params(model, mesh, SH.param_specs(model),
+                             from_local=True)
+        dcache = SH.distribute_tree(
+            T.zeros_cache(cfg, 2, 64, device=cuda_device), mesh,
+            SH.cache_specs(cfg, False, 0, 64, 1), from_local=True)
+        dtoks = SH.distribute_tree(toks, mesh, ("data", None),
+                                   from_local=True)
+        kernels.reset_launch_counts()
+        got, dcache = steps.make_prefill_step(
+            cfg, SH.make_shard_fn(mesh, False))(model, dtoks, dcache)
+        fa = kernels.KERNELS["flash_attention"]
+        assert fa.launches_by_route == {"wgmma": cfg.num_layers, "simt": 0}
+        assert kernels.KERNELS["moe_plan"].launches == cfg.num_layers
+        assert torch.equal(got.full_tensor(), want)
+        for n, t in dcache["kv"].items():
+            assert torch.equal(t.full_tensor(), want_cache["kv"][n]), n
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v

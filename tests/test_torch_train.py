@@ -147,7 +147,7 @@ def port_model(arch, ref):
 
 
 def port_loss_grads(model, cfg, batch, remat=True, **kw):
-    loss, ce = tsteps.make_loss_fn(cfg, remat, **kw)(model, batch)
+    loss, ce = tsteps.make_loss_fn(cfg, remat=remat, **kw)(model, batch)
     named = dict(model.named_parameters())
     grads = torch.autograd.grad(loss, list(named.values()))
     tree = convert.jax_tree(dict(zip(named, grads)))
