@@ -8,6 +8,9 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
+0. the port's invariant lint (``repro_torch.analysis``, stdlib ``ast``,
+   no device) over ``src/repro_torch``, in this process: 0 findings
+   under its seven rules, or the run stops;
 1. the card's name and power limit (``nvidia-smi``), then an ``nvcc``
    build of every kernel source in the checkout, all in parallel, and
    ptxas's 0 spill bytes in each instantiation of the wgmma flash
@@ -4460,6 +4463,18 @@ def check_wgmma_spills(log) -> None:
           flush=True)
 
 
+def lint_path() -> None:
+    """Phase 0: the port's invariant lint over its own tree, in this
+    process; a finding (or a usage error) stops the run."""
+    from repro_torch.analysis import get_rules
+    from repro_torch.analysis.__main__ import main as lint_main
+    t0 = time.perf_counter()
+    rc = lint_main(["--check", str(ROOT / "src" / "repro_torch")])
+    check(rc == 0, f"repro_torch.analysis exited {rc}")
+    print(f"phase 0: lint of src/repro_torch: {len(get_rules())} rules, "
+          f"0 findings, {time.perf_counter() - t0:.2f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -4472,6 +4487,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    lint_path()
     from repro_torch.kernels import build
 
     card = card_line()

@@ -150,7 +150,7 @@ def _min_changed(old, new, frontier):
 
 def _sync(t: torch.Tensor) -> None:
     if t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
+        torch.cuda.synchronize(t.device)  # repro: allow[host-sync] -- timing fence (the JAX package's block_until_ready): waits, moves no value
 
 
 def _fused_result(t_sync: int, t0: float, labels, r, st) -> tuple:

@@ -272,7 +272,7 @@ _REGISTRY: dict = {}
 
 def register_executor(pair: ExecutorPair) -> None:
     """Install (or replace) a named backend in the executor registry."""
-    _REGISTRY[pair.name] = pair
+    _REGISTRY[pair.name] = pair  # repro: allow[jit-purity] -- idempotent registry write: a capture that makes the first lookup records nothing of it, and a replay needs none
 
 
 def get_executor(name: str) -> ExecutorPair:
@@ -626,7 +626,7 @@ def _build_pull_enum(g: Graph, cfg: BalancerConfig) -> _PullEnum:
     v = rg.num_vertices
     emask = rg.out_degrees() > 0
     cnt, union = _host_round_counts(rg, emask, cfg)
-    cnt = cnt.cpu().numpy()            # one-time set-up, not per round
+    cnt = cnt.cpu().numpy()  # repro: allow[host-sync] -- one-time set-up, cached per graph and config, not per round
     fcap = next_bucket(int(cnt[0]))
     fidx = compact(union, fcap)
     deg, row_start, valid = _frontier_meta(rg, fidx)
@@ -671,8 +671,8 @@ def _run_plan_host(gr: Graph, values, labels, fmask, plan: RoundPlan,
                                  bdeg, brow, spec.width, op, c)
         if stats is not None:
             stats["edges_twc"] += edge_sum
-            stats["tile_loads_twc"] += _tile_loads(
-                bdeg, bvidx < v, cfg.num_tiles).cpu().numpy()
+            loads = _tile_loads(bdeg, bvidx < v, cfg.num_tiles)
+            stats["tile_loads_twc"] += loads.cpu().numpy()  # repro: allow[host-sync] -- collect_stats only: the JAX package's host round makes this fetch uncounted too
     if lb is not None:
         total, hvidx, hdeg, hrow = lb
         ecap = next_bucket(total, minimum=cfg.lb_tile_edges)
@@ -973,9 +973,9 @@ def relax_spmd_directed(g: Graph, values, labels, frontier,
         values, labels, frontier)
     st = active = None
     if collect_stats or return_active:
+        b = labels.shape[0]
         seen = seen.cpu()              # ONE blocking sync for the loop
         _note_host_transfer()
-        b = labels.shape[0]
         active = seen[:b].numpy() > 0
         if collect_stats:
             st = RoundStats.from_device(_unpack_stats(
@@ -999,7 +999,7 @@ def _put_row(rows: torch.Tensor, r: torch.Tensor,
              st: RoundStatsDev) -> torch.Tensor:
     """Write round ``r``'s stats (``r`` a device scalar) into ``rows``,
     in place; returns ``rows``."""
-    return rows.index_copy_(0, r.reshape(1).long(), _pack_stats(st)[None])
+    return rows.index_copy_(0, r.reshape(1).long(), _pack_stats(st)[None])  # repro: allow[scatter-determinism] -- one index, round r: no duplicate targets
 
 
 def _run_fused_loop(g: Graph, rg, emask, labels, frontier,
@@ -1072,6 +1072,6 @@ def fused_stats_host(st: Optional[RoundStatsDev], rounds: int):
     ``host_transfers=0``."""
     if st is None:
         return None
-    rows = _pack_stats(st)[:rounds].cpu()
+    rows = _pack_stats(st)[:rounds].cpu()  # repro: allow[host-sync] -- once per fused traversal, after it converged; fused rounds count no transfer, as in the JAX package
     t = st.tile_loads_twc.shape[-1]
     return [RoundStats.from_device(_unpack_stats(row, t)) for row in rows]

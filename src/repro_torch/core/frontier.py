@@ -20,6 +20,7 @@ onto a real row.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -106,8 +107,10 @@ def _live_slots(slots, b: int) -> list:
     """``(position, slot)`` of each live entry of a host ``[K]`` slot
     vector: the sentinel ``B`` and anything else out of range dropped,
     negative slots counted from the end."""
-    s, keep = _in_range(torch.as_tensor(slots).cpu().long(), b)
-    return [(i, int(s[i])) for i in torch.nonzero(keep).flatten().tolist()]
+    s = np.asarray(slots, dtype=np.int64)
+    s = np.where(s < 0, s + b, s)
+    return [(i, int(s[i]))
+            for i in np.flatnonzero((s >= 0) & (s < b)).tolist()]
 
 
 def refill_rows(labels: torch.Tensor, frontier: torch.Tensor, slots,
@@ -124,7 +127,7 @@ def refill_rows(labels: torch.Tensor, frontier: torch.Tensor, slots,
     ``(labels, frontier)``; the inputs are not written, and nothing
     crosses from the host (the rows are filled on the device)."""
     v = labels.shape[-1]
-    src = torch.as_tensor(sources).cpu().long().clamp(0, v - 1).tolist()
+    src = np.clip(np.asarray(sources, dtype=np.int64), 0, v - 1).tolist()
     labels, frontier = labels.clone(), frontier.clone()
     for i, slot in _live_slots(slots, labels.shape[0]):
         # fills of views: a host scalar assigned by indexing would be

@@ -78,7 +78,7 @@ _int32 = wirecodec._int32
 def _sync(mesh: Mesh) -> None:
     for dev in set(mesh.devices):
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            torch.cuda.synchronize(dev)  # repro: allow[host-sync] -- timing fence (the JAX package's block_until_ready): waits, moves no value
 
 
 def _private(x: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
@@ -148,8 +148,8 @@ def make_fused_traversal_fn(mesh: Mesh, cfg: BalancerConfig, op: Operator,
     frontier)`` returns ``(labels, rounds)``, both on the device; on the
     card it is one launch of a graph captured once per configuration
     and cached on ``graphs``."""
-    key = ("replicated", cfg, op, sync_delta, int(max_rounds), values_of,
-           next_frontier)
+    key = ("replicated", mesh, cfg, op, sync_delta, int(max_rounds),
+           values_of, next_frontier)
 
     def trav(graphs, labels, frontier):
         def cond(r, lab, fr):
@@ -446,7 +446,7 @@ def make_mirror_round_fn(mesh: Mesh, cfg: BalancerConfig, op: Operator,
         r, lab, fr, _, _ = graph_loop.while_(cond, body, carry)
         return lab, fr, r
 
-    key = ("mirror", cfg, op, meta, int(max_rounds), tol,
+    key = ("mirror", mesh, cfg, op, meta, int(max_rounds), tol,
            tuple(hooks.items()))
 
     def fn(graphs, labels, frontier, aux):
@@ -472,7 +472,7 @@ def stats_per_device(sts) -> list:
     """Per-slot ``RoundStatsDev`` as host ``RoundStats``, one per slot,
     in one transfer."""
     dev = sts[0].frontier_size.device
-    rows = torch.stack([_pack_stats(st).to(dev) for st in sts]).cpu()
+    rows = torch.stack([_pack_stats(st).to(dev) for st in sts]).cpu()  # repro: allow[host-sync] -- collect_stats only: the round's stats, uncounted as in the JAX package
     tiles = sts[0].tile_loads_twc.shape[-1]
     return [RoundStats.from_device(_unpack_stats(row, tiles))
             for row in rows]
@@ -647,8 +647,7 @@ def _run_mirror(graphs, mesh: Mesh, op: Operator, init_labels, init_frontier,
             probe += [_pack_stats(st).to(active_t.device) for st in out[4]]
         probe = torch.cat(probe).cpu()        # ONE fetch a round
         _note_host_transfer()      # the activity / residual probe blocks
-        active = int(probe[0])
-        resid = float(probe[1:2].view(torch.float32))
+        active, resid = int(probe[0]), float(probe[1:2].view(torch.float32))
         if collect_stats:
             tiles = out[4][0].tile_loads_twc.shape[-1]
             rows = probe[2:].reshape(ndev, -1)
@@ -845,7 +844,7 @@ def _pagerank_replicated_fused(graphs, mesh: Mesh, rank, inv_out, sink,
         return rank, r
 
     return graph_loop.run(
-        graphs, ("pagerank", cfg, damping, tol, int(max_rounds)),
+        graphs, ("pagerank", mesh, cfg, damping, tol, int(max_rounds)),
         lambda ra, io, sk: trav(graphs, ra, io, sk), rank, inv_out, sink)
 
 
@@ -866,9 +865,7 @@ def pagerank_distributed(stacked_rg: LocalGraphs, mesh: Mesh, out_degrees,
     dev = _check(stacked_rg, mesh, ops.PR_PULL, torch.float32, cfg,
                  collect_stats, sync, meta, mode)
     v = stacked_rg.num_vertices
-    if not isinstance(out_degrees, torch.Tensor):
-        out_degrees = torch.from_numpy(np.array(out_degrees))
-    outdeg = out_degrees.to(dev, torch.float32)
+    outdeg = torch.as_tensor(out_degrees).to(dev, torch.float32)
     inv_out = torch.where(outdeg > 0, 1.0 / torch.clamp(outdeg, min=1.0),
                           0.0)
     sink = outdeg == 0

@@ -23,7 +23,7 @@ def host_dtype(dtype: torch.dtype) -> np.dtype:
     """The numpy dtype that holds a tensor of ``dtype`` (bf16: ``V2``)."""
     if dtype == torch.bfloat16:
         return np.dtype("V2")
-    return torch.empty((), dtype=dtype).numpy().dtype
+    return torch.empty((), dtype=dtype).numpy().dtype  # repro: allow[host-sync] -- a CPU tensor made here: nothing crosses from a device
 
 
 def host_tensor(a) -> torch.Tensor:

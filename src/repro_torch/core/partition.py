@@ -66,7 +66,7 @@ class LocalGraphs(tuple):
         """The JAX package's ``[D, ...]`` view, as ``(row_ptr, col_idx,
         edge_w)`` tensors stacked on the CPU (a namedtuple-like object
         with those attributes)."""
-        return _Stacked(*(torch.stack([getattr(g, f).cpu() for g in self])
+        return _Stacked(*(torch.stack([getattr(g, f).cpu() for g in self])  # repro: allow[host-sync] -- the JAX package's stacked view, for checking: on no round path
                           for f in ("row_ptr", "col_idx", "edge_w")))
 
     def nbytes(self) -> int:
@@ -188,13 +188,13 @@ def _build_meta(num_devices: int, num_vertices: int,
     counts = np.zeros((num_devices, num_devices), dtype=np.int64)
     for d in range(num_devices):
         for o in range(num_devices):
-            lst = per_pair[d][o].cpu().numpy()
+            lst = per_pair[d][o].cpu().numpy()  # repro: allow[host-sync] -- partition set-up: mirror lists, once per partition
             mirror_idx[d, o, :len(lst)] = lst
             counts[d, o] = len(lst)
     return PartitionMeta(num_devices=num_devices,
                          num_vertices=num_vertices,
-                         master_bounds=bounds.cpu().numpy(),
-                         owner=owner_v.to(torch.int32).cpu().numpy(),
+                         master_bounds=bounds.cpu().numpy(),  # repro: allow[host-sync] -- partition set-up, once per partition
+                         owner=owner_v.to(torch.int32).cpu().numpy(),  # repro: allow[host-sync] -- partition set-up, once per partition
                          mirror_idx=mirror_idx,
                          mirror_counts=counts)
 
@@ -214,7 +214,7 @@ def partition(g: Graph, num_devices: int, policy: str = "oec",
     n = g.num_vertices
     rp = g.row_ptr.to(torch.int64)
     outdeg = rp[1:] - rp[:-1]
-    e_real = int(rp[-1])
+    e_real = int(rp[-1])  # repro: allow[host-sync] -- partition set-up: the edge count sizes the split, once per partition
     src = torch.repeat_interleave(
         torch.arange(n, dtype=torch.int64, device=dev), outdeg,
         output_size=e_real)

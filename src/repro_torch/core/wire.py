@@ -280,7 +280,7 @@ def step_logical_bytes(live: torch.Tensor, batch: int, itemsize: int
 def word_numpy(wire: torch.Tensor, codec: WireCodec) -> np.ndarray:
     """A wire tensor on the host, viewed as the word dtype the JAX
     package ships (``uint16`` words travel as ``int16`` bits here)."""
-    arr = wire.cpu().numpy()
+    arr = wire.cpu().numpy()  # repro: allow[host-sync] -- inspection of a wire payload on request, on no round path
     if codec.name == "quantize":
         arr = arr.view(np.dtype(codec.narrow))
     return arr

@@ -535,4 +535,4 @@ class QueryService:
 def _host_rows(t: torch.Tensor, slots) -> np.ndarray:
     """Rows ``slots`` of a ``[B, V]`` bank tensor on the host: one
     gather on the device, one fetch."""
-    return torch.stack([t[s] for s in slots]).cpu().numpy()
+    return torch.stack([t[s] for s in slots]).cpu().numpy()  # repro: allow[host-sync] -- the answer rows of retired or preempted queries, only on steps that have them; uncounted as in the JAX package
