@@ -28,10 +28,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    x G x adaptive x (uniform, skewed, tied, NaN-row probabilities), every
    cluster size the wrapper picks; the static round's device-int32
    entries (``twc_bin_relax`` with its first chunk and pass count on the
-   device, over V rows; ``edge_lb_relax``, ``merge_path_map`` and
-   ``edge_lb_map`` with the total on the device, over a span far past
-   it: total 0, ragged tails, both deals, pass counts 0..k) against
-   their plain versions given the same ints;
+   device, over V rows and over the bin lists of ``twc_bin_list``, which
+   is held against its plain version exactly; ``edge_lb_relax``,
+   ``merge_path_map`` and ``edge_lb_map`` with the total on the device,
+   over a span far past it: total 0, ragged tails, both deals, pass
+   counts 0..k) against their plain versions given the same ints;
 3. the main path at full size: ALB ``sssp``, ``bfs`` and ``sssp_batch``
    (B = 8) on ``rmat(22, 16, seed=0)`` through the kernel pair (one
    fused ``twc_bin_relax`` / ``edge_lb_relax`` launch per pass), with
@@ -64,7 +65,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    mode (pagerank at ``PR_RTOL_PAIR``), ``host_transfers`` 0 (fused) or
    as host (spmd), zero syncing calls between a fused dispatch and its
    fetch under ``set_sync_debug_mode("error")``; each run's launches
-   counted on the card and held against its rounds x bins, launches
+   counted on the card and held against its rounds x bins (and the bin
+   listing, ``twc_bin_list``, once a round), launches
    recorded by the captures, graphs captured and their seconds, the
    condition kernel's decisions, medians of 6 walls host / spmd / fused in turns, device profiles of
    sssp and pagerank in host and spmd mode, and the device span of each
@@ -107,7 +109,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    through merge_path.  Labels bitwise those of phases 3 and 3b
    (pagerank within ``PR_RTOL_PAIR``), rounds equal host / fused,
    ``host_transfers`` as the JAX runtime counts them (0 fused), each
-   run's static-entry launches on the card equal to rounds x bins x 4,
+   run's static-entry launches on the card equal to rounds x bins x 4
+   (``twc_bin_list`` rounds x 4),
    every mirror round's logical bytes ``mirrors_synced x (4 + B x 4)``
    and below the replicated baseline, the codecs bitwise the identity
    run with fewer bytes on the wire; zero syncing calls between a fused
@@ -125,9 +128,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    it replaced (the torch plan with the ``positions_in_expert`` kernel)
    and ``positions_in_expert`` alone; device profiles of ALB sssp,
    sssp_batch, adaptive cc and pagerank; the static entries at phase
-   3d's shapes (one static ALB, twc and merge-path sssp, run eagerly and
-   recorded), and the condition kernel (a 1,000-turn WHILE loop against
-   the same loop driven from the host);
+   3d's shapes (one static ALB, twc and merge-path sssp and two static
+   pagerank rounds, run eagerly and recorded: ``twc_bin_list`` beside
+   its plain version and bound, ``twc_bin_relax`` over its lists), the
+   host rounds' ``twc_bin_relax`` calls through the static schedule,
+   and the condition kernel (a 1,000-turn WHILE loop against the same
+   loop driven from the host);
 5. the LM serving path, after the graph phases' tensors are freed:
    deepseek-moe-16b at its published widths and 28 layers, random bf16
    weights from a seeded generator on the card, 4 requests of 1024
@@ -232,6 +238,9 @@ SCALAR_OPS_PER_S = 67e12
 # the kernels the graph phases (3, 3b) launch; phase 5 runs two more,
 # and the index maps twc_bin_map / edge_lb_map are on no main path
 GRAPH_KERNELS = ("twc_bin_relax", "edge_lb_relax", "merge_path_map")
+# the kernel pair's static-round kernels: the fused relax kernels and the
+# bin listing (phases 3d-3g)
+STATIC_KERNELS = ("twc_bin_relax", "edge_lb_relax", "twc_bin_list")
 
 
 def card_line() -> str:
@@ -518,6 +527,27 @@ def relax_vs_plain(dev) -> dict:
     return errs
 
 
+# the static round's bins as ``(lo, hi)``: alb and twc at their default
+# widths, the vertex strategy's one bin
+LIST_BOUNDS = {"alb": ((0, 8), (8, 128), (128, 1023)),
+               "twc": ((0, 8), (8, 128), (128, None)),
+               "vertex": ((0, None),)}
+
+
+def list_err(got, want) -> int:
+    """0 when two ``BinLists`` agree: counts, largest degrees, and each
+    bin's members up to its count; else 1."""
+    import torch
+    if not (torch.equal(got.count, want.count) and
+            torch.equal(got.max_deg, want.max_deg)):
+        return 1
+    for b, k in enumerate(want.count.tolist()):
+        for g, w in zip(got[:3], want[:3]):
+            if not torch.equal(g[b, :k], w[b, :k]):
+                return 1
+    return 0
+
+
 def static_entries_vs_plain(dev) -> dict:
     """The device-int32 entries of the static-shape round against their
     plain versions given the same values as host ints, on phase 2's
@@ -525,8 +555,12 @@ def static_entries_vs_plain(dev) -> dict:
     non-members, as the static round lays a bin out) with the first
     chunk and the pass count on the device (0 passes, 1, 2, and every
     pass a 6,000-degree row needs), without a row bound and with one on
-    the device (V, V / 3: the static round's tile walk), every operator,
-    B in {1, 3};
+    the device (V, V / 3: a row bound over sentinel rows), every
+    operator, B in {1, 3};
+    ``twc_bin_list`` over frontier layouts of the same CSR (sparse and
+    dense frontiers; frontier counts 0, 1, a tile, a third, all; the
+    alb, twc and vertex bins), exactly, and ``twc_bin_relax`` over its
+    lists with their device counts, every operator, B in {1, 3};
     ``edge_lb_relax`` over the static span (every edge of the graph)
     with the total on the device (0, one row, several, 2,000 rows), both
     deals, 64 and 7 tiles; ``merge_path_map`` and ``edge_lb_map`` with a
@@ -540,6 +574,16 @@ def static_entries_vs_plain(dev) -> dict:
 
     def t32(a):
         return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    layouts = []
+    for density in (0.05, 0.9):
+        listed = np.flatnonzero(rng.random(v) < density)
+        fidx = np.full(v, v)
+        fidx[:len(listed)] = listed
+        real = fidx < v
+        safe = np.where(real, fidx, 0)
+        layouts.append(([t32(np.where(real, a, f)) for a, f in
+                         ((fidx, v), (deg[safe], 0), (row_ptr[:-1][safe], 0))],
+                        len(listed)))
     member = rng.random(v) < 0.2
     member[:12] = True
     rows = [t32(np.where(member, a, f)) for a, f in
@@ -554,7 +598,7 @@ def static_entries_vs_plain(dev) -> dict:
                      int(hdeg.sum())))
     errs = {"twc_bin_relax": {"int": 0.0, "float": 0.0},
             "edge_lb_relax": {"int": 0.0, "float": 0.0},
-            "merge_path_map": 0, "edge_lb_map": 0}
+            "merge_path_map": 0, "edge_lb_map": 0, "twc_bin_list": 0}
     cases = {k: 0 for k in errs}
 
     def held(name, got, want):
@@ -562,6 +606,33 @@ def static_entries_vs_plain(dev) -> dict:
         errs[name][kind] = max(errs[name][kind], relax_err(got, want))
         cases[name] += 1
 
+    lists = []
+    for rows, n in layouts:
+        for bounds in LIST_BOUNDS.values():
+            for cut in sorted({0, 1, 1024, n // 3, n}):
+                got = relax.twc_bin_list(*rows, t32([cut]), bounds)
+                want = ref.twc_bin_list_ref(*rows, cut, bounds)
+                errs["twc_bin_list"] = max(errs["twc_bin_list"],
+                                           list_err(got, want))
+                cases["twc_bin_list"] += 1
+            if bounds == LIST_BOUNDS["twc"]:
+                lists.append(got)             # every row listed
+    for opname in RELAX_OPS:
+        op = relax_op(opname)
+        for b in (1, 3):
+            val, lab, fm = relax_state(dev, rng, opname, b, v)
+            for got in lists:
+                for i, width in enumerate((8, 128, 1024)):
+                    most = -(-int(got.max_deg[i]) // width)
+                    args = (got.vidx[i], got.deg[i], got.row_start[i], op)
+                    n = int(got.count[i])
+                    plain = [t[:n].contiguous() for t in args[:3]]
+                    held("twc_bin_relax", relax.twc_bin_relax(
+                        val, lab.clone(), fm, col, w, *args, width=width,
+                        passes=t32([most]), rows=got.count[i:i + 1]),
+                        ref.twc_bin_relax_ref(
+                        val, lab.clone(), fm, col, w, *plain, op,
+                        width=width, passes=most))
     for opname in RELAX_OPS:
         op = relax_op(opname)
         for b in (1, 3):
@@ -571,7 +642,7 @@ def static_entries_vs_plain(dev) -> dict:
                 for chunk in (0, 1):
                     for passes in sorted({0, 1, 2, most - chunk}):
                         # no row bound (one group a row), and bounds at V
-                        # and at V / 3 (the tile walk of the static round)
+                        # and at V / 3 (the static schedule over sentinels)
                         for bound in (None, v, v // 3):
                             held("twc_bin_relax", relax.twc_bin_relax(
                                 val, lab.clone(), fm, col, w, *rows, op,
@@ -623,6 +694,7 @@ def static_entries_vs_plain(dev) -> dict:
               errs[name]["float"] <= RELAX_FLOAT_RTOL,
               f"{name} (device int32 entry) != plain: {errs[name]}")
     check(errs["edge_lb_map"] == 0, "edge_lb_map (device total) != plain")
+    check(errs["twc_bin_list"] == 0, "twc_bin_list != plain")
     print(f"phase 2: device-int32 entries == plain on {cases} cases (min "
           f"and int add exact, float add within rtol {RELAX_FLOAT_RTOL}): "
           f"{errs}", flush=True)
@@ -1338,15 +1410,16 @@ def static_path(g, sym, src, sources) -> dict:
     host = {a: apps[a]("host", True) for a in apps}
 
     def needed(a, m, rounds) -> dict:
-        """Launches a run's rounds need: each bin of the plan and the
-        huge bin once a round."""
+        """Launches a run's rounds need: each bin of the plan, the bin
+        listing and the huge bin once a round."""
         ran = rounds + (m == "spmd" and a != "pagerank")
         plan = effective_plan(cfg_of[a])
         if cfg_of[a].executor == "merge_path":
             return {"twc_bin_relax": 0, "edge_lb_relax": 0,
-                    "merge_path_map": ran}
+                    "twc_bin_list": 0, "merge_path_map": ran}
         return {"twc_bin_relax": ran * len(plan.bins),
                 "edge_lb_relax": ran * (plan.lb != "none"),
+                "twc_bin_list": ran * (len(plan.bins) > 0),
                 "merge_path_map": 0}
 
     torch.cuda.reset_peak_memory_stats()
@@ -1382,7 +1455,7 @@ def static_path(g, sym, src, sources) -> dict:
           f"captured in {capture_s:.2f} s; the condition kernel took "
           f"{decisions} branch and loop decisions on the card; peak "
           f"device memory {peak_gb:.2f} GB", flush=True)
-    for name in GRAPH_KERNELS:
+    for name in GRAPH_KERNELS + ("twc_bin_list",):
         check(launches[name] > 0, f"{name} was not launched by phase 3d")
     check(by_run["sssp/twc/fused"]["twc_bin_relax"] > 0,
           "the twc strategy's unbounded bin did not launch twc_bin_relax")
@@ -1642,8 +1715,7 @@ def stream_update_row(st, batch, entry: dict) -> tuple:
         "full_recompute": rep.full_recompute, "seeds": rep.seeds,
         "captures": graph_loop.captures - caps,
         "capture_s": graph_loop.capture_seconds - cap_s,
-        "launches": {k: launches[k] for k in ("twc_bin_relax",
-                                              "edge_lb_relax")},
+        "launches": {k: launches[k] for k in STATIC_KERNELS},
         "syncs": len(syncs),
         "sync_sites": {x: syncs.count(x) for x in sorted(set(syncs))},
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -1764,7 +1836,7 @@ def stream_path(g, sym, src) -> dict:
     check(seen and all(p == v for p, v in seen),
           "a program ran on a superseded graph version")
     launches = {k: entry["host"].get(k, 0) + entry["static"].get(k, 0)
-                for k in ("twc_bin_relax", "edge_lb_relax")}
+                for k in STATIC_KERNELS}
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched by phase 3e")
     decisions = graph_loop.set_runs(reset=True)
@@ -2028,7 +2100,7 @@ def serve_path(g, batches, built: int) -> dict:
     check(seen and all(p == v for p, v in seen),
           "a program ran on a superseded graph version")
     launches = {k: entry["host"].get(k, 0) + entry["static"].get(k, 0)
-                for k in ("twc_bin_relax", "edge_lb_relax")}
+                for k in STATIC_KERNELS}
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched by phase 3f")
     check(len(build.BUILD_LOG) == built, "a kernel was built after phase 1")
@@ -2055,15 +2127,17 @@ DIST_CUTS = (("g/oec", "g", "oec"), ("g/iec", "g", "iec"),
 
 def dist_launches_needed(cfg, rounds: int) -> dict:
     """Launches of the static entries a distributed run's rounds need:
-    each partition runs every bin of the plan and the huge bin once a
-    round (``merge_path_map`` once, under merge_path)."""
+    each partition runs every bin of the plan, the bin listing and the
+    huge bin once a round (``merge_path_map`` once, under
+    merge_path)."""
     from repro_torch.core.balancer import effective_plan
     if cfg.executor == "merge_path":
-        return {"twc_bin_relax": 0, "edge_lb_relax": 0,
+        return {"twc_bin_relax": 0, "edge_lb_relax": 0, "twc_bin_list": 0,
                 "merge_path_map": rounds * DIST_PARTS}
     plan = effective_plan(cfg)
     return {"twc_bin_relax": rounds * len(plan.bins) * DIST_PARTS,
             "edge_lb_relax": rounds * (plan.lb != "none") * DIST_PARTS,
+            "twc_bin_list": rounds * (len(plan.bins) > 0) * DIST_PARTS,
             "merge_path_map": 0}
 
 
@@ -2369,7 +2443,8 @@ def dist_path(g, sym, src, sources, ref) -> dict:
     capture_s = graph_loop.capture_seconds - cap_s0
     decisions = graph_loop.set_runs(reset=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for k in ("twc_bin_relax", "edge_lb_relax", "merge_path_map"):
+    for k in ("twc_bin_relax", "edge_lb_relax", "twc_bin_list",
+              "merge_path_map"):
         check(launches[k] > 0, f"{k} was not launched by phase 3g")
     print(f"phase 3g: {len(out['runs'])} runs: labels == phases 3 / 3b "
           f"(pagerank within rtol {PR_RTOL_PAIR}), rounds host == fused, "
@@ -2411,7 +2486,8 @@ def capture_launches(run) -> dict:
     combines into them)."""
     import types
     from repro_torch.kernels import ops
-    calls = {"twc_bin_relax": [], "edge_lb_relax": [], "merge_path_map": []}
+    calls = {"twc_bin_relax": [], "edge_lb_relax": [], "twc_bin_list": [],
+             "merge_path_map": []}
 
     def recorder(name, fn):
         def rec(*a, **k):
@@ -2423,7 +2499,8 @@ def capture_launches(run) -> dict:
 
     real = ops._relax, ops._merge_path
     ops._relax = types.SimpleNamespace(takes=real[0].takes, **{
-        n: recorder(n, getattr(real[0], n)) for n in RELAX_KERNELS})
+        n: recorder(n, getattr(real[0], n))
+        for n in RELAX_KERNELS + ("twc_bin_list",)})
     ops._merge_path = types.SimpleNamespace(
         merge_path_map=recorder("merge_path_map", real[1].merge_path_map))
     try:
@@ -2704,28 +2781,30 @@ def time_relax(name, cs) -> dict:
             "mean_bytes": nbytes}
 
 
-def tile_walk_ms(cs) -> float:
+def static_schedule_ms(cs) -> float:
     """The host round's ``twc_bin_relax`` calls ``cs`` through the static
-    round's row schedule (a resident grid walking tiles of 256 rows,
-    given a device row bound of all N rows) instead of the one group per
-    compacted row that the host round launches: held equal to them
-    (int exact, float add within ``RELAX_FLOAT_RTOL``) and timed, so
-    that the two schedules can be compared on the same rows."""
+    round's row schedule (a resident grid handing out the rows of a bin
+    list one group each, bounded by a device count: here each call's
+    member rows, which the host round compacts to the front) instead of
+    the one group per compacted row that the host round launches: held
+    equal to them (int exact, float add within ``RELAX_FLOAT_RTOL``) and
+    timed, so that the two schedules can be compared on the same
+    rows."""
     import torch
     from repro_torch.kernels import relax
-    walk = [(a, {**k, "rows": torch.tensor([a[5].shape[0]],
-                                           dtype=torch.int32,
-                                           device=a[5].device)})
-            for a, k in cs]
+    walk = [(a, {**k, "rows": (a[5] < a[1].shape[-1]).sum(
+        dtype=torch.int32).reshape(1)}) for a, k in cs]
     for (a, k), (_, wk) in zip(cs, walk):
         want = relax.twc_bin_relax(a[0], a[1].clone(), *a[2:], **k)
         got = relax.twc_bin_relax(a[0], a[1].clone(), *a[2:], **wk)
         if got.dtype.is_floating_point:
             check(relax_err(got, want) <= RELAX_FLOAT_RTOL,
-                  "twc_bin_relax: the tile walk != one group per row")
+                  "twc_bin_relax: the static schedule != one group per "
+                  "row")
         else:
             check(torch.equal(got, want),
-                  "twc_bin_relax: the tile walk != one group per row")
+                  "twc_bin_relax: the static schedule != one group per "
+                  "row")
     return device_ms_fresh(relax.twc_bin_relax, walk)
 
 
@@ -2733,7 +2812,7 @@ def time_kernels(g, src, sources, errs: dict, launches: dict) -> list:
     """Phase 4's rows of the graph kernels.  The fused kernels at the
     shapes of one ALB sssp (their row), of one sssp_batch (B = 8) and of
     two pagerank rounds (``by_run``; ``twc_bin_relax`` also through the
-    static round's row schedule, :func:`tile_walk_ms`); the index-map
+    static round's row schedule, :func:`static_schedule_ms`); the index-map
     kernels at the same sssp's shapes (no main path launches them);
     ``merge_path_map`` at one merge-path sssp's."""
     from repro_torch.core.apps import drivers
@@ -2759,7 +2838,8 @@ def time_kernels(g, src, sources, errs: dict, launches: dict) -> list:
             check(len(cs[name]) > 0, f"{name}: no launch captured ({run})")
             by_run[run] = time_relax(name, cs[name])
             if name == "twc_bin_relax":
-                by_run[run]["tile_walk_ms"] = tile_walk_ms(cs[name])
+                by_run[run]["static_schedule_ms"] = static_schedule_ms(
+                    cs[name])
         top = by_run["sssp"]
         rows.append({
             "name": name, "route": "cuda", "source": source,
@@ -2828,21 +2908,86 @@ def static_calls(g, src, cfg) -> dict:
     return capture_launches(run)
 
 
+def static_pagerank_calls(g, cfg, rounds: int = 2) -> dict:
+    """The kernel launches of ``rounds`` static pagerank rounds, run
+    eagerly on the card and recorded with their inputs, as
+    :func:`static_calls` records sssp's: ``balancer._relax_spmd_impl``
+    over the reverse CSR with every vertex listed, the operator
+    ``PR_PULL`` and ``drivers.pagerank``'s rank arithmetic around it."""
+    import torch
+    from repro_torch.core import balancer
+    from repro_torch.core.apps import drivers
+    from repro_torch.core.operators import PR_PULL
+    rg = g.reverse()
+    n = g.num_vertices
+    outdeg = g.out_degrees().to(torch.float32)
+    inv_out = torch.where(outdeg > 0, 1.0 / torch.clamp(outdeg, min=1.0),
+                          0.0)
+    sink = outdeg == 0
+
+    def run():
+        rank = torch.full((n,), 1.0 / n, dtype=torch.float32,
+                          device=g.device)
+        frontier = torch.ones((1, n), dtype=torch.bool, device=g.device)
+        for _ in range(rounds):
+            contrib, _ = drivers._pr_round_math(rank, inv_out, sink, None,
+                                                0.85)
+            acc = torch.zeros((1, n), dtype=torch.float32, device=g.device)
+            acc = balancer._relax_spmd_impl(rg, contrib[None], acc,
+                                            frontier, cfg, PR_PULL)
+            rank, _ = drivers._pr_round_math(rank, inv_out, sink, acc[0],
+                                             0.85)
+    return capture_launches(run)
+
+
+def list_work(a, k) -> tuple:
+    """(bytes, operations) one listing must do on these inputs: each
+    listed row's three int32 inputs read once (12 bytes), each member's
+    three int32 outputs written once (12 bytes), and each bin's count
+    and largest degree; ~4 integer operations per listed row."""
+    from repro_torch.kernels import ref
+    n = int(a[3])
+    members = int(ref.twc_bin_list_ref(*a, **k).count.sum())
+    return 12 * n + 12 * members + 8 * len(a[4]), 4 * n
+
+
+def time_list(cs) -> dict:
+    """``twc_bin_list`` over the recorded calls ``cs``: held against its
+    plain version (exact: members, counts, largest degrees), then timed
+    beside it and its bound.  A call's time includes the zeroing of its
+    small scratch (one memset), which the wrapper makes before the
+    launch."""
+    from repro_torch.kernels import ref, relax
+    err = 0
+    for a, k in cs:
+        err = max(err, list_err(relax.twc_bin_list(*a, **k),
+                                ref.twc_bin_list_ref(*a, **k)))
+    check(err == 0, "twc_bin_list != plain on main-path inputs")
+    bms, by, nbytes = bound(list_work, cs)
+    return {"ms": device_ms(relax.twc_bin_list, cs),
+            "plain_ms": device_ms(ref.twc_bin_list_ref, cs),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+            "timed_launches": len(cs), "mean_bytes": nbytes}
+
+
 def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
     """Phase 4's rows of the static entries, at the shapes of one static
-    ALB sssp (``twc_bin_relax`` over V rows, ``edge_lb_relax`` over an
+    ALB sssp (``twc_bin_list`` over the frontier, ``twc_bin_relax`` over
+    each bin's list with its device count, ``edge_lb_relax`` over an
     E-id span with the device total), one static twc sssp (its unbounded
-    bin: the device pass count) and one static merge-path sssp
-    (``merge_path_map`` over E ids with the device total), each held
-    against its plain version and timed beside it, the unfused route and
-    its bound.  ``launches``: phase 3d's counts on the card;
-    ``captured``: the launches its captures recorded."""
+    bin: the device pass count), two static pagerank rounds (every
+    vertex listed) and one static merge-path sssp (``merge_path_map``
+    over E ids with the device total), each held against its plain
+    version and timed beside it, the unfused route (the fused kernels)
+    and its bound.  ``launches``: phases 3d-3g's counts on the card;
+    ``captured``: the launches phase 3d's captures recorded."""
     from repro_torch.core.balancer import BalancerConfig
     from repro_torch.kernels import merge_path, ref
-    alb = static_calls(g, src, BalancerConfig(strategy="alb",
-                                              use_pallas=True))
+    kern = BalancerConfig(strategy="alb", use_pallas=True)
+    alb = static_calls(g, src, kern)
     twc = static_calls(g, src, BalancerConfig(strategy="twc",
                                               use_pallas=True))
+    pr = static_pagerank_calls(g, kern)
     mp = static_calls(g, src, BalancerConfig(strategy="alb",
                                              backend="merge_path"))
     unbounded = [(a, k) for a, k in twc["twc_bin_relax"]
@@ -2852,7 +2997,8 @@ def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
     for name, source, replaces, by_run in (
             ("twc_bin_relax", "src/repro_torch/kernels/csrc/twc_relax.cu",
              "src/repro/kernels/twc_gather.py:54",
-             {"alb": alb["twc_bin_relax"], "twc_unbounded": unbounded}),
+             {"alb": alb["twc_bin_relax"], "twc_unbounded": unbounded,
+              "pagerank": pr["twc_bin_relax"]}),
             ("edge_lb_relax",
              "src/repro_torch/kernels/csrc/edge_lb_relax.cu",
              "src/repro/kernels/edge_lb.py:105",
@@ -2873,6 +3019,22 @@ def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
             "library_ms": None, "unfused_ms": top["unfused_ms"],
             "timed_launches": top["timed_launches"],
             "mean_bytes": top["mean_bytes"], "by_run": timed_runs})
+    listed = {"alb": alb["twc_bin_list"], "pagerank": pr["twc_bin_list"]}
+    for run, cs in listed.items():
+        check(len(cs) > 0, f"twc_bin_list: no launch ({run})")
+    timed_runs = {run: time_list(cs) for run, cs in listed.items()}
+    top = timed_runs["alb"]
+    rows.append({
+        "name": "twc_bin_list", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/twc_list.cu",
+        "replaces": "none: no TPU kernel (the static round's per-bin "
+                    "jnp.where layout, src/repro/core/balancer.py:999)",
+        "launches": launches["twc_bin_list"],
+        "captured": captured["twc_bin_list"],
+        "max_abs_err": max(r["max_abs_err"] for r in timed_runs.values()),
+        **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "timed_launches": top["timed_launches"],
+        "mean_bytes": top["mean_bytes"], "by_run": timed_runs})
     cs = mp["merge_path_map"]
     check(len(cs) > 0, "merge_path_map (static): no launch")
     err = 0
@@ -4537,18 +4699,19 @@ def main() -> int:
                 for k in GRAPH_KERNELS + ("twc_bin_map", "edge_lb_map")}
     static_launches = dict(sp["launches"])
     by_phase = {}
-    for k in ("twc_bin_relax", "edge_lb_relax"):
-        by_phase[k] = {"3": mp["launches"][k], "3b": pp["launches"][k],
+    for k in STATIC_KERNELS:
+        by_phase[k] = {"3": mp["launches"].get(k, 0),
+                       "3b": pp["launches"].get(k, 0),
                        "3d": sp["launches"][k]}
         for ph, o in (("3e", se), ("3f", sv)):
             host_n = o["launches_by_entry"]["host"].get(k, 0)
             static_n = o["launches_by_entry"]["static"].get(k, 0)
-            launches[k] += host_n
+            launches[k] = launches.get(k, 0) + host_n
             static_launches[k] += static_n
             by_phase[k][ph] = {"host": host_n, "static": static_n}
     by_phase["merge_path_map"] = {"3b": pp["launches"]["merge_path_map"],
                                   "3d": sp["launches"]["merge_path_map"]}
-    for k in GRAPH_KERNELS:
+    for k in GRAPH_KERNELS + ("twc_bin_list",):
         static_launches[k] += dp["launches"][k]
         by_phase[k]["3g"] = {"static": dp["launches"][k]}
     rows = time_kernels(g, src, sources, errs, launches)
@@ -4559,7 +4722,7 @@ def main() -> int:
     for r in rows:
         if r["name"].split()[0] in by_phase:
             r["launches_by_phase"] = by_phase[r["name"].split()[0]]
-    for r in rows[-4:]:
+    for r in rows[-5:]:
         r["phase2_err"] = static_errs.get(r["name"].split()[0])
     for r in rows:
         print(f"phase 4: {r['name']}: {r['ms']:.4f} ms per launch "

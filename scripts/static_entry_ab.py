@@ -1,0 +1,108 @@
+"""The static round's bin kernels and fused spans of one checkout of the
+port, on one card: for comparing two commits in one call.
+
+    python scripts/static_entry_ab.py ROOT GRAPH_DIR LABEL
+
+``ROOT`` is a checkout (its ``chip_smoke.py`` and ``src/`` are used);
+``GRAPH_DIR`` caches ``rmat(22, 16, seed=0)`` as ``g.npz`` (built on the
+first run, loaded by the next, so that runs of two checkouts in turns
+share one graph).  Prints one ``RESULT {...}`` JSON line: the card, the
+device span of fused sssp (alb and twc) and pagerank (20 rounds; CUDA
+events, median of 6), ``twc_bin_relax``'s static entry at one static
+ALB sssp's, twc's unbounded bin's and (where the checkout lists bins)
+two static pagerank rounds' shapes, ``twc_bin_list`` at the same
+shapes, and the host round's ``twc_bin_relax`` calls of one sssp, one
+group a row and through the static schedule.  Needs a CUDA device.
+"""
+import json
+import sys
+import time
+from pathlib import Path
+
+
+def main() -> int:
+    root, gdir, label = Path(sys.argv[1]).resolve(), Path(sys.argv[2]), \
+        sys.argv[3]
+    sys.path.insert(0, str(root))
+    sys.path.insert(0, str(root / "src"))
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.core import balancer, graph as tg
+    from repro_torch.core import operators as tops
+    from repro_torch.core.apps import drivers
+    from repro_torch.core.balancer import BalancerConfig
+    from repro_torch.core.graph import INF
+    from repro_torch.kernels import build
+
+    if not torch.cuda.is_available():
+        print("static_entry_ab: needs a CUDA device", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    build.load_all([n for n in build.sources()
+                    if not n.startswith(("flash", "moe"))])
+    dev = torch.device("cuda", 0)
+    gdir.mkdir(parents=True, exist_ok=True)
+    cached = gdir / "g.npz"
+    if cached.exists():
+        z = np.load(cached)
+        g = tg.Graph.from_numpy(z["row_ptr"], z["col_idx"], z["edge_w"],
+                                device=dev)
+    else:
+        g = tg.rmat(22, 16, seed=0, device=dev)
+        np.savez(cached, row_ptr=g.row_ptr.cpu().numpy(),
+                 col_idx=g.col_idx.cpu().numpy(),
+                 edge_w=g.edge_w.cpu().numpy())
+    src = int(tg.highest_out_degree_vertex(g))
+    print(label, "set-up", time.perf_counter() - t0, flush=True)
+    kern = BalancerConfig(strategy="alb", use_pallas=True)
+    twc = BalancerConfig(strategy="twc", use_pallas=True)
+    out = {"label": label, "card": cs.card_line()}
+
+    def single():
+        lab = torch.full((g.num_vertices,), int(INF), dtype=torch.int32,
+                         device=dev)
+        lab[src] = 0
+        return lab, lab == 0
+    rg = g.reverse()
+    outdeg = g.out_degrees().to(torch.float32)
+    inv_out = torch.where(outdeg > 0, 1.0 / torch.clamp(outdeg, min=1.0),
+                          0.0)
+    fused = {
+        "sssp": lambda: balancer.run_fused(g, *single(), kern,
+                                           tops.SSSP_RELAX)[:3],
+        "sssp/twc": lambda: balancer.run_fused(g, *single(), twc,
+                                               tops.SSSP_RELAX)[:3],
+        "pagerank": lambda: drivers._pagerank_fused(
+            rg, inv_out, outdeg == 0, 0.85, 0.0, kern, 20, False)[:2]}
+    for fn in fused.values():                     # capture, warm up
+        fn()
+    torch.cuda.synchronize()
+    out["fused_span_ms"] = {
+        k: float(np.median([cs.event_span_ms(fn) for _ in range(6)]))
+        for k, fn in fused.items()}
+    alb = cs.static_calls(g, src, kern)
+    tw = cs.static_calls(g, src, twc)
+    runs = {"alb": alb["twc_bin_relax"],
+            "twc_unbounded": [(a, k) for a, k in tw["twc_bin_relax"]
+                              if hasattr(k.get("passes"), "device")]}
+    if hasattr(cs, "static_pagerank_calls"):      # a checkout that lists
+        pr = cs.static_pagerank_calls(g, kern)
+        runs["pagerank"] = pr["twc_bin_relax"]
+        out["list"] = {"alb": cs.time_list(alb["twc_bin_list"]),
+                       "pagerank": cs.time_list(pr["twc_bin_list"])}
+    out["static_relax"] = {r: cs.time_relax("twc_bin_relax", c)
+                           for r, c in runs.items()}
+    host = cs.capture_launches(
+        lambda: drivers.sssp(g, src, kern))["twc_bin_relax"]
+    out["host_relax_ms"] = cs.time_relax("twc_bin_relax", host)["ms"]
+    schedule = getattr(cs, "static_schedule_ms", None) or \
+        getattr(cs, "tile_walk_ms")
+    out["static_schedule_ms"] = schedule(host)
+    out["seconds"] = time.perf_counter() - t0
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

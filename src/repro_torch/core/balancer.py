@@ -250,6 +250,15 @@ class ExecutorPair:
                op, distribution, num_tiles, tile_edges) -> labels;
                ``total`` a host int (host round) or a device int32
                (static round), and a total of 0 changes nothing
+    bin_list: optional, the static round's bin listing: (fidx, deg,
+               row_start, n_listed, bounds, op, labels_dtype) ->
+               ``kernels.ref.BinLists`` | None: each bin ``(lo, hi)`` of
+               ``bounds``'s members among the frontier layout's rows
+               ``[0, n_listed)``, once a round, in frontier order, with
+               their device counts and largest degrees; None for an
+               operator the pair's ``bin_host`` lists no bins for.
+               Without it (or on None) the static round lays every bin
+               over V rows, as the JAX package does
 
     ``values`` / ``labels`` / ``fmask`` are ``[B, V]``; the enumeration
     arguments are batch-shared (union frontier).  With ``in_place`` the
@@ -265,6 +274,7 @@ class ExecutorPair:
     bin_host: Callable
     lb_host: Callable
     in_place: bool = False
+    bin_list: Optional[Callable] = None
 
 
 _REGISTRY: dict = {}
@@ -284,7 +294,8 @@ def get_executor(name: str) -> ExecutorPair:
         from repro_torch.kernels import ops as kops   # lazy: import cycle
         register_executor(ExecutorPair(
             "pallas", bin_host=kops.twc_bin_apply,
-            lb_host=kops.edge_lb_apply, in_place=True))
+            lb_host=kops.edge_lb_apply, in_place=True,
+            bin_list=kops.list_bins))
         register_executor(ExecutorPair(
             "merge_path", bin_host=kops.merge_path_no_bins,
             lb_host=kops.merge_path_apply))
@@ -762,7 +773,9 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
                      emask: Optional[torch.Tensor] = None,
                      owned: bool = False):
     """Static-shape ALB round: bins over ``compact(union or emask, V)``
-    at capacity V (sentinel ``V`` for non-members), the LB span at E ids;
+    at capacity V (sentinel ``V`` for non-members), or, through a pair
+    with a ``bin_list`` hook, each bin's members listed once from it
+    with a device count; the LB span at E ids;
     a bounded bin runs its static passes, an unbounded one (twc's large
     bin, the vertex strategy) its pass count ``ceil(max_deg / W)``
     computed on the device, and the LB path always runs with the device
@@ -800,18 +813,37 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     edges_twc, tl_twc = zeros(), zeros(cfg.num_tiles)
-    for spec in plan.bins:
-        mask = spec.mask(deg, valid)
-        bvidx = torch.where(mask, fidx, v)
-        bdeg = torch.where(mask, deg, 0)
-        brow = torch.where(mask, row_start, 0)
+    # a pair with a listing hook lists each bin's members once, and each
+    # bin's launch takes its list and count; else every bin spans V rows
+    lists = None
+    if plan.bins and ex.bin_list is not None:
+        lists = ex.bin_list(fidx, deg, row_start, n_listed,
+                            tuple((s.lo, s.hi) for s in plan.bins), op,
+                            labels.dtype)
+    for i, spec in enumerate(plan.bins):
+        mask = None
+        if lists is not None:
+            bvidx, bdeg, brow = (lists.vidx[i], lists.deg[i],
+                                 lists.row_start[i])
+            rows, max_deg = lists.count[i:i + 1], lists.max_deg[i]
+        else:
+            mask = spec.mask(deg, valid)
+            bvidx = torch.where(mask, fidx, v)
+            bdeg = torch.where(mask, deg, 0)
+            brow = torch.where(mask, row_start, 0)
+            rows, max_deg = n_listed, None
         passes = spec.static_passes()
         if passes is None:
             # unbounded bin: a data-dependent pass count (0 when empty)
-            passes = (bdeg.max() + (spec.width - 1)) // spec.width
+            if max_deg is None:
+                max_deg = bdeg.max()
+            passes = (max_deg + (spec.width - 1)) // spec.width
         labels = ex.bin_host(g, values, labels, frontier, bvidx, bdeg, brow,
-                            spec.width, op, 0, passes, n_listed)
+                            spec.width, op, 0, passes, rows)
         if collect_stats:
+            if mask is None:
+                mask = spec.mask(deg, valid)
+                bdeg = torch.where(mask, deg, 0)
             edges_twc = edges_twc + bdeg.sum(dtype=torch.int32)
             tl_twc = tl_twc + _tile_loads(bdeg, mask, cfg.num_tiles)
 

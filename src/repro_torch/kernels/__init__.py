@@ -5,6 +5,9 @@
   combine into the labels;
 * ``relax.edge_lb_relax``       — ``csrc/edge_lb_relax.cu`` (CUDA C++),
   the huge bin's edge-balanced ALB pass fused the same way;
+* ``relax.twc_bin_list``        — ``csrc/twc_list.cu`` (CUDA C++), no TPU
+  kernel: each degree bin's members of a static round listed once a
+  round, in frontier order, for ``twc_bin_relax``;
 * ``twc_gather.twc_bin_map``    — ``csrc/twc_gather.cu`` (CUDA C++), the
   index map of a degree bin (the Pallas kernel's counterpart);
 * ``edge_lb.edge_lb_map``       — ``csrc/edge_lb.cu`` (CUDA C++), the
@@ -24,7 +27,7 @@
 * ``csrc/graph_loop.cu``        — no TPU kernel: the conditional graph
   nodes (IF, WHILE) and their condition kernel, for
   ``core.graph_loop``'s device control flow;
-* ``ref``                       — plain PyTorch versions of all eight;
+* ``ref``                       — plain PyTorch versions of all nine;
 * ``ops``                       — the executor pairs of
   ``core.balancer``: the fused relax kernels (or, for an operator they
   do not take, the index maps with the torch epilogue, counted in
@@ -49,10 +52,11 @@ from . import ops as _ops
 from .edge_lb import edge_lb_map
 from .merge_path import merge_path_map
 from .moe_dispatch import positions_in_expert
-from .relax import edge_lb_relax, twc_bin_relax
+from .relax import edge_lb_relax, twc_bin_list, twc_bin_relax
 from .twc_gather import twc_bin_map
 
 KERNELS = {"twc_bin_relax": twc_bin_relax, "edge_lb_relax": edge_lb_relax,
+           "twc_bin_list": twc_bin_list,
            "twc_bin_map": twc_bin_map, "edge_lb_map": edge_lb_map,
            "merge_path_map": merge_path_map,
            "moe_plan": _moe_plan.moe_plan,
@@ -68,6 +72,7 @@ def launch_counts() -> dict:
 #: kernels that count their own launches on the card, by source
 DEVICE_COUNTED = {"twc_bin_relax": "twc_relax",
                   "edge_lb_relax": "edge_lb_relax",
+                  "twc_bin_list": "twc_list",
                   "merge_path_map": "merge_path"}
 
 

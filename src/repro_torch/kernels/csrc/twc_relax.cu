@@ -52,14 +52,21 @@
 // static-shape round gives an unbounded bin (twc's large bin, the
 // vertex strategy) its pass count ceil(max_deg / W) this way, computed
 // on the device, so the bin costs one launch a round and no host read.
-// The static round also lays every bin out over V rows, member or
-// sentinel, in frontier order, and hands the kernel the frontier count
-// as `rows_ptr` (rows past it are sentinels).  Then a resident grid
-// walks rows [0, *rows_ptr) in tiles of 256: one coalesced load of the
-// tile's vid and deg, a ballot, the tile's members listed in shared
-// memory, and the block's groups take them in turn.  Launching one
-// group per row instead would cost a pass 4 M sentinel groups at rmat
-// 22 (one block each for W = 1024: about 1.2 ms a launch on an H100).
+// The static round lists each bin's members once a round on the card
+// (csrc/twc_list.cu) and hands the kernel a bin's list with its member
+// count as `rows_ptr`, one int32 on the device.  Then a resident grid,
+// as many blocks as the card holds at once and fixed by the list's
+// length (so a captured round replays for any count), hands out rows
+// [0, *rows_ptr) one group per row, as the host round launches them:
+// group g takes rows g,
+// g + groups, ...; for W > 128 a block takes rows in block stride.  No
+// row is loaded that is no member, and no group waits for another's
+// row: the walk ends when the group's last row does.  (Before the
+// listing kernel, each bin's launch walked all V rows of the frontier
+// in tiles of 256, balloted the members into shared memory and ended
+// each tile at a block barrier; three bins loaded each frontier row
+// three times.)  A list may still hold sentinel rows below the count:
+// they leave before any edge load, as in the host layout.
 // The kernel allocates nothing and launches on the caller's stream.
 #include <algorithm>
 #include <cstdint>
@@ -195,6 +202,41 @@ __device__ __forceinline__ void relax_row(
   }
 }
 
+// Row `row`'s vidx, deg and row_start, loaded by the group's first lane
+// and broadcast to its G lanes (through shared memory for a block); a
+// row at or past n reads as a sentinel.  Every lane of the group calls
+// it together, and for G == kThreads the whole block.
+template <int G>
+__device__ __forceinline__ void row_meta(
+    const int32_t* __restrict__ vidx, const int32_t* __restrict__ deg,
+    const int32_t* __restrict__ row_start, int64_t row, int64_t n,
+    int32_t lane, int32_t v, int32_t& vid, int32_t& d, int32_t& rs) {
+  if constexpr (G == kThreads) {
+    __shared__ int32_t meta[3];
+    if (threadIdx.x == 0) {
+      const bool in = row < n;
+      meta[0] = in ? __ldg(vidx + row) : v;
+      meta[1] = in ? __ldg(deg + row) : 0;
+      meta[2] = in ? __ldg(row_start + row) : 0;
+    }
+    __syncthreads();
+    vid = meta[0], d = meta[1], rs = meta[2];
+  } else {
+    vid = v, d = 0, rs = 0;
+    if (lane == 0 && row < n) {
+      vid = __ldg(vidx + row);
+      d = __ldg(deg + row);
+      rs = __ldg(row_start + row);
+    }
+    unsigned gmask = 0xffffffffu;              // the group's lanes
+    if constexpr (G < 32)
+      gmask = ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+    vid = __shfl_sync(gmask, vid, 0, G);
+    d = __shfl_sync(gmask, d, 0, G);
+    rs = __shfl_sync(gmask, rs, 0, G);
+  }
+}
+
 template <typename T, bool ADD, bool PULL, int G>
 __global__ void __launch_bounds__(kThreads) twc_bin_relax_kernel(
     const T* __restrict__ values, T* labels, const bool* __restrict__ fmask,
@@ -210,78 +252,45 @@ __global__ void __launch_bounds__(kThreads) twc_bin_relax_kernel(
   const int32_t lane = threadIdx.x % G;
   const int32_t chunk0 = chunk_ptr != nullptr ? *chunk_ptr : chunk_host;
   const int32_t passes = passes_ptr != nullptr ? *passes_ptr : passes_host;
-#define TWC_ROW_ARGS values, labels, fmask, col_idx, edge_w
-#define TWC_PASS_ARGS lane, chunk0, passes, width, nb, v, kind
+  const int64_t first = (int64_t)blockIdx.x * (kThreads / G) + threadIdx.x / G;
+  int32_t vid, d, rs;
   if (rows_ptr != nullptr) {
-    // the static round's layout: rows [0, *rows_ptr) of a V-row bin, most
-    // of them sentinels.  A resident grid walks them in tiles of kThreads
-    // rows: one coalesced load of each row's vid and deg, a ballot, and
-    // the tile's members (a row with an edge in its first pass) listed in
-    // shared memory, which the block's groups then take in turn.
-    __shared__ int32_t s_rows[kThreads];
-    __shared__ int32_t s_at[kThreads / 32 + 1];
+    // the static round's list: rows [0, *rows_ptr), one group per row on
+    // a resident grid (the row is uniform in the group, and for
+    // G == kThreads in the block)
     const int32_t limit = *rows_ptr;
     const int64_t rows = limit < 0 ? 0 : (limit < n ? limit : n);
-    const int warp = threadIdx.x / 32, wl = threadIdx.x & 31;
-    for (int64_t t0 = (int64_t)blockIdx.x * kThreads; t0 < rows;
-         t0 += (int64_t)gridDim.x * kThreads) {
-      const int64_t r = t0 + threadIdx.x;
-      const bool member = r < rows && passes > 0 &&
-                          __ldg(vidx + r) < v &&
-                          __ldg(deg + r) > chunk0 * width;
-      const unsigned bal = __ballot_sync(0xffffffffu, member);
-      if (wl == 0) s_at[warp] = __popc(bal);
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        int32_t sum = 0;
-        for (int w = 0; w < kThreads / 32; ++w) {
-          const int32_t c = s_at[w];
-          s_at[w] = sum;
-          sum += c;
-        }
-        s_at[kThreads / 32] = sum;
-      }
-      __syncthreads();
-      if (member)
-        s_rows[s_at[warp] + __popc(bal & ((1u << wl) - 1u))] = (int32_t)r;
-      __syncthreads();
-      const int32_t found = s_at[kThreads / 32];
-      for (int32_t i = threadIdx.x / G; i < found; i += kThreads / G) {
-        const int32_t row = s_rows[i];         // uniform in the group
-        relax_row<T, ADD, PULL, G>(TWC_ROW_ARGS, __ldg(vidx + row),
-                                   __ldg(deg + row), __ldg(row_start + row),
-                                   TWC_PASS_ARGS);
-      }
-      __syncthreads();                 // the next tile rewrites the list
+    const int64_t groups = (int64_t)gridDim.x * (kThreads / G);
+    for (int64_t row = first; row < rows; row += groups) {
+      row_meta<G>(vidx, deg, row_start, row, n, lane, v, vid, d, rs);
+      relax_row<T, ADD, PULL, G>(values, labels, fmask, col_idx, edge_w,
+                                 vid, d, rs, lane, chunk0, passes, width,
+                                 nb, v, kind);
+      if constexpr (G == kThreads) __syncthreads();  // meta is rewritten
     }
     return;
   }
   // the host round's layout: compacted members, one group per row
-  const int64_t row = (int64_t)blockIdx.x * (kThreads / G) + threadIdx.x / G;
-  int32_t vid = v, d = 0, rs = 0;
-  if constexpr (G == kThreads) {
-    __shared__ int32_t meta[3];
-    if (threadIdx.x == 0) {
-      meta[0] = __ldg(vidx + row);
-      meta[1] = __ldg(deg + row);
-      meta[2] = __ldg(row_start + row);
-    }
-    __syncthreads();
-    vid = meta[0], d = meta[1], rs = meta[2];
-  } else {
-    if (lane == 0 && row < n) {
-      vid = __ldg(vidx + row);
-      d = __ldg(deg + row);
-      rs = __ldg(row_start + row);
-    }
-    const int first = (threadIdx.x & 31) & ~(G - 1);
-    vid = __shfl_sync(0xffffffffu, vid, first);
-    d = __shfl_sync(0xffffffffu, d, first);
-    rs = __shfl_sync(0xffffffffu, rs, first);
-  }
-  relax_row<T, ADD, PULL, G>(TWC_ROW_ARGS, vid, d, rs, TWC_PASS_ARGS);
-#undef TWC_ROW_ARGS
-#undef TWC_PASS_ARGS
+  row_meta<G>(vidx, deg, row_start, first, n, lane, v, vid, d, rs);
+  relax_row<T, ADD, PULL, G>(values, labels, fmask, col_idx, edge_w, vid, d,
+                             rs, lane, chunk0, passes, width, nb, v, kind);
+}
+
+// Blocks of a launch over n rows, kThreads / G groups a block: one group
+// a row for the host round's layout; for the static round's list
+// (rows_ptr set) as many as fit on the card at once, at most one group
+// a row, so that the grid is fixed by n and every block is resident.
+template <typename T, bool ADD, bool PULL, int G>
+unsigned grid(int n, const void* rows_ptr) {
+  const int64_t need = ((int64_t)n + kThreads / G - 1) / (kThreads / G);
+  if (rows_ptr == nullptr) return (unsigned)need;
+  static const int resident = [] {
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, twc_bin_relax_kernel<T, ADD, PULL, G>, kThreads, 0);
+    return relax::sm_count() * std::max(per_sm, 1);
+  }();
+  return (unsigned)std::min<int64_t>(need, resident);
 }
 
 template <typename T, bool ADD, bool PULL>
@@ -302,26 +311,18 @@ int launch(const void* values, void* labels, const void* fmask,
       static_cast<const int32_t*>(passes_ptr),                            \
       static_cast<const int32_t*>(rows_ptr), chunk_host, passes_host, n,   \
       width, nb, v, kind
-  // the static layout: a resident grid of tiles of kThreads rows
-  const unsigned tiles =
-      rows_ptr == nullptr
-          ? 0u
-          : (unsigned)std::min<int64_t>(((int64_t)n + kThreads - 1) / kThreads,
-                                        (int64_t)relax::sm_count() * 8);
   if (width <= 8) {                        // 8 lanes per row
-    const unsigned rows = kThreads / 8;
     twc_bin_relax_kernel<T, ADD, PULL, 8>
-        <<<rows_ptr ? tiles : (n + rows - 1) / rows, kThreads, 0, stream>>>(
+        <<<grid<T, ADD, PULL, 8>(n, rows_ptr), kThreads, 0, stream>>>(
             TWC_RELAX_ARGS);
   } else if (width <= 128) {               // a warp per row
-    const unsigned rows = kThreads / 32;
     twc_bin_relax_kernel<T, ADD, PULL, 32>
-        <<<rows_ptr ? tiles : (n + rows - 1) / rows, kThreads, 0, stream>>>(
+        <<<grid<T, ADD, PULL, 32>(n, rows_ptr), kThreads, 0, stream>>>(
             TWC_RELAX_ARGS);
   } else {                                 // a block per row
     twc_bin_relax_kernel<T, ADD, PULL, kThreads>
-        <<<rows_ptr ? tiles : (unsigned)n, kThreads, 0, stream>>>(
-            TWC_RELAX_ARGS);
+        <<<grid<T, ADD, PULL, kThreads>(n, rows_ptr), kThreads, 0,
+           stream>>>(TWC_RELAX_ARGS);
   }
 #undef TWC_RELAX_ARGS
   return (int)cudaGetLastError();

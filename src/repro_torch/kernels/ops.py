@@ -31,7 +31,10 @@ the pass count and the huge-bin total may be device int32 tensors that
 the kernels read on the card, so a captured round never reads them on
 the host.  They stand for the JAX package's
 ``twc_bin_apply_static`` / ``edge_lb_apply_static`` /
-``merge_path_apply_static`` too.
+``merge_path_apply_static`` too.  The ``pallas`` pair's static round
+first lists each bin's members once (``list_bins``, the registry's
+``bin_list``: one ``relax.twc_bin_list`` launch), where JAX lays every
+bin over V rows.
 
 Entries are batched: ``values`` / ``labels`` / ``fmask`` are ``[B, V]``
 while the enumeration is batch-shared, so each kernel runs ONCE per
@@ -117,16 +120,28 @@ def merge_path_no_bins(*_args, **_kwargs):
                        "its bin executor entries are unreachable")
 
 
+def list_bins(fidx, deg, row_start, n_listed, bounds, op, labels_dtype):
+    """The ``pallas`` pair's bin listing of the static round: one
+    ``twc_bin_list`` launch over the frontier layout's rows ``[0,
+    n_listed)``, each bin ``(lo, hi)`` of ``bounds`` compacted in
+    frontier order (a ``ref.BinLists``), for :func:`twc_bin_apply` with
+    ``rows`` its member count.  None for an operator the fused kernel
+    does not take: its unfused route keeps the round's V-row layout."""
+    if not _relax.takes(op, labels_dtype):
+        return None
+    return _relax.twc_bin_list(fidx, deg, row_start, n_listed, bounds)
+
+
 def twc_bin_apply(g, values, labels, fmask, bvidx, bdeg, brow,
                   width: int, op, chunk, passes=1, rows=None):
     """Bin entry of both rounds: passes ``chunk .. chunk + passes - 1``
     (host ints, or a device int32 ``passes``: an unbounded bin of the
     static round) in one ``twc_bin_relax`` launch, combined into
-    ``labels`` in place; ``rows`` (the static round's device frontier
-    count, past which every row is empty) lets the kernel skip the
-    rest.  An operator the kernel does not take runs the passes one by
-    one through the unfused route (a ``graph_loop.while_`` over them for
-    a device count)."""
+    ``labels`` in place; ``rows`` (in the static round a device int32:
+    a bin list's member count from :func:`list_bins`) bounds the rows
+    the kernel takes.  An operator the kernel does not take runs the
+    passes one by one through the unfused route (a ``graph_loop.while_``
+    over them for a device count)."""
     if not _relax.takes(op, labels.dtype):
         def one(lab, c):
             ge, anchor, _, mask = _twc.twc_bin_map(

@@ -5,7 +5,8 @@ four outputs ``(graph_e, anchor_or_slot, val, mask)`` for the mapping
 kernels, three for the merge-path map ``(graph_e, slot_j, mask)``; the
 labels combined in place for the fused relax kernels
 (``twc_bin_relax_ref``, ``edge_lb_relax_ref``: the index map above plus
-the torch epilogue ``slot_epilogue``); the arrival rank for
+the torch epilogue ``slot_epilogue``); each degree bin's member list
+of a static round for ``twc_bin_list_ref``; the arrival rank for
 ``positions_in_expert_ref``; the whole MoE dispatch plan for
 ``moe_plan_ref``; the attention output for ``flash_attention_ref``.
 The kernel wrappers call these for CPU tensors, and the CUDA kernels
@@ -18,9 +19,11 @@ TPU kernel does (the JAX oracle's ``take_along_axis`` fills INT32_MIN).
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.frontier import compact, count
 from repro_torch.core.scatter import scatter_combine
 
 
@@ -123,6 +126,49 @@ def twc_bin_relax_ref(values, labels, fmask, col_idx, edge_w, vidx, deg,
                                    anchor.reshape(-1), ge.reshape(-1),
                                    mask.reshape(-1), op))
     return labels
+
+
+class BinLists(NamedTuple):
+    """Each degree bin's members of a static round, in frontier order:
+    ``vidx`` / ``deg`` / ``row_start`` int32 ``[nbins, N]``, whose rows
+    ``[0, count[b])`` are bin ``b``'s members (the plain version pads the
+    rest with the sentinel ``N``, deg 0 and row 0; the kernel leaves them
+    unwritten); ``count`` and ``max_deg`` int32 ``[nbins]``, the members
+    and their largest degree (0 for an empty bin)."""
+    vidx: torch.Tensor
+    deg: torch.Tensor
+    row_start: torch.Tensor
+    count: torch.Tensor
+    max_deg: torch.Tensor
+
+
+def twc_bin_list_ref(fidx, deg, row_start, n_listed, bounds) -> BinLists:
+    """Oracle for relax.twc_bin_list: rows ``[0, n_listed)`` of a
+    frontier layout (``fidx`` / ``deg`` / ``row_start``, int32 ``[N]``;
+    ``fidx >= N`` a sentinel), each bin ``(lo, hi)`` of ``bounds``
+    compacted (``core.frontier.compact``) over its mask ``lo < deg``
+    and, unless ``hi`` is None, ``deg <= hi``: the rows a static round's
+    V-row layout marks for that bin, in the same order.  ``n_listed`` is
+    an int or a one-element int32 tensor."""
+    n = fidx.shape[0]
+    dev = fidx.device
+    valid = (fidx < n) & (torch.arange(n, device=dev) < n_listed)
+    cols = {k: [] for k in BinLists._fields}
+    for lo, hi in bounds:
+        m = valid & (deg > lo)
+        if hi is not None:
+            m = m & (deg <= hi)
+        sel = compact(m, n)
+        take = sel < n
+        safe = torch.where(take, sel, 0)
+        cols["vidx"].append(torch.where(take, fidx[safe], n))
+        cols["deg"].append(torch.where(take, deg[safe], 0))
+        cols["row_start"].append(torch.where(take, row_start[safe], 0))
+        cols["count"].append(count(m))
+        cols["max_deg"].append(torch.where(m, deg, 0).amax() if n else
+                               torch.zeros((), dtype=torch.int32,
+                                           device=dev))
+    return BinLists(**{k: torch.stack(v) for k, v in cols.items()})
 
 
 def edge_lb_relax_ref(values, labels, fmask, col_idx, edge_w, hvidx,

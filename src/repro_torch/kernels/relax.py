@@ -1,4 +1,5 @@
-"""``twc_bin_relax`` and ``edge_lb_relax``: one whole ALB pass, fused.
+"""``twc_bin_relax`` and ``edge_lb_relax``: one whole ALB pass, fused;
+``twc_bin_list``: the static round's bins, listed once a round.
 
 Hand-written CUDA C++ kernels for the two hot paths of the ``pallas``
 executor pair (``kernels/ops.py``): ``csrc/twc_relax.cu`` serves one
@@ -9,6 +10,9 @@ edge-balanced pass.  Each maps slot -> CSR edge in registers, loads
 tile reaches device memory.  They replace, on the main path, the Pallas
 TPU kernels ``twc_bin_map`` / ``edge_lb_map`` together with the
 gather/scatter epilogue the JAX package leaves to XLA.
+``csrc/twc_list.cu`` (no TPU kernel) lists each degree bin's members of
+a static round in frontier order, so that each bin's ``twc_bin_relax``
+launch runs over its members alone.
 
 ``values`` / ``labels`` / ``fmask`` are ``[B, V]`` and the enumeration is
 batch-shared.  ``labels`` is written in place and returned; it must not
@@ -23,8 +27,9 @@ route, as the JAX pair runs every operator.
 
 For CPU tensors the wrappers compute the plain version
 (``ref.twc_bin_relax_ref`` / ``ref.edge_lb_relax_ref``: the reference
-index map plus the torch epilogue, written into ``labels``); for CUDA
-tensors they launch the kernel or raise.
+index map plus the torch epilogue, written into ``labels``;
+``ref.twc_bin_list_ref``); for CUDA tensors they launch the kernel or
+raise.
 """
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ import torch
 from repro_torch.core.operators import has_msg_kind, msg_kind
 
 from . import build
-from .ref import edge_lb_relax_ref, twc_bin_relax_ref
+from .ref import (BinLists, edge_lb_relax_ref, twc_bin_list_ref,
+                  twc_bin_relax_ref)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -119,9 +125,9 @@ def twc_bin_relax(values: torch.Tensor, labels: torch.Tensor,
     ``passes`` are each a host int or a one-element int32 tensor on the
     device, which the kernel reads there.  ``rows``, a one-element int32
     tensor on the device, limits the bin to rows ``[0, rows)``: the
-    static round's layout, whose rows past the frontier count are empty;
-    the kernel then walks them on a grid of a few blocks per SM and skips
-    empty rows a tile at a time.  Returns ``labels``.
+    static round's bin list (:func:`twc_bin_list`) with its member
+    count; the kernel then hands the rows out one group each on a grid
+    of a few blocks per SM, fixed by ``N``.  Returns ``labels``.
     """
     ints = _state("twc_bin_relax", values, labels, fmask, col_idx, edge_w,
                   op)
@@ -154,6 +160,68 @@ def twc_bin_relax(values: torch.Tensor, labels: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream))
     build.count_launch(twc_bin_relax)
     return labels
+
+
+# rows a list may hold: the listing kernel packs a tile's prefix count
+# and two flag bits in one 32-bit status word
+_LIST_ROWS = 1 << 30
+_NO_CAP = (1 << 31) - 1
+
+
+@functools.cache
+def _list_scratch():
+    """``twc_bin_list_scratch`` of ``csrc/twc_list.cu``: the int32
+    scratch a launch over ``(n rows, nb bins)`` needs zeroed."""
+    fn = build.load("twc_list").twc_bin_list_scratch
+    fn.argtypes, fn.restype = [_I, _I], _I
+    return fn
+
+
+def twc_bin_list(fidx: torch.Tensor, deg: torch.Tensor,
+                 row_start: torch.Tensor, n_listed, bounds) -> BinLists:
+    """List each degree bin's members of a static round, once.
+
+    Rows ``[0, n_listed)`` of a frontier layout (``fidx`` / ``deg`` /
+    ``row_start``: int32 ``[N]``, as ``balancer._frontier_meta`` gives
+    them; ``fidx >= N`` is a sentinel) go to the bin ``(lo, hi)`` of
+    ``bounds`` (1 to 4 disjoint ranges ``lo < deg <= hi``, ``hi`` None
+    for no cap) that holds their degree.  ``n_listed`` is a host int or
+    a one-element int32 tensor on the device, which the kernel reads
+    there.  Returns a :class:`ref.BinLists`: each bin's members in
+    frontier order, their count and their largest degree, on the
+    device, allocated here; rows past a bin's count are left unwritten
+    by the kernel.  Each list with its count feeds one
+    :func:`twc_bin_relax` launch (``rows=count[b:b + 1]``)."""
+    n, dev = fidx.shape[0], fidx.device
+    nb = len(bounds)
+    if not 1 <= nb <= 4:
+        raise ValueError(f"twc_bin_list: 1 to 4 bins, got {nb}")
+    for name, t in (("fidx", fidx), ("deg", deg), ("row_start", row_start)):
+        build.check_vec("twc_bin_list", name, t, n, dev)
+    if dev.type == "cpu":
+        return twc_bin_list_ref(fidx, deg, row_start, n_listed, bounds)
+    if dev.type != "cuda":
+        raise ValueError(f"twc_bin_list runs on cuda or cpu, not {dev}")
+    if n >= _LIST_ROWS:
+        raise ValueError(f"twc_bin_list: {n} rows exceed {_LIST_ROWS - 1}")
+    n_ptr, n_host = build.scalar_arg("twc_bin_list", "n_listed", n_listed,
+                                     dev)
+    scratch = torch.zeros(_list_scratch()(n, nb), dtype=torch.int32,
+                          device=dev)
+    out = torch.empty((3, nb, n), dtype=torch.int32, device=dev)
+    if n == 0:
+        return BinLists(*out, scratch[1:1 + nb], scratch[1 + nb:1 + 2 * nb])
+    cut = (_I * (2 * nb))(*[lo for lo, _ in bounds],
+                          *[_NO_CAP if hi is None else hi
+                            for _, hi in bounds])
+    fn = _launcher("twc_list", "twc_bin_list", 9, 3)
+    _launched("twc_bin_list", fn(
+        fidx.data_ptr(), deg.data_ptr(), row_start.data_ptr(), n_ptr,
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        scratch.data_ptr(), ctypes.addressof(cut), n_host, n, nb,
+        torch.cuda.current_stream(dev).cuda_stream))
+    build.count_launch(twc_bin_list)
+    return BinLists(*out, scratch[1:1 + nb], scratch[1 + nb:1 + 2 * nb])
 
 
 def edge_lb_relax(values: torch.Tensor, labels: torch.Tensor,
@@ -213,4 +281,5 @@ def edge_lb_relax(values: torch.Tensor, labels: torch.Tensor,
 
 
 twc_bin_relax.launches = twc_bin_relax.captured = 0
+twc_bin_list.launches = twc_bin_list.captured = 0
 edge_lb_relax.launches = edge_lb_relax.captured = 0

@@ -398,6 +398,151 @@ def test_cuda_twc_bin_relax_device_passes_match_plain(cuda_device, op, b):
                     _assert_relax_equal(op, got, want)
 
 
+# the bins of the alb (default widths), twc and vertex strategies, and
+# four bins, as ``(lo, hi)``
+LIST_BOUNDS = {"alb": ((0, 8), (8, 128), (128, 1023)),
+               "twc": ((0, 8), (8, 128), (128, None)),
+               "vertex": ((0, None),),
+               "four": ((0, 1), (1, 8), (8, 40), (40, None))}
+
+
+def _frontier_layout(dev, deg, row_ptr, density, seed):
+    """A static round's frontier layout over a random frontier: the
+    listed vertices first, in order, then sentinels ``V`` (deg 0, row
+    0), as ``balancer._frontier_meta`` gives it; and the listed count."""
+    v = len(deg)
+    rng = np.random.default_rng(seed)
+    listed = np.flatnonzero(rng.random(v) < density)
+    fidx = np.full(v, v)
+    fidx[:len(listed)] = listed
+    real = fidx < v
+    safe = np.where(real, fidx, 0)
+    cols = [np.where(real, a, f).astype(np.int32)
+            for a, f in ((fidx, v), (deg[safe], 0), (row_ptr[safe], 0))]
+    return [torch.from_numpy(a).to(dev) for a in cols], len(listed)
+
+
+def _assert_lists_equal(got, want):
+    assert torch.equal(got.count, want.count)
+    assert torch.equal(got.max_deg, want.max_deg)
+    for b, k in enumerate(want.count.tolist()):
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g[b, :k], w[b, :k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v", [20_000, 3_000_001])
+@pytest.mark.parametrize("bins", sorted(LIST_BOUNDS))
+def test_cuda_twc_bin_list_matches_plain(cuda_device, v, bins):
+    """The listing kernel against its plain version: frontier counts 0,
+    1, one tile and one past it, a third, all rows (given on the card
+    and as host ints), dense and sparse frontiers, a V that is no
+    multiple of 4 and inputs off a 16-byte boundary (the kernel's
+    scalar loads); members, counts and largest degrees equal."""
+    rng = np.random.default_rng(v)
+    deg = rng.integers(0, 40, v)
+    deg[rng.integers(0, v, 50)] = rng.integers(100, 3000, 50)
+    deg[rng.random(v) < 0.1] = 0
+    row_ptr = np.concatenate([[0], np.cumsum(deg)])
+    bounds = LIST_BOUNDS[bins]
+    before = trelax.twc_bin_list.launches
+    launched = 0
+    for density in (0.05, 0.9):
+        rows, n = _frontier_layout(cuda_device, deg, row_ptr, density,
+                                   int(density * 100))
+        for cut in sorted({0, 1, 1024, 1025, n // 3, n}):
+            for bound in (cut, _dev_int(cut, cuda_device)):
+                got = trelax.twc_bin_list(*rows, bound, bounds)
+                want = tref.twc_bin_list_ref(*rows, cut, bounds)
+                _assert_lists_equal(got, want)
+                launched += 1
+        odd = [r[1:] for r in rows]                 # 4-byte aligned only
+        got = trelax.twc_bin_list(*odd, _dev_int(n - 1, cuda_device),
+                                  bounds)
+        _assert_lists_equal(got, tref.twc_bin_list_ref(*odd, n - 1, bounds))
+        launched += 1
+    torch.cuda.synchronize()
+    assert trelax.twc_bin_list.launches == before + launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", RELAX_OPS)
+@pytest.mark.parametrize("b", [1, 3])
+def test_cuda_twc_bin_relax_on_lists_matches_plain(cuda_device, op, b):
+    """The static entry over a bin list: the kernel's own lists with
+    their device counts, and the plain version's (padded with
+    sentinels) with device counts 0, 1 and V, each pass count of the
+    bin; the same labels as ``twc_bin_relax_ref`` given the same rows."""
+    col, w, row_ptr, deg = _relax_graph(cuda_device)
+    v = len(deg)
+    rows, n = _frontier_layout(cuda_device, deg, row_ptr, 0.5, b)
+    val, lab, fm = _relax_state(cuda_device, op, b, v, b + 5)
+    bounds = LIST_BOUNDS["twc"]
+    kern = trelax.twc_bin_list(*rows, _dev_int(n, cuda_device), bounds)
+    plain = tref.twc_bin_list_ref(*rows, n, bounds)
+    for i, width in enumerate((8, 128, 1024)):
+        most = -(-int(plain.max_deg[i]) // width)
+        for passes in sorted({1, most}):
+            cases = [(kern, kern.count[i:i + 1])] + [
+                (plain, _dev_int(k, cuda_device)) for k in (0, 1, v)]
+            for lists, count in cases:
+                got = trelax.twc_bin_relax(
+                    val, lab.clone(), fm, col, w, lists.vidx[i],
+                    lists.deg[i], lists.row_start[i], _relax_op(op),
+                    width=width, passes=_dev_int(passes, cuda_device),
+                    rows=count)
+                want = tref.twc_bin_relax_ref(
+                    val, lab.clone(), fm, col, w, plain.vidx[i],
+                    plain.deg[i], plain.row_start[i], _relax_op(op),
+                    width=width, passes=passes,
+                    rows=min(int(count), int(plain.count[i])))
+                _assert_relax_equal(op, got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_listed_bins_replay_with_a_new_count(cuda_device):
+    """The listing and the list-fed bin launches captured once
+    (``graph_loop.run``) and replayed with other frontier counts: each
+    replay equals the same launches run eagerly on the CPU's plain
+    versions, and no replay captures again."""
+    from repro_torch.core import graph_loop as gl
+    col, w, row_ptr, deg = _relax_graph(cuda_device)
+    v = len(deg)
+    rows, n = _frontier_layout(cuda_device, deg, row_ptr, 0.6, 9)
+    val, lab, fm = _relax_state(cuda_device, "SSSP_RELAX", 2, v, 4)
+    bounds = LIST_BOUNDS["alb"]
+    op = _relax_op("SSSP_RELAX")
+
+    def round_(lab, n_listed, *layout):
+        lists = trelax.twc_bin_list(*layout, n_listed, bounds)
+        lab = lab.clone()
+        for i, width in enumerate((8, 128, 1024)):
+            lab = trelax.twc_bin_relax(
+                val, lab, fm, col, w, lists.vidx[i], lists.deg[i],
+                lists.row_start[i], op, width=width,
+                rows=lists.count[i:i + 1])
+        return lab
+
+    class Owner:
+        version = 0
+
+    owner = Owner()
+    host = [t.cpu() for t in (val, lab, fm, col, w, *rows)]
+    before = gl.captures
+    for cut in (n, 0, 1, n // 2, n):
+        got = gl.run(owner, "listed", round_, lab, _dev_int(cut, cuda_device),
+                     *rows)
+        lists = trelax.twc_bin_list(*host[5:], cut, bounds)
+        want = host[1].clone()
+        for i, width in enumerate((8, 128, 1024)):
+            want = tref.twc_bin_relax_ref(
+                host[0], want, host[2], host[3], host[4], lists.vidx[i],
+                lists.deg[i], lists.row_start[i], op, width=width,
+                rows=lists.count[i:i + 1])
+        assert torch.equal(got.cpu(), want)
+    assert gl.captures == before + 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", RELAX_OPS)
 @pytest.mark.parametrize("distribution", ["cyclic", "blocked"])
@@ -540,7 +685,8 @@ def test_cuda_device_launch_counts(cuda_device):
     assert trelax.twc_bin_relax.launches == 1
     assert tk.capture_counts()["twc_bin_relax"] == 1
     assert tk.device_launch_counts(reset=True) == {
-        "twc_bin_relax": 3, "edge_lb_relax": 0, "merge_path_map": 0}
+        "twc_bin_relax": 3, "edge_lb_relax": 0, "twc_bin_list": 0,
+        "merge_path_map": 0}
 
 
 @pytest.mark.gpu

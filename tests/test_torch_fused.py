@@ -211,10 +211,11 @@ def test_static_round_launches_each_kernel_once_a_round(graphs, monkeypatch,
                                                         case, mode):
     """Through the kernel pairs, a static round calls the bin kernel once
     for every bin of the plan (an unbounded bin too: its pass count is
-    the kernel's own loop) and the huge-bin kernel once (with a device
-    total of 0 when the bin is empty), whatever the direction: so a
-    traversal launches them rounds x bins and rounds times, which
-    chip_smoke.py holds the card's own launch counts against.  In spmd
+    the kernel's own loop), the ``pallas`` pair's bin listing once, and
+    the huge-bin kernel once (with a device total of 0 when the bin is
+    empty), whatever the direction: so a traversal launches them rounds
+    x bins, rounds and rounds times, which chip_smoke.py holds the
+    card's own launch counts against.  In spmd
     mode a loop that converges learns it from the liveness of the round
     it ran, so it runs one round on an empty frontier past its count
     (pagerank stops on its round limit)."""
@@ -231,6 +232,7 @@ def test_static_round_launches_each_kernel_once_a_round(graphs, monkeypatch,
         monkeypatch.setattr(mod, name, call)
     counted(trelax, "twc_bin_relax")
     counted(trelax, "edge_lb_relax")
+    counted(trelax, "twc_bin_list")
     counted(tmp, "merge_path_map")
     kw, run = STATIC_RUNS[case]
     cfg = tb.BalancerConfig(**{"threshold": 16, "use_pallas": True, **kw})
@@ -242,6 +244,7 @@ def test_static_round_launches_each_kernel_once_a_round(graphs, monkeypatch,
         want = {"merge_path_map": ran}
     else:
         want = {"twc_bin_relax": ran * len(plan.bins),
+                "twc_bin_list": ran * (len(plan.bins) > 0),
                 "edge_lb_relax": ran * (plan.lb != "none")}
     assert calls == {k: n for k, n in want.items() if n}
 
