@@ -29,8 +29,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    cluster size the wrapper picks; the static round's device-int32
    entries (``twc_bin_relax`` with its first chunk and pass count on the
    device, over V rows and over the bin lists of ``twc_bin_list``, which
-   is held against its plain version exactly; ``edge_lb_relax``,
-   ``merge_path_map`` and ``edge_lb_map`` with the total on the device,
+   is held against its plain version exactly, with and without an LB
+   bin; ``edge_lb_relax`` over V rows and over the LB lists with their
+   device counts, ``merge_path_map`` and ``edge_lb_map`` with the total
+   on the device,
    over a span far past it: total 0, ragged tails, both deals, pass
    counts 0..k) against their plain versions given the same ints;
 3. the main path at full size: ALB ``sssp``, ``bfs`` and ``sssp_batch``
@@ -128,9 +130,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    it replaced (the torch plan with the ``positions_in_expert`` kernel)
    and ``positions_in_expert`` alone; device profiles of ALB sssp,
    sssp_batch, adaptive cc and pagerank; the static entries at phase
-   3d's shapes (one static ALB, twc and merge-path sssp and two static
-   pagerank rounds, run eagerly and recorded: ``twc_bin_list`` beside
-   its plain version and bound, ``twc_bin_relax`` over its lists), the
+   3d's shapes (one static ALB, edge_lb, twc and merge-path sssp and two
+   static pagerank rounds, run eagerly and recorded: ``twc_bin_list``
+   beside its plain version and bound, ``twc_bin_relax`` over its lists,
+   ``edge_lb_relax`` over the LB list, its bound beside the V-row
+   layout's), the
    host rounds' ``twc_bin_relax`` calls through the static schedule,
    and the condition kernel (a 1,000-turn WHILE loop against the same
    loop driven from the host);
@@ -528,15 +532,19 @@ def relax_vs_plain(dev) -> dict:
 
 
 # the static round's bins as ``(lo, hi)``: alb and twc at their default
-# widths, the vertex strategy's one bin
+# widths, the vertex strategy's one bin; then, listed with an LB bin
+# (last), alb's bins and its huge bin and the edge_lb strategy's LB-all
 LIST_BOUNDS = {"alb": ((0, 8), (8, 128), (128, 1023)),
                "twc": ((0, 8), (8, 128), (128, None)),
                "vertex": ((0, None),)}
+LB_LIST_BOUNDS = {"alb+lb": LIST_BOUNDS["alb"] + ((1023, None),),
+                  "edge_lb": ((0, None),)}
 
 
 def list_err(got, want) -> int:
-    """0 when two ``BinLists`` agree: counts, largest degrees, and each
-    bin's members up to its count; else 1."""
+    """0 when two ``BinLists`` agree: counts, largest degrees, each
+    bin's members up to its count and, with an LB bin, its total and its
+    degree prefix up to its count; else 1."""
     import torch
     if not (torch.equal(got.count, want.count) and
             torch.equal(got.max_deg, want.max_deg)):
@@ -545,6 +553,13 @@ def list_err(got, want) -> int:
         for g, w in zip(got[:3], want[:3]):
             if not torch.equal(g[b, :k], w[b, :k]):
                 return 1
+    if (got.total is None) != (want.total is None):
+        return 1
+    if want.total is not None:
+        k = int(want.count[-1])
+        if not (torch.equal(got.total, want.total) and
+                torch.equal(got.start_e[:k], want.start_e[:k])):
+            return 1
     return 0
 
 
@@ -559,11 +574,13 @@ def static_entries_vs_plain(dev) -> dict:
     operator, B in {1, 3};
     ``twc_bin_list`` over frontier layouts of the same CSR (sparse and
     dense frontiers; frontier counts 0, 1, a tile, a third, all; the
-    alb, twc and vertex bins), exactly, and ``twc_bin_relax`` over its
-    lists with their device counts, every operator, B in {1, 3};
+    alb, twc and vertex bins, and with an LB bin alb's bins with its
+    huge bin and edge_lb's LB-all), exactly, and ``twc_bin_relax`` over
+    its lists with their device counts, every operator, B in {1, 3};
     ``edge_lb_relax`` over the static span (every edge of the graph)
-    with the total on the device (0, one row, several, 2,000 rows), both
-    deals, 64 and 7 tiles; ``merge_path_map`` and ``edge_lb_map`` with a
+    with the total on the device (0, one row, several, 2,000 rows, over
+    V rows), both deals, 64 and 7 tiles, and over the LB lists with
+    their device counts and totals; ``merge_path_map`` and ``edge_lb_map`` with a
     device total against a span far past it (total 0, ragged tails,
     zero-degree runs).  Returns the max errors."""
     import torch
@@ -606,17 +623,20 @@ def static_entries_vs_plain(dev) -> dict:
         errs[name][kind] = max(errs[name][kind], relax_err(got, want))
         cases[name] += 1
 
-    lists = []
+    lists, lb_lists = [], []
     for rows, n in layouts:
-        for bounds in LIST_BOUNDS.values():
+        for bounds, lb in ([(b, False) for b in LIST_BOUNDS.values()] +
+                           [(b, True) for b in LB_LIST_BOUNDS.values()]):
             for cut in sorted({0, 1, 1024, n // 3, n}):
-                got = relax.twc_bin_list(*rows, t32([cut]), bounds)
-                want = ref.twc_bin_list_ref(*rows, cut, bounds)
+                got = relax.twc_bin_list(*rows, t32([cut]), bounds, lb=lb)
+                want = ref.twc_bin_list_ref(*rows, cut, bounds, lb=lb)
                 errs["twc_bin_list"] = max(errs["twc_bin_list"],
                                            list_err(got, want))
                 cases["twc_bin_list"] += 1
             if bounds == LIST_BOUNDS["twc"]:
                 lists.append(got)             # every row listed
+            if lb:
+                lb_lists.append(got)
     for opname in RELAX_OPS:
         op = relax_op(opname)
         for b in (1, 3):
@@ -663,6 +683,22 @@ def static_entries_vs_plain(dev) -> dict:
                             ref.edge_lb_relax_ref(
                             val, lab.clone(), fm, col, w, *t, total, e, op,
                             **kw))
+            for got in lb_lists:                  # the LB list, last
+                k = got.count.shape[0] - 1
+                n = int(got.count[k])
+                t = [x[:max(n, 1)].contiguous() for x in
+                     (got.vidx[k], got.start_e, got.row_start[k])]
+                if n == 0:                        # no member: no id
+                    t = [t32([v]), t32([0]), t32([0])]
+                for dist in ("cyclic", "blocked"):
+                    kw = dict(distribution=dist, num_tiles=64)
+                    held("edge_lb_relax", relax.edge_lb_relax(
+                        val, lab.clone(), fm, col, w, got.vidx[k],
+                        got.start_e, got.row_start[k], got.total, e, op,
+                        rows=got.count[k:], **kw),
+                        ref.edge_lb_relax_ref(
+                        val, lab.clone(), fm, col, w, *t, int(got.total),
+                        e, op, **kw))
     for h in (1, 700, 5000):
         for tile in (128, 2048):
             hdeg = rng.integers(0, 50, h).astype(np.int32)
@@ -1410,8 +1446,9 @@ def static_path(g, sym, src, sources) -> dict:
     host = {a: apps[a]("host", True) for a in apps}
 
     def needed(a, m, rounds) -> dict:
-        """Launches a run's rounds need: each bin of the plan, the bin
-        listing and the huge bin once a round."""
+        """Launches a run's rounds need: each bin of the plan, the
+        listing (of the bins and the LB bin) and the huge bin once a
+        round."""
         ran = rounds + (m == "spmd" and a != "pagerank")
         plan = effective_plan(cfg_of[a])
         if cfg_of[a].executor == "merge_path":
@@ -1419,7 +1456,8 @@ def static_path(g, sym, src, sources) -> dict:
                     "twc_bin_list": 0, "merge_path_map": ran}
         return {"twc_bin_relax": ran * len(plan.bins),
                 "edge_lb_relax": ran * (plan.lb != "none"),
-                "twc_bin_list": ran * (len(plan.bins) > 0),
+                "twc_bin_list": ran * (len(plan.bins) > 0
+                                       or plan.lb != "none"),
                 "merge_path_map": 0}
 
     torch.cuda.reset_peak_memory_stats()
@@ -2127,9 +2165,9 @@ DIST_CUTS = (("g/oec", "g", "oec"), ("g/iec", "g", "iec"),
 
 def dist_launches_needed(cfg, rounds: int) -> dict:
     """Launches of the static entries a distributed run's rounds need:
-    each partition runs every bin of the plan, the bin listing and the
-    huge bin once a round (``merge_path_map`` once, under
-    merge_path)."""
+    each partition runs every bin of the plan, the listing (of the bins
+    and the LB bin) and the huge bin once a round (``merge_path_map``
+    once, under merge_path)."""
     from repro_torch.core.balancer import effective_plan
     if cfg.executor == "merge_path":
         return {"twc_bin_relax": 0, "edge_lb_relax": 0, "twc_bin_list": 0,
@@ -2137,7 +2175,8 @@ def dist_launches_needed(cfg, rounds: int) -> dict:
     plan = effective_plan(cfg)
     return {"twc_bin_relax": rounds * len(plan.bins) * DIST_PARTS,
             "edge_lb_relax": rounds * (plan.lb != "none") * DIST_PARTS,
-            "twc_bin_list": rounds * (len(plan.bins) > 0) * DIST_PARTS,
+            "twc_bin_list": rounds * (len(plan.bins) > 0
+                                      or plan.lb != "none") * DIST_PARTS,
             "merge_path_map": 0}
 
 
@@ -2564,10 +2603,11 @@ def map_args(name, a, k) -> tuple:
                 {"width": k["width"], "chunk": k["chunk"],
                  "sentinel": a[1].shape[-1]})
     start_e, row_start, total, n_enum = a[6:10]
-    return (start_e, row_start, start_e, total, n_enum), dict(k)
+    return ((start_e, row_start, start_e, total, n_enum),
+            {n: x for n, x in k.items() if n != "rows"})
 
 
-def relax_work(name, a, k) -> tuple:
+def relax_work(name, a, k, slots=None) -> tuple:
     """(bytes, operations) one fused pass must do on these inputs, each
     byte once.  Reads: of a bin row, vidx alone for a sentinel row,
     vidx and deg for a row with no edge in this chunk, all three int32
@@ -2578,7 +2618,9 @@ def relax_work(name, a, k) -> tuple:
     Writes: a label only where the pass changes it (the plain version's
     output differs from its input).  So at most the whole [B, V]
     arrays.  Operations: ~8 integer operations per live (edge, query),
-    plus 4 per step of each huge-bin id's slot search."""
+    plus 4 per step of each huge-bin id's slot search.  ``slots``
+    charges a huge-bin call that many slots instead of its H (the V-row
+    layout's bound beside a list's)."""
     import torch
     from repro_torch.core.operators import msg_kind
     from repro_torch.kernels import ref
@@ -2609,8 +2651,9 @@ def relax_work(name, a, k) -> tuple:
         ge, j, _, mask = ref.edge_lb_map_ref(*map_args(name, a, k)[0], **k)
         want = ref.edge_lb_relax_ref(values, labels.clone(), *a[2:], **k)
         src = hvidx[j]
-        fixed = 12 * hvidx.shape[0]
-        search = int(mask.sum()) * 4 * hvidx.shape[0].bit_length()
+        h = hvidx.shape[0] if slots is None else slots
+        fixed = 12 * h
+        search = int(mask.sum()) * 4 * h.bit_length()
     ge, src = ge[mask].long(), src[mask].long()
     dst = col_idx[ge].long()
     gather, scatter = (src, dst) if op.direction == "push" else (dst, src)
@@ -2742,12 +2785,38 @@ def members_only(a, k) -> tuple:
     return a[:5] + sub + a[8:], k, 4 * (n - keep.numel())
 
 
+def lb_members(a, k) -> tuple:
+    """A static round's ``edge_lb_relax`` call (one with ``rows``, over
+    the LB list, whose rows past its count are unwritten) reduced to its
+    listed rows, for the plain version, the unfused route and the work
+    count; a list with no member becomes one sentinel slot (no id is
+    live).  Returns the call with host-int keywords, and 0 extra bytes
+    (the ``members_only`` format)."""
+    import torch
+    k = host_ints(k)
+    rows = k.pop("rows", None)
+    if rows is None:                   # a host round's call: as it is
+        return a, k, 0
+    if rows == 0:
+        dev = a[5].device
+        sub = (torch.full((1,), a[1].shape[-1], dtype=torch.int32,
+                          device=dev),
+               torch.zeros(1, dtype=torch.int32, device=dev),
+               torch.zeros(1, dtype=torch.int32, device=dev))
+    else:
+        sub = tuple(t[:rows].contiguous() for t in a[5:8])
+    return a[:5] + sub + a[8:], k, 0
+
+
 def time_relax(name, cs) -> dict:
     """One fused kernel over the recorded calls ``cs``: held against its
     plain version (exact for int labels, ``RELAX_FLOAT_RTOL`` for
     float), then timed beside its plain version, the unfused route it
     replaced and its bound.  A ``twc_bin_relax`` call's plain version,
-    unfused route and work take its member rows (``members_only``)."""
+    unfused route and work take its member rows (``members_only``), a
+    listed ``edge_lb_relax`` call's its listed rows (``lb_members``),
+    whose bound is also given as the V-row layout's
+    (``v_row_bound_ms``: 12 bytes and the search depth of V slots)."""
     from repro_torch.kernels import ref, relax
     fn = getattr(relax, name)
     plain = {"twc_bin_relax": ref.twc_bin_relax_ref,
@@ -2755,7 +2824,7 @@ def time_relax(name, cs) -> dict:
     unfused = {"twc_bin_relax": twc_unfused,
                "edge_lb_relax": lb_unfused}[name]
     reduced = [members_only(a, k) if name == "twc_bin_relax"
-               else (a, host_ints(k), 0) for a, k in cs]
+               else lb_members(a, k) for a, k in cs]
     host_cs = [(a, k) for a, k, _ in reduced]
     abs_err, rel_err = 0.0, 0.0
     for (a, k), (ha, hk) in zip(cs, host_cs):
@@ -2773,12 +2842,18 @@ def time_relax(name, cs) -> dict:
         lambda a, k: tuple(x + y for x, y in zip(relax_work(name, a, k),
                                                  (next(extra), 0))),
         host_cs)
-    return {"ms": device_ms_fresh(fn, cs),
-            "plain_ms": device_ms_fresh(plain, host_cs),
-            "unfused_ms": device_ms_fresh(unfused, host_cs),
-            "bound_ms": bms, "bound_by": by, "max_abs_err": abs_err,
-            "max_rel_err": rel_err, "timed_launches": len(cs),
-            "mean_bytes": nbytes}
+    out = {"ms": device_ms_fresh(fn, cs),
+           "plain_ms": device_ms_fresh(plain, host_cs),
+           "unfused_ms": device_ms_fresh(unfused, host_cs),
+           "bound_ms": bms, "bound_by": by, "max_abs_err": abs_err,
+           "max_rel_err": rel_err, "timed_launches": len(cs),
+           "mean_bytes": nbytes}
+    if name == "edge_lb_relax" and any(k.get("rows") is not None
+                                       for _, k in cs):
+        out["v_row_bound_ms"] = bound(
+            lambda a, k: relax_work(name, a, k, slots=a[1].shape[-1]),
+            host_cs)[0]
+    return out
 
 
 def static_schedule_ms(cs) -> float:
@@ -2943,12 +3018,15 @@ def static_pagerank_calls(g, cfg, rounds: int = 2) -> dict:
 def list_work(a, k) -> tuple:
     """(bytes, operations) one listing must do on these inputs: each
     listed row's three int32 inputs read once (12 bytes), each member's
-    three int32 outputs written once (12 bytes), and each bin's count
-    and largest degree; ~4 integer operations per listed row."""
+    three int32 outputs written once (12 bytes; an LB member's degree
+    prefix 4 more), and each bin's count and largest degree (and the LB
+    total); ~4 integer operations per listed row."""
     from repro_torch.kernels import ref
     n = int(a[3])
-    members = int(ref.twc_bin_list_ref(*a, **k).count.sum())
-    return 12 * n + 12 * members + 8 * len(a[4]), 4 * n
+    lists = ref.twc_bin_list_ref(*a, **k)
+    members = int(lists.count.sum())
+    lb = 4 * int(lists.count[-1]) + 4 if k.get("lb") else 0
+    return 12 * n + 12 * members + lb + 8 * len(a[4]), 4 * n
 
 
 def time_list(cs) -> dict:
@@ -2973,18 +3051,23 @@ def time_list(cs) -> dict:
 def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
     """Phase 4's rows of the static entries, at the shapes of one static
     ALB sssp (``twc_bin_list`` over the frontier, ``twc_bin_relax`` over
-    each bin's list with its device count, ``edge_lb_relax`` over an
-    E-id span with the device total), one static twc sssp (its unbounded
-    bin: the device pass count), two static pagerank rounds (every
-    vertex listed) and one static merge-path sssp (``merge_path_map``
-    over E ids with the device total), each held against its plain
-    version and timed beside it, the unfused route (the fused kernels)
-    and its bound.  ``launches``: phases 3d-3g's counts on the card;
-    ``captured``: the launches phase 3d's captures recorded."""
+    each bin's list with its device count, ``edge_lb_relax`` over the LB
+    list with its device count and total, an E-id span), one static
+    edge_lb sssp (every frontier vertex with an edge in the LB list),
+    one static twc sssp (its unbounded bin: the device pass count), two
+    static pagerank rounds (every vertex listed) and one static
+    merge-path sssp (``merge_path_map`` over E ids with the device
+    total), each held against its plain version and timed beside it,
+    the unfused route (the fused kernels) and its bound
+    (``edge_lb_relax`` also beside the V-row layout's bound).
+    ``launches``: phases 3d-3g's counts on the card; ``captured``: the
+    launches phase 3d's captures recorded."""
     from repro_torch.core.balancer import BalancerConfig
     from repro_torch.kernels import merge_path, ref
     kern = BalancerConfig(strategy="alb", use_pallas=True)
     alb = static_calls(g, src, kern)
+    elb = static_calls(g, src, BalancerConfig(strategy="edge_lb",
+                                              use_pallas=True))
     twc = static_calls(g, src, BalancerConfig(strategy="twc",
                                               use_pallas=True))
     pr = static_pagerank_calls(g, kern)
@@ -3002,7 +3085,8 @@ def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
             ("edge_lb_relax",
              "src/repro_torch/kernels/csrc/edge_lb_relax.cu",
              "src/repro/kernels/edge_lb.py:105",
-             {"alb": alb["edge_lb_relax"]})):
+             {"alb": alb["edge_lb_relax"], "edge_lb": elb["edge_lb_relax"],
+              "pagerank": pr["edge_lb_relax"]})):
         timed_runs = {}
         for run, cs in by_run.items():
             check(len(cs) > 0, f"{name} (static): no launch ({run})")
@@ -3015,11 +3099,13 @@ def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
             "max_abs_err": max(r["max_abs_err"]
                                for r in timed_runs.values()),
             **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
-                                   "bound_by")},
+                                   "bound_by", "v_row_bound_ms")
+               if k in top},
             "library_ms": None, "unfused_ms": top["unfused_ms"],
             "timed_launches": top["timed_launches"],
             "mean_bytes": top["mean_bytes"], "by_run": timed_runs})
-    listed = {"alb": alb["twc_bin_list"], "pagerank": pr["twc_bin_list"]}
+    listed = {"alb": alb["twc_bin_list"], "edge_lb": elb["twc_bin_list"],
+              "pagerank": pr["twc_bin_list"]}
     for run, cs in listed.items():
         check(len(cs) > 0, f"twc_bin_list: no launch ({run})")
     timed_runs = {run: time_list(cs) for run, cs in listed.items()}
@@ -4728,6 +4814,8 @@ def main() -> int:
         print(f"phase 4: {r['name']}: {r['ms']:.4f} ms per launch "
               f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}"
+              + (f"; over V rows it was {r['v_row_bound_ms']:.4f} ms"
+                 if "v_row_bound_ms" in r else "")
               + (f", unfused route {r['unfused_ms']:.4f} ms"
                  if "unfused_ms" in r else "")
               + f") over {r['timed_launches']} launches of one sssp; "

@@ -7,12 +7,17 @@ port, on one card: for comparing two commits in one call.
 ``GRAPH_DIR`` caches ``rmat(22, 16, seed=0)`` as ``g.npz`` (built on the
 first run, loaded by the next, so that runs of two checkouts in turns
 share one graph).  Prints one ``RESULT {...}`` JSON line: the card, the
-device span of fused sssp (alb and twc) and pagerank (20 rounds; CUDA
-events, median of 6), ``twc_bin_relax``'s static entry at one static
-ALB sssp's, twc's unbounded bin's and (where the checkout lists bins)
-two static pagerank rounds' shapes, ``twc_bin_list`` at the same
-shapes, and the host round's ``twc_bin_relax`` calls of one sssp, one
-group a row and through the static schedule.  Needs a CUDA device.
+device span of fused sssp (alb, edge_lb and twc) and pagerank (20
+rounds; CUDA events, median of 6), ``twc_bin_relax``'s static entry at
+one static ALB sssp's, twc's unbounded bin's and (where the checkout
+lists bins) two static pagerank rounds' shapes, ``edge_lb_relax``'s
+static entry at one static ALB sssp's, one static edge_lb sssp's and
+two static pagerank rounds' shapes (and each ALB sssp call alone: its
+total, its slots, its time and the time of the same launch with a total
+of 0), ``twc_bin_list`` at the shapes
+where the checkout lists (ALB sssp, edge_lb sssp, pagerank), and the
+host round's ``twc_bin_relax`` calls of one sssp, one group a row and
+through the static schedule.  Needs a CUDA device.
 """
 import json
 import sys
@@ -33,7 +38,7 @@ def main() -> int:
     from repro_torch.core.apps import drivers
     from repro_torch.core.balancer import BalancerConfig
     from repro_torch.core.graph import INF
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, relax
 
     if not torch.cuda.is_available():
         print("static_entry_ab: needs a CUDA device", file=sys.stderr)
@@ -57,6 +62,7 @@ def main() -> int:
     print(label, "set-up", time.perf_counter() - t0, flush=True)
     kern = BalancerConfig(strategy="alb", use_pallas=True)
     twc = BalancerConfig(strategy="twc", use_pallas=True)
+    elb = BalancerConfig(strategy="edge_lb", use_pallas=True)
     out = {"label": label, "card": cs.card_line()}
 
     def single():
@@ -73,6 +79,8 @@ def main() -> int:
                                            tops.SSSP_RELAX)[:3],
         "sssp/twc": lambda: balancer.run_fused(g, *single(), twc,
                                                tops.SSSP_RELAX)[:3],
+        "sssp/edge_lb": lambda: balancer.run_fused(g, *single(), elb,
+                                                   tops.SSSP_RELAX)[:3],
         "pagerank": lambda: drivers._pagerank_fused(
             rg, inv_out, outdeg == 0, 0.85, 0.0, kern, 20, False)[:2]}
     for fn in fused.values():                     # capture, warm up
@@ -83,16 +91,30 @@ def main() -> int:
         for k, fn in fused.items()}
     alb = cs.static_calls(g, src, kern)
     tw = cs.static_calls(g, src, twc)
+    el = cs.static_calls(g, src, elb)
     runs = {"alb": alb["twc_bin_relax"],
             "twc_unbounded": [(a, k) for a, k in tw["twc_bin_relax"]
                               if hasattr(k.get("passes"), "device")]}
+    lb_runs = {"alb": alb["edge_lb_relax"], "edge_lb": el["edge_lb_relax"]}
+    listed = {"alb": alb["twc_bin_list"], "edge_lb": el["twc_bin_list"]}
     if hasattr(cs, "static_pagerank_calls"):      # a checkout that lists
         pr = cs.static_pagerank_calls(g, kern)
         runs["pagerank"] = pr["twc_bin_relax"]
-        out["list"] = {"alb": cs.time_list(alb["twc_bin_list"]),
-                       "pagerank": cs.time_list(pr["twc_bin_list"])}
+        lb_runs["pagerank"] = pr["edge_lb_relax"]
+        listed["pagerank"] = pr["twc_bin_list"]
+    # a checkout lists the edge_lb strategy only if it lists its LB bin
+    out["list"] = {r: cs.time_list(c) for r, c in listed.items() if c}
     out["static_relax"] = {r: cs.time_relax("twc_bin_relax", c)
                            for r, c in runs.items()}
+    out["static_lb"] = {r: cs.time_relax("edge_lb_relax", c)
+                        for r, c in lb_runs.items()}
+    out["static_lb_calls"] = [
+        {"total": int(a[8]), "slots": int(k.get("rows", a[5].shape[0])),
+         "ms": cs.device_ms_fresh(relax.edge_lb_relax, [(a, k)]),
+         "empty_ms": cs.device_ms_fresh(
+             relax.edge_lb_relax,
+             [(a[:8] + (torch.zeros_like(a[8]),) + a[9:], k)])}
+        for a, k in lb_runs["alb"]]
     host = cs.capture_launches(
         lambda: drivers.sssp(g, src, kern))["twc_bin_relax"]
     out["host_relax_ms"] = cs.time_relax("twc_bin_relax", host)["ms"]

@@ -153,6 +153,16 @@ class RoundPlan:
             return valid & (deg >= cfg.threshold)
         raise ValueError(self.lb)
 
+    def lb_bound(self, cfg: BalancerConfig) -> tuple:
+        """:meth:`lb_mask`'s degree range as a bin's ``(lo, hi)``: ``lo
+        < deg``, no cap (the static round lists the LB bin with its
+        degree bins)."""
+        if self.lb == "all":
+            return (0, None)
+        if self.lb == "huge":
+            return (cfg.threshold - 1, None)
+        raise ValueError(self.lb)
+
 
 def make_plan(cfg: BalancerConfig) -> RoundPlan:
     """Turn a config into the degree bins + LB mode of its strategy."""
@@ -247,18 +257,23 @@ class ExecutorPair:
                round, a device int32 past which every row is empty (an
                entry may skip them)
     lb_host:  (g, values, labels, fmask, hvidx, hdeg, hrow, total, ecap,
-               op, distribution, num_tiles, tile_edges) -> labels;
-               ``total`` a host int (host round) or a device int32
-               (static round), and a total of 0 changes nothing
+               op, distribution, num_tiles, tile_edges, start_e=None,
+               rows=None) -> labels; ``total`` a host int (host round)
+               or a device int32 (static round), and a total of 0
+               changes nothing; ``start_e`` and ``rows`` (a device
+               int32), given by the static round with a ``bin_list``,
+               are the LB list's degree prefix and member count
     bin_list: optional, the static round's bin listing: (fidx, deg,
-               row_start, n_listed, bounds, op, labels_dtype) ->
+               row_start, n_listed, bounds, op, labels_dtype, lb) ->
                ``kernels.ref.BinLists`` | None: each bin ``(lo, hi)`` of
                ``bounds``'s members among the frontier layout's rows
                ``[0, n_listed)``, once a round, in frontier order, with
-               their device counts and largest degrees; None for an
-               operator the pair's ``bin_host`` lists no bins for.
-               Without it (or on None) the static round lays every bin
-               over V rows, as the JAX package does
+               their device counts and largest degrees, and with ``lb``
+               the last bin, the LB bin's, with its degree prefix and
+               device total; None for an operator the pair lists no
+               bins for.  Without it (or on None) the static round lays
+               every bin and the LB bin over V rows, as the JAX package
+               does
 
     ``values`` / ``labels`` / ``fmask`` are ``[B, V]``; the enumeration
     arguments are batch-shared (union frontier).  With ``in_place`` the
@@ -774,8 +789,9 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
                      owned: bool = False):
     """Static-shape ALB round: bins over ``compact(union or emask, V)``
     at capacity V (sentinel ``V`` for non-members), or, through a pair
-    with a ``bin_list`` hook, each bin's members listed once from it
-    with a device count; the LB span at E ids;
+    with a ``bin_list`` hook, each bin's members and the LB bin's
+    listed once from it with device counts (the LB bin also with its
+    degree prefix and device total); the LB span at E ids;
     a bounded bin runs its static passes, an unbounded one (twc's large
     bin, the vertex strategy) its pass count ``ceil(max_deg / W)``
     computed on the device, and the LB path always runs with the device
@@ -813,13 +829,16 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     edges_twc, tl_twc = zeros(), zeros(cfg.num_tiles)
-    # a pair with a listing hook lists each bin's members once, and each
-    # bin's launch takes its list and count; else every bin spans V rows
+    # a pair with a listing hook lists each bin's members and the LB
+    # bin's once, and each launch takes its list and count; else every
+    # bin spans V rows
+    has_lb = plan.lb != "none"
+    bounds = tuple((s.lo, s.hi) for s in plan.bins) + \
+        ((plan.lb_bound(cfg),) if has_lb else ())
     lists = None
-    if plan.bins and ex.bin_list is not None:
-        lists = ex.bin_list(fidx, deg, row_start, n_listed,
-                            tuple((s.lo, s.hi) for s in plan.bins), op,
-                            labels.dtype)
+    if bounds and ex.bin_list is not None:
+        lists = ex.bin_list(fidx, deg, row_start, n_listed, bounds, op,
+                            labels.dtype, has_lb)
     for i, spec in enumerate(plan.bins):
         mask = None
         if lists is not None:
@@ -849,16 +868,27 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
 
     edges_lb, tl_lb = zeros(), zeros(cfg.num_tiles)
     lb_invoked = zeros(dtype=torch.bool)
-    if plan.lb != "none":
-        hmask = plan.lb_mask(deg, valid, cfg)
-        hdeg = torch.where(hmask, deg, 0)
-        total = hdeg.sum(dtype=torch.int32)
-        labels = ex.lb_host(g, values, labels, frontier,
-                           torch.where(hmask, fidx, v), hdeg,
-                           torch.where(hmask, row_start, 0), total,
-                           g.num_edges, op, cfg.distribution, cfg.num_tiles,
-                           cfg.lb_tile_edges)
-        lb_invoked = count(hmask) > 0
+    if has_lb:
+        if lists is not None:
+            k = len(plan.bins)
+            total = lists.total
+            labels = ex.lb_host(g, values, labels, frontier, lists.vidx[k],
+                                lists.deg[k], lists.row_start[k], total,
+                                g.num_edges, op, cfg.distribution,
+                                cfg.num_tiles, cfg.lb_tile_edges,
+                                start_e=lists.start_e,
+                                rows=lists.count[k:k + 1])
+            lb_invoked = lists.count[k] > 0
+        else:
+            hmask = plan.lb_mask(deg, valid, cfg)
+            hdeg = torch.where(hmask, deg, 0)
+            total = hdeg.sum(dtype=torch.int32)
+            labels = ex.lb_host(g, values, labels, frontier,
+                                torch.where(hmask, fidx, v), hdeg,
+                                torch.where(hmask, row_start, 0), total,
+                                g.num_edges, op, cfg.distribution,
+                                cfg.num_tiles, cfg.lb_tile_edges)
+            lb_invoked = count(hmask) > 0
         edges_lb = torch.where(lb_invoked, total, 0)
         tl_lb = torch.where(lb_invoked,
                             _lb_tile_loads(total, cfg.num_tiles), 0)

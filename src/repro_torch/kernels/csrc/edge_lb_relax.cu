@@ -37,18 +37,17 @@
 // Design: the deal of ids to threads is kept, so cyclic and blocked
 // still differ in access order (the paper's Fig. 8).  Cyclic: one block
 // per tile of 2048 contiguous ids; two threads in different warps find
-// the tile's slot window by co-rank searches over all of start_e (as
+// the tile's slot window by co-rank searches over start_e (as
 // merge_path.cu does), the block stages start_e over the window in
-// shared memory, and each id searches only that window there (a window
-// wider than the stage, possible only with runs of zero-degree slots,
-// is searched in global memory instead).  Blocked: a block's ids are
-// w_per apart and share no window, so each id searches all of start_e
-// in global memory.  Push reads values[b, src] per query: one huge
-// vertex's ids are neighbours, so those loads are L1 hits.  Pull
-// combines at the anchor, which a whole run of neighbouring lanes
-// shares: each warp first reduces every run of lanes with one anchor
-// into its first lane (shuffles), and only that lane does the atomic.
-// So a float add here is order-dependent (atomics), as index_add_ is.
+// shared memory, and each id searches only that window there.  Blocked:
+// a block's ids are w_per apart and share no window, so each id
+// searches start_e in global memory.  Push reads values[b, src] per
+// query: one huge vertex's ids are neighbours, so those loads are L1
+// hits.  Pull combines at the anchor, which a whole run of neighbouring
+// lanes shares: each warp first reduces every run of lanes with one
+// anchor into its first lane (shuffles), and only that lane does the
+// atomic.  So a float add here is order-dependent (atomics), as
+// index_add_ is.
 // `total` comes from the host or, when `total_ptr` is non-null, from one
 // int32 on the device: the static-shape round (JAX's edge_lb_apply_static,
 // src/repro/kernels/ops.py:52) enumerates a span of E ids and knows its
@@ -57,6 +56,18 @@
 // the total they read, so a round whose huge bin is empty (total 0)
 // costs one launch whose blocks exit at once.  A grid of span / 2048
 // blocks would cost the card that many block launches every round.
+// The slots H come from the host or, when `rows_ptr` is non-null, from
+// one int32 on the device, which bounds every search to [0, *rows_ptr):
+// the static round hands the kernel its LB list (csrc/twc_list.cu: the
+// members in frontier order, their degree prefix and total) with its
+// member count, where the JAX package lays the huge bin over V rows.
+// Every listed member owns an edge when the plan's threshold is at
+// least 1 (the alb and edge_lb plans at any such threshold), so a tile
+// of 2048 ids spans at most 2049 slots and its window always fits the
+// stage.  A window wider than the stage needs runs of zero-degree slots:
+// a layout over V rows (the index-map route's, or a caller's own), or a
+// list at a threshold below 1; such a tile searches its window in global
+// memory instead.
 // The kernel allocates nothing and launches on the caller's stream.
 #include <algorithm>
 #include <cstdint>
@@ -85,6 +96,12 @@ __device__ __forceinline__ int32_t upper_bound(const int32_t* a, int32_t lo,
     if (a[mid] <= x) lo = mid + 1; else hi = mid;
   }
   return lo;
+}
+
+// the slots a launch searches: the host's H, or min(H, *rows_ptr)
+__device__ __forceinline__ int32_t slots(int32_t h,
+                                         const int32_t* rows_ptr) {
+  return rows_ptr != nullptr ? max(0, min(h, *rows_ptr)) : h;
 }
 
 struct Pass {
@@ -149,7 +166,8 @@ __device__ __forceinline__ void relax_id(const Pass& p,
 }
 
 // `lim` = min(span, total), the live ids [0, lim): from the host, or
-// read here from the device total (`total_ptr`).  A block takes tiles
+// read here from the device total (`total_ptr`); 0 when the device row
+// bound (`rows_ptr`) leaves no slot.  A block takes tiles
 // blockIdx.x, blockIdx.x + gridDim.x, ...: one tile when the host sized
 // the grid to lim, a grid-stride walk over [0, lim) when the grid was
 // sized from the static span alone.
@@ -157,13 +175,16 @@ template <typename T, bool ADD, bool PULL>
 __global__ void __launch_bounds__(kThreads) edge_lb_relax_cyclic(
     Pass p, const T* __restrict__ values, T* labels,
     const bool* __restrict__ fmask, const int32_t* __restrict__ start_e,
-    const int32_t* __restrict__ row_start, int32_t h, int32_t lim_host,
-    const int32_t* __restrict__ total_ptr, int32_t span) {
+    const int32_t* __restrict__ row_start, int32_t h_host, int32_t lim_host,
+    const int32_t* __restrict__ total_ptr,
+    const int32_t* __restrict__ rows_ptr, int32_t span) {
   __shared__ int32_t stage[kStage];
   __shared__ int32_t window[2];
   device_count::count_launch();
+  const int32_t h = slots(h_host, rows_ptr);
   const int32_t lim =
-      total_ptr != nullptr ? max(0, min(span, *total_ptr)) : lim_host;
+      h == 0 ? 0
+      : total_ptr != nullptr ? max(0, min(span, *total_ptr)) : lim_host;
   for (int64_t t0 = (int64_t)blockIdx.x * kTile; t0 < lim;
        t0 += (int64_t)gridDim.x * kTile) {
     const int32_t t_lo = (int32_t)t0;
@@ -198,18 +219,21 @@ __global__ void __launch_bounds__(kThreads) edge_lb_relax_cyclic(
   }
 }
 
-// The total comes from the host or from the device (`total_ptr`).  A
-// live id i has eid >= i / T, so i / T < min(total, w_per): no id at or
+// The total comes from the host or from the device (`total_ptr`), and
+// is 0 when the device row bound leaves no slot.  A live id i has eid >= i / T, so i / T < min(total, w_per): no id at or
 // past T * min(total, w_per) is live, and the walk stops there.
 template <typename T, bool ADD, bool PULL>
 __global__ void __launch_bounds__(kThreads) edge_lb_relax_blocked(
     Pass p, const T* __restrict__ values, T* labels,
     const bool* __restrict__ fmask, const int32_t* __restrict__ start_e,
-    const int32_t* __restrict__ row_start, int32_t h, int32_t total_host,
-    const int32_t* __restrict__ total_ptr, int32_t w_per,
-    int32_t num_tiles, int32_t span) {
+    const int32_t* __restrict__ row_start, int32_t h_host,
+    int32_t total_host, const int32_t* __restrict__ total_ptr,
+    const int32_t* __restrict__ rows_ptr, int32_t w_per, int32_t num_tiles,
+    int32_t span) {
   device_count::count_launch();
-  const int32_t total = total_ptr != nullptr ? *total_ptr : total_host;
+  const int32_t h = slots(h_host, rows_ptr);
+  const int32_t total =
+      h == 0 ? 0 : total_ptr != nullptr ? *total_ptr : total_host;
   const int64_t live_rows = max(0, min(total, w_per));
   const int64_t lim = (int64_t)num_tiles * live_rows < span
                           ? (int64_t)num_tiles * live_rows
@@ -237,14 +261,16 @@ __global__ void __launch_bounds__(kThreads) edge_lb_relax_blocked(
 template <typename T, bool ADD, bool PULL>
 int launch(const Pass& p, const void* values, void* labels,
            const void* fmask, const void* start_e, const void* row_start,
-           const void* total_ptr, int h, int total, int w_per,
-           int num_tiles, int span, int blocked, cudaStream_t stream) {
+           const void* total_ptr, const void* rows_ptr, int h, int total,
+           int w_per, int num_tiles, int span, int blocked,
+           cudaStream_t stream) {
   const T* val = static_cast<const T*>(values);
   T* lab = static_cast<T*>(labels);
   const bool* fm = static_cast<const bool*>(fmask);
   const int32_t* se = static_cast<const int32_t*>(start_e);
   const int32_t* rs = static_cast<const int32_t*>(row_start);
   const int32_t* tp = static_cast<const int32_t*>(total_ptr);
+  const int32_t* rp = static_cast<const int32_t*>(rows_ptr);
   // a device total: the grid comes from the static span alone, a few
   // blocks per SM that walk the live ids (an empty huge bin costs one
   // short launch, not span / 2048 blocks that each exit)
@@ -256,7 +282,7 @@ int launch(const Pass& p, const void* values, void* labels,
     if (blocks == 0) return 0;
     edge_lb_relax_blocked<T, ADD, PULL><<<(unsigned)blocks, kThreads, 0,
                                           stream>>>(
-        p, val, lab, fm, se, rs, h, total, tp, w_per, num_tiles, span);
+        p, val, lab, fm, se, rs, h, total, tp, rp, w_per, num_tiles, span);
   } else {
     const int32_t lim = tp != nullptr ? span : std::min(span, total);
     int64_t blocks = ((int64_t)lim + kTile - 1) / kTile;
@@ -264,7 +290,7 @@ int launch(const Pass& p, const void* values, void* labels,
     if (blocks == 0) return 0;
     edge_lb_relax_cyclic<T, ADD, PULL><<<(unsigned)blocks, kThreads, 0,
                                          stream>>>(
-        p, val, lab, fm, se, rs, h, lim, tp, span);
+        p, val, lab, fm, se, rs, h, lim, tp, rp, span);
   }
   return (int)cudaGetLastError();
 }
@@ -272,11 +298,14 @@ int launch(const Pass& p, const void* values, void* labels,
 }  // namespace
 
 // dtype: 0 int32, 1 float32; add: 0 min, 1 add (float32 takes add only).
-// total_ptr: null, or one int32 on the device that replaces `total`.
+// total_ptr: null, or one int32 on the device that replaces `total`;
+// rows_ptr: null, or one int32 on the device that bounds the slots to
+// [0, min(h, *rows_ptr)) (a list's member count).
 extern "C" int edge_lb_relax_launch(
     const void* values, void* labels, const void* fmask, const void* col_idx,
     const void* edge_w, const void* hvidx, const void* start_e,
-    const void* row_start, const void* total_ptr, int h, int total,
+    const void* row_start, const void* total_ptr, const void* rows_ptr,
+    int h, int total,
     int w_per, int num_tiles, int span, int blocked, int nb, int v,
     int dtype, int add, int pull, int kind, void* stream) {
   if (nb == 0 || span <= 0 || h <= 0) return 0;
@@ -287,8 +316,8 @@ extern "C" int edge_lb_relax_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LB_RELAX_CALL(T, ADD, PULL)                                          \
   launch<T, ADD, PULL>(p, values, labels, fmask, start_e, row_start,         \
-                       total_ptr, h, total, w_per, num_tiles, span, blocked, \
-                       s)
+                       total_ptr, rows_ptr, h, total, w_per, num_tiles,      \
+                       span, blocked, s)
   if (dtype == 0 && !add) return pull ? LB_RELAX_CALL(int32_t, false, true)
                                       : LB_RELAX_CALL(int32_t, false, false);
   if (dtype == 0) return pull ? LB_RELAX_CALL(int32_t, true, true)

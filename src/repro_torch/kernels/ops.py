@@ -32,9 +32,9 @@ the kernels read on the card, so a captured round never reads them on
 the host.  They stand for the JAX package's
 ``twc_bin_apply_static`` / ``edge_lb_apply_static`` /
 ``merge_path_apply_static`` too.  The ``pallas`` pair's static round
-first lists each bin's members once (``list_bins``, the registry's
-``bin_list``: one ``relax.twc_bin_list`` launch), where JAX lays every
-bin over V rows.
+first lists each bin's members once, and the LB bin's with their edge
+prefix and total (``list_bins``, the registry's ``bin_list``: one
+``relax.twc_bin_list`` launch), where JAX lays every bin over V rows.
 
 Entries are batched: ``values`` / ``labels`` / ``fmask`` are ``[B, V]``
 while the enumeration is batch-shared, so each kernel runs ONCE per
@@ -81,12 +81,16 @@ def _slot_apply(g, values, labels, fmask, hvidx, ge, j, mask, op):
 
 def edge_lb_apply(g, values, labels, fmask, hvidx, hdeg, hrow, total,
                   ecap: int, op, distribution: str, num_tiles: int,
-                  tile_edges: int):
+                  tile_edges: int, start_e=None, rows=None):
     """LB entry of both rounds: one ``edge_lb_relax`` launch, combined
     into ``labels`` in place (or the unfused route, for an operator the
     kernel does not take).  ``total`` is a host int or, in the static
-    round, a device int32 the kernels read on the card."""
-    start_e = torch.cumsum(hdeg, 0, dtype=torch.int32) - hdeg
+    round, a device int32 the kernels read on the card.  The static
+    round's LB list (:func:`list_bins`) comes with its degree prefix
+    ``start_e`` and its device member count ``rows``; otherwise the
+    prefix is taken here over ``hdeg``."""
+    if start_e is None:
+        start_e = torch.cumsum(hdeg, 0, dtype=torch.int32) - hdeg
     if not _relax.takes(op, labels.dtype):
         ge, j, _, mask = _edge_lb.edge_lb_map(
             start_e, hrow, start_e, total, ecap, tile_edges=tile_edges,
@@ -95,7 +99,7 @@ def edge_lb_apply(g, values, labels, fmask, hvidx, hdeg, hrow, total,
     return _relax.edge_lb_relax(
         values, labels, fmask, g.col_idx, g.edge_w, hvidx, start_e, hrow,
         total, ecap, op, tile_edges=tile_edges, distribution=distribution,
-        num_tiles=num_tiles)
+        num_tiles=num_tiles, rows=rows)
 
 
 def merge_path_apply(g, values, labels, fmask, hvidx, hdeg, hrow, total,
@@ -120,16 +124,20 @@ def merge_path_no_bins(*_args, **_kwargs):
                        "its bin executor entries are unreachable")
 
 
-def list_bins(fidx, deg, row_start, n_listed, bounds, op, labels_dtype):
+def list_bins(fidx, deg, row_start, n_listed, bounds, op, labels_dtype,
+              lb: bool = False):
     """The ``pallas`` pair's bin listing of the static round: one
     ``twc_bin_list`` launch over the frontier layout's rows ``[0,
     n_listed)``, each bin ``(lo, hi)`` of ``bounds`` compacted in
     frontier order (a ``ref.BinLists``), for :func:`twc_bin_apply` with
-    ``rows`` its member count.  None for an operator the fused kernel
-    does not take: its unfused route keeps the round's V-row layout."""
+    ``rows`` its member count; with ``lb`` the last bin is the LB bin,
+    listed with its edge prefix and total for :func:`edge_lb_apply`.
+    None for an operator the fused kernels do not take: its unfused
+    route keeps the round's V-row layout."""
     if not _relax.takes(op, labels_dtype):
         return None
-    return _relax.twc_bin_list(fidx, deg, row_start, n_listed, bounds)
+    return _relax.twc_bin_list(fidx, deg, row_start, n_listed, bounds,
+                               lb=lb)
 
 
 def twc_bin_apply(g, values, labels, fmask, bvidx, bdeg, brow,

@@ -19,7 +19,7 @@ TPU kernel does (the JAX oracle's ``take_along_axis`` fills INT32_MIN).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -129,31 +129,41 @@ def twc_bin_relax_ref(values, labels, fmask, col_idx, edge_w, vidx, deg,
 
 
 class BinLists(NamedTuple):
-    """Each degree bin's members of a static round, in frontier order:
+    """Each bin's members of a static round, in frontier order:
     ``vidx`` / ``deg`` / ``row_start`` int32 ``[nbins, N]``, whose rows
     ``[0, count[b])`` are bin ``b``'s members (the plain version pads the
     rest with the sentinel ``N``, deg 0 and row 0; the kernel leaves them
     unwritten); ``count`` and ``max_deg`` int32 ``[nbins]``, the members
-    and their largest degree (0 for an empty bin)."""
+    and their largest degree (0 for an empty bin).  When the last bin is
+    the plan's edge-balanced (LB) bin, ``start_e`` (int32 ``[N]``) is the
+    exclusive prefix of its members' degrees in list order (the plain
+    version pads it with the total) and ``total`` (a 0-d int32) their
+    sum; else both are None."""
     vidx: torch.Tensor
     deg: torch.Tensor
     row_start: torch.Tensor
     count: torch.Tensor
     max_deg: torch.Tensor
+    start_e: Optional[torch.Tensor] = None
+    total: Optional[torch.Tensor] = None
 
 
-def twc_bin_list_ref(fidx, deg, row_start, n_listed, bounds) -> BinLists:
+def twc_bin_list_ref(fidx, deg, row_start, n_listed, bounds, *,
+                     lb: bool = False) -> BinLists:
     """Oracle for relax.twc_bin_list: rows ``[0, n_listed)`` of a
     frontier layout (``fidx`` / ``deg`` / ``row_start``, int32 ``[N]``;
     ``fidx >= N`` a sentinel), each bin ``(lo, hi)`` of ``bounds``
     compacted (``core.frontier.compact``) over its mask ``lo < deg``
     and, unless ``hi`` is None, ``deg <= hi``: the rows a static round's
-    V-row layout marks for that bin, in the same order.  ``n_listed`` is
-    an int or a one-element int32 tensor."""
+    V-row layout marks for that bin, in the same order.  With ``lb`` the
+    last bin's degrees, padded with 0, give ``start_e`` (their exclusive
+    cumsum, so the padding holds the total, as the host round's
+    bucketed gather pads) and ``total``.  ``n_listed`` is an int or a
+    one-element int32 tensor."""
     n = fidx.shape[0]
     dev = fidx.device
     valid = (fidx < n) & (torch.arange(n, device=dev) < n_listed)
-    cols = {k: [] for k in BinLists._fields}
+    cols = {k: [] for k in BinLists._fields[:5]}
     for lo, hi in bounds:
         m = valid & (deg > lo)
         if hi is not None:
@@ -168,16 +178,30 @@ def twc_bin_list_ref(fidx, deg, row_start, n_listed, bounds) -> BinLists:
         cols["max_deg"].append(torch.where(m, deg, 0).amax() if n else
                                torch.zeros((), dtype=torch.int32,
                                            device=dev))
-    return BinLists(**{k: torch.stack(v) for k, v in cols.items()})
+    lists = BinLists(**{k: torch.stack(v) for k, v in cols.items()})
+    if not lb:
+        return lists
+    d = lists.deg[-1]
+    return lists._replace(
+        start_e=torch.cumsum(d, 0, dtype=torch.int32) - d,
+        total=d.sum(dtype=torch.int32))
 
 
 def edge_lb_relax_ref(values, labels, fmask, col_idx, edge_w, hvidx,
                       start_e, row_start, total_edges, n_enum, op, *,
                       tile_edges: int = 2048, distribution: str = "cyclic",
-                      num_tiles: int = 64):
+                      num_tiles: int = 64, rows=None):
     """Oracle for relax.edge_lb_relax: ``edge_lb_map_ref`` over the huge
     bin, then :func:`slot_epilogue` with ``src = hvidx[slot]``, written
-    into ``labels``."""
+    into ``labels``.  ``rows`` (an int or a one-element int32 tensor),
+    when given, bounds the slots to ``[0, rows)``: ``start_e`` past it
+    reads as the int32 maximum, so no id lands there, and with no slot
+    no id is live."""
+    if rows is not None:
+        keep = torch.arange(start_e.shape[0], device=start_e.device) < rows
+        start_e = torch.where(keep, start_e, torch.iinfo(torch.int32).max)
+        total_edges = torch.where(
+            keep[0], torch.as_tensor(total_edges, device=keep.device), 0)
     ge, j, _, mask = edge_lb_map_ref(start_e, row_start, start_e,
                                      total_edges, n_enum,
                                      tile_edges=tile_edges,

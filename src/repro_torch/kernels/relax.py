@@ -11,8 +11,9 @@ tile reaches device memory.  They replace, on the main path, the Pallas
 TPU kernels ``twc_bin_map`` / ``edge_lb_map`` together with the
 gather/scatter epilogue the JAX package leaves to XLA.
 ``csrc/twc_list.cu`` (no TPU kernel) lists each degree bin's members of
-a static round in frontier order, so that each bin's ``twc_bin_relax``
-launch runs over its members alone.
+a static round in frontier order, and the huge (LB) bin's with their
+edge prefix and total, so that each bin's ``twc_bin_relax`` launch and
+the ``edge_lb_relax`` launch run over their members alone.
 
 ``values`` / ``labels`` / ``fmask`` are ``[B, V]`` and the enumeration is
 batch-shared.  ``labels`` is written in place and returned; it must not
@@ -162,8 +163,8 @@ def twc_bin_relax(values: torch.Tensor, labels: torch.Tensor,
     return labels
 
 
-# rows a list may hold: the listing kernel packs a tile's prefix count
-# and two flag bits in one 32-bit status word
+# rows a list may hold: the listing kernel packs a tile's prefix count in
+# 31 bits of its status word
 _LIST_ROWS = 1 << 30
 _NO_CAP = (1 << 31) - 1
 
@@ -178,20 +179,26 @@ def _list_scratch():
 
 
 def twc_bin_list(fidx: torch.Tensor, deg: torch.Tensor,
-                 row_start: torch.Tensor, n_listed, bounds) -> BinLists:
+                 row_start: torch.Tensor, n_listed, bounds, *,
+                 lb: bool = False) -> BinLists:
     """List each degree bin's members of a static round, once.
 
     Rows ``[0, n_listed)`` of a frontier layout (``fidx`` / ``deg`` /
     ``row_start``: int32 ``[N]``, as ``balancer._frontier_meta`` gives
     them; ``fidx >= N`` is a sentinel) go to the bin ``(lo, hi)`` of
     ``bounds`` (1 to 4 disjoint ranges ``lo < deg <= hi``, ``hi`` None
-    for no cap) that holds their degree.  ``n_listed`` is a host int or
-    a one-element int32 tensor on the device, which the kernel reads
-    there.  Returns a :class:`ref.BinLists`: each bin's members in
-    frontier order, their count and their largest degree, on the
-    device, allocated here; rows past a bin's count are left unwritten
-    by the kernel.  Each list with its count feeds one
-    :func:`twc_bin_relax` launch (``rows=count[b:b + 1]``)."""
+    for no cap) that holds their degree.  With ``lb`` the last bin is
+    the plan's edge-balanced (LB) bin: its list also carries the
+    exclusive prefix of its members' degrees and their total.
+    ``n_listed`` is a host int or a one-element int32 tensor on the
+    device, which the kernel reads there.  Returns a
+    :class:`ref.BinLists`: each bin's members in frontier order, their
+    count and their largest degree (and the LB bin's ``start_e`` and
+    ``total``), on the device, allocated here; rows past a bin's count
+    are left unwritten by the kernel.  Each degree bin's list with its
+    count feeds one :func:`twc_bin_relax` launch
+    (``rows=count[b:b + 1]``), the LB bin's one :func:`edge_lb_relax`
+    launch (``rows=count[-1:]``)."""
     n, dev = fidx.shape[0], fidx.device
     nb = len(bounds)
     if not 1 <= nb <= 4:
@@ -199,7 +206,8 @@ def twc_bin_list(fidx: torch.Tensor, deg: torch.Tensor,
     for name, t in (("fidx", fidx), ("deg", deg), ("row_start", row_start)):
         build.check_vec("twc_bin_list", name, t, n, dev)
     if dev.type == "cpu":
-        return twc_bin_list_ref(fidx, deg, row_start, n_listed, bounds)
+        return twc_bin_list_ref(fidx, deg, row_start, n_listed, bounds,
+                                lb=lb)
     if dev.type != "cuda":
         raise ValueError(f"twc_bin_list runs on cuda or cpu, not {dev}")
     if n >= _LIST_ROWS:
@@ -208,20 +216,26 @@ def twc_bin_list(fidx: torch.Tensor, deg: torch.Tensor,
                                      dev)
     scratch = torch.zeros(_list_scratch()(n, nb), dtype=torch.int32,
                           device=dev)
-    out = torch.empty((3, nb, n), dtype=torch.int32, device=dev)
+    buf = torch.empty((3 * nb + lb) * n, dtype=torch.int32, device=dev)
+    out = buf[:3 * nb * n].view(3, nb, n)
+    start_e = buf[3 * nb * n:] if lb else None
+    lists = BinLists(*out[:3], scratch[1:1 + nb],
+                     scratch[1 + nb:1 + 2 * nb], start_e,
+                     scratch[1 + 2 * nb] if lb else None)
     if n == 0:
-        return BinLists(*out, scratch[1:1 + nb], scratch[1 + nb:1 + 2 * nb])
+        return lists
     cut = (_I * (2 * nb))(*[lo for lo, _ in bounds],
                           *[_NO_CAP if hi is None else hi
                             for _, hi in bounds])
-    fn = _launcher("twc_list", "twc_bin_list", 9, 3)
+    fn = _launcher("twc_list", "twc_bin_list", 10, 4)
     _launched("twc_bin_list", fn(
         fidx.data_ptr(), deg.data_ptr(), row_start.data_ptr(), n_ptr,
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        scratch.data_ptr(), ctypes.addressof(cut), n_host, n, nb,
+        None if start_e is None else start_e.data_ptr(), scratch.data_ptr(),
+        ctypes.addressof(cut), n_host, n, nb, nb - 1 if lb else -1,
         torch.cuda.current_stream(dev).cuda_stream))
     build.count_launch(twc_bin_list)
-    return BinLists(*out, scratch[1:1 + nb], scratch[1 + nb:1 + 2 * nb])
+    return lists
 
 
 def edge_lb_relax(values: torch.Tensor, labels: torch.Tensor,
@@ -229,18 +243,21 @@ def edge_lb_relax(values: torch.Tensor, labels: torch.Tensor,
                   edge_w: torch.Tensor, hvidx: torch.Tensor,
                   start_e: torch.Tensor, row_start: torch.Tensor,
                   total_edges, n_enum: int, op, *, tile_edges: int = 2048,
-                  distribution: str = "cyclic",
-                  num_tiles: int = 64) -> torch.Tensor:
+                  distribution: str = "cyclic", num_tiles: int = 64,
+                  rows=None) -> torch.Tensor:
     """Combine the huge bin's edge-balanced pass into ``labels``.
 
     ``hvidx``/``start_e``/``row_start`` are int32 ``[H]`` (H >= 1):
     the huge vertices, the exclusive prefix sum of their degrees and
     their CSR row starts; ``total_edges`` is a host int or a one-element
     int32 tensor on the device (ids at or past it do nothing, so a
-    total of 0 does nothing).  The ids are enumerated and dealt exactly
-    as ``edge_lb.edge_lb_map`` deals them (span
-    ``ceil(n_enum / num_tiles) * num_tiles``); ``tile_edges`` only pads
-    the plain version's enumeration.  Returns ``labels``.
+    total of 0 does nothing).  ``rows``, a one-element int32 tensor on
+    the device, bounds the slots to ``[0, rows)``: the static round's
+    LB list (:func:`twc_bin_list` with ``lb``) with its member count,
+    where the slots past it are unwritten; no slot, no id.  The ids are
+    enumerated and dealt exactly as ``edge_lb.edge_lb_map`` deals them
+    (span ``ceil(n_enum / num_tiles) * num_tiles``); ``tile_edges`` only
+    pads the plain version's enumeration.  Returns ``labels``.
     """
     h, dev = start_e.shape[0], labels.device
     if h < 1:
@@ -257,11 +274,16 @@ def edge_lb_relax(values: torch.Tensor, labels: torch.Tensor,
                                  hvidx, start_e, row_start, total_edges,
                                  n_enum, op, tile_edges=tile_edges,
                                  distribution=distribution,
-                                 num_tiles=num_tiles)
+                                 num_tiles=num_tiles, rows=rows)
     if dev.type != "cuda":
         raise ValueError(f"edge_lb_relax runs on cuda or cpu, not {dev}")
     total_ptr, total_host = build.scalar_arg("edge_lb_relax", "total_edges",
                                              total_edges, dev)
+    rows_ptr = None
+    if rows is not None:
+        if not isinstance(rows, torch.Tensor):
+            raise ValueError("edge_lb_relax: rows is a device int32")
+        rows_ptr, _ = build.scalar_arg("edge_lb_relax", "rows", rows, dev)
     w_per = -(-n_enum // num_tiles)
     span = w_per * num_tiles
     if span >= 1 << 31:
@@ -269,11 +291,12 @@ def edge_lb_relax(values: torch.Tensor, labels: torch.Tensor,
     if span == 0 or labels.numel() == 0 or (total_ptr is None
                                             and total_host == 0):
         return labels
-    fn = _launcher("edge_lb_relax", "edge_lb_relax", 9, 12)
+    fn = _launcher("edge_lb_relax", "edge_lb_relax", 10, 12)
     _launched("edge_lb_relax", fn(
         values.data_ptr(), labels.data_ptr(), fmask.data_ptr(),
         col_idx.data_ptr(), edge_w.data_ptr(), hvidx.data_ptr(),
-        start_e.data_ptr(), row_start.data_ptr(), total_ptr, h, total_host,
+        start_e.data_ptr(), row_start.data_ptr(), total_ptr, rows_ptr, h,
+        total_host,
         w_per, num_tiles, span, int(distribution == "blocked"), *ints,
         torch.cuda.current_stream(dev).cuda_stream))
     build.count_launch(edge_lb_relax)

@@ -428,6 +428,11 @@ def _assert_lists_equal(got, want):
     for b, k in enumerate(want.count.tolist()):
         for g, w in zip(got[:3], want[:3]):
             assert torch.equal(g[b, :k], w[b, :k])
+    assert (got.total is None) == (want.total is None)
+    if want.total is not None:                 # the LB bin, listed last
+        k = int(want.count[-1])
+        assert torch.equal(got.total, want.total)
+        assert torch.equal(got.start_e[:k], want.start_e[:k])
 
 
 @pytest.mark.gpu
@@ -541,6 +546,84 @@ def test_cuda_listed_bins_replay_with_a_new_count(cuda_device):
                 rows=lists.count[i:i + 1])
         assert torch.equal(got.cpu(), want)
     assert gl.captures == before + 1
+
+
+# the LB bin listed after the degree bins: alb's huge bin (threshold
+# 1024) and the edge_lb strategy's every vertex with an edge
+LB_BOUNDS = {"alb": LIST_BOUNDS["alb"] + ((1023, None),),
+             "edge_lb": ((0, None),)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v", [20_000, 3_000_001])
+@pytest.mark.parametrize("bins", sorted(LB_BOUNDS))
+def test_cuda_twc_bin_list_lb_matches_plain(cuda_device, v, bins):
+    """The listing with an LB bin against its plain version: members,
+    counts and largest degrees, and the LB bin's degree prefix up to its
+    count and its edge total, exactly; frontier counts 0, 1, a tile and
+    one past it, a third, all rows (on the card and as host ints), dense
+    and sparse frontiers, inputs off a 16-byte boundary."""
+    rng = np.random.default_rng(v + 1)
+    deg = rng.integers(0, 40, v)
+    deg[rng.integers(0, v, 50)] = rng.integers(1000, 3000, 50)
+    deg[rng.random(v) < 0.1] = 0
+    row_ptr = np.concatenate([[0], np.cumsum(deg)])
+    bounds = LB_BOUNDS[bins]
+    for density in (0.05, 0.9):
+        rows, n = _frontier_layout(cuda_device, deg, row_ptr, density,
+                                   int(density * 100) + 1)
+        for cut in sorted({0, 1, 1024, 1025, n // 3, n}):
+            for bound in (cut, _dev_int(cut, cuda_device)):
+                got = trelax.twc_bin_list(*rows, bound, bounds, lb=True)
+                want = tref.twc_bin_list_ref(*rows, cut, bounds, lb=True)
+                _assert_lists_equal(got, want)
+        odd = [r[1:] for r in rows]
+        _assert_lists_equal(
+            trelax.twc_bin_list(*odd, _dev_int(n - 1, cuda_device), bounds,
+                                lb=True),
+            tref.twc_bin_list_ref(*odd, n - 1, bounds, lb=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", RELAX_OPS)
+@pytest.mark.parametrize("distribution", ["cyclic", "blocked"])
+def test_cuda_edge_lb_relax_on_lb_list_matches_plain(cuda_device, op,
+                                                    distribution):
+    """The static entry over an LB list, B = 2: the kernel's own list
+    with its device count and total, and the plain version's (padded)
+    with device counts 0, 1 and V and the total of the rows they keep;
+    64 and 7 tiles; the same labels as ``edge_lb_relax_ref`` given the
+    same rows."""
+    col, w, row_ptr, deg = _relax_graph(cuda_device)
+    v, e = len(deg), int(row_ptr[-1])
+    val, lab, fm = _relax_state(cuda_device, op, 2, v, 13)
+    rows, n = _frontier_layout(cuda_device, deg, row_ptr, 0.5, 7)
+    for bins in sorted(LB_BOUNDS):
+        bounds = LB_BOUNDS[bins]
+        k = len(bounds) - 1
+        kern = trelax.twc_bin_list(*rows, _dev_int(n, cuda_device), bounds,
+                                   lb=True)
+        plain = tref.twc_bin_list_ref(*rows, n, bounds, lb=True)
+        members = int(plain.count[k])
+        cases = [(kern, kern.count[k:], kern.total, members)]
+        for c in (0, 1, v):
+            kept = min(c, members)
+            total = int(plain.start_e[kept]) if kept < members else \
+                int(plain.total)
+            cases.append((plain, _dev_int(c, cuda_device),
+                          _dev_int(total, cuda_device), kept))
+        for tiles in (64, 7):
+            kw = dict(distribution=distribution, num_tiles=tiles)
+            for lists, count, total, kept in cases:
+                got = trelax.edge_lb_relax(
+                    val, lab.clone(), fm, col, w, lists.vidx[k],
+                    lists.start_e, lists.row_start[k], total, e,
+                    _relax_op(op), rows=count, **kw)
+                want = tref.edge_lb_relax_ref(
+                    val, lab.clone(), fm, col, w, plain.vidx[k],
+                    plain.start_e, plain.row_start[k], int(total), e,
+                    _relax_op(op), rows=kept, **kw)
+                _assert_relax_equal(op, got, want)
 
 
 @pytest.mark.gpu
@@ -737,7 +820,7 @@ def _card_and_host_graph(dev, scale=11):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("backend", ["xla", "pallas", "merge_path"])
-@pytest.mark.parametrize("strategy", ["twc", "alb"])
+@pytest.mark.parametrize("strategy", ["twc", "alb", "edge_lb"])
 def test_cuda_captured_round_matches_eager(cuda_device, backend, strategy):
     """relax_spmd_directed on the card (one replay of a captured graph
     with the direction's IF nodes, and twc's device pass count) against

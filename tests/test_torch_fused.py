@@ -211,7 +211,8 @@ def test_static_round_launches_each_kernel_once_a_round(graphs, monkeypatch,
                                                         case, mode):
     """Through the kernel pairs, a static round calls the bin kernel once
     for every bin of the plan (an unbounded bin too: its pass count is
-    the kernel's own loop), the ``pallas`` pair's bin listing once, and
+    the kernel's own loop), the ``pallas`` pair's listing of the bins
+    and the LB bin once, and
     the huge-bin kernel once (with a device total of 0 when the bin is
     empty), whatever the direction: so a traversal launches them rounds
     x bins, rounds and rounds times, which chip_smoke.py holds the
@@ -244,7 +245,8 @@ def test_static_round_launches_each_kernel_once_a_round(graphs, monkeypatch,
         want = {"merge_path_map": ran}
     else:
         want = {"twc_bin_relax": ran * len(plan.bins),
-                "twc_bin_list": ran * (len(plan.bins) > 0),
+                "twc_bin_list": ran * (len(plan.bins) > 0
+                                       or plan.lb != "none"),
                 "edge_lb_relax": ran * (plan.lb != "none")}
     assert calls == {k: n for k, n in want.items() if n}
 
