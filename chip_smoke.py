@@ -18,10 +18,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    library);
 2. each CUDA kernel against its plain PyTorch version on the card over
    swept shapes: the index kernels exactly (tolerance 0: int32 and
-   bit-copied outputs); the fused relax kernels ``twc_bin_relax`` and
-   ``edge_lb_relax`` for every operator and pull twin, B in {1, 3, 8},
-   every bin width and chunk, both deals, exactly for min and int add
-   and within ``RELAX_FLOAT_RTOL`` for float add; ``flash_attention``
+   bit-copied outputs); the fused relax kernels ``twc_bin_relax``,
+   ``edge_lb_relax`` and ``merge_path_relax`` for every operator and
+   pull twin, B in {1, 3, 8}, every bin width and chunk, both deals,
+   tiles of 128, 2048 and 65,536 ids (past a block's shared-memory
+   stage), exactly for min and int add and within ``RELAX_FLOAT_RTOL``
+   for float add; ``flash_attention``
    within ``FLASH_TOL`` on both routes (wgmma: bf16 at head width 64,
    80, 128 and 256, ragged S included; simt: float32 and other widths),
    each case counted on its route; ``moe_plan`` bitwise over T x (E, K)
@@ -30,9 +32,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    entries (``twc_bin_relax`` with its first chunk and pass count on the
    device, over V rows and over the bin lists of ``twc_bin_list``, which
    is held against its plain version exactly, with and without an LB
-   bin; ``edge_lb_relax`` over V rows and over the LB lists with their
-   device counts, ``merge_path_map`` and ``edge_lb_map`` with the total
-   on the device,
+   bin; ``edge_lb_relax`` and ``merge_path_relax`` over V rows and over
+   the LB lists with their device counts (0, 1, the members, V),
+   ``merge_path_map`` and ``edge_lb_map`` with the total on the device,
    over a span far past it: total 0, ragged tails, both deals, pass
    counts 0..k) against their plain versions given the same ints;
 3. the main path at full size: ALB ``sssp``, ``bfs`` and ``sssp_batch``
@@ -49,13 +51,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and merge_path (bitwise equal to push); cc (push and adaptive),
    kcore(10) and pagerank(20 rounds) through both routes, against the
    torch-ops pair and scipy / numpy oracles; ``host_transfers`` as the
-   drivers count them; median wall times; phases 3 and 3b assert that
-   no pass of the built-in operators took the ``pallas`` pair's unfused
-   route (``ops.unfused_passes``);
-3c. a user operator (int32 min, ``msg = v + 2w``) through the ``pallas``
-   pair's unfused route (``twc_bin_map`` / ``edge_lb_map`` and the torch
-   epilogue) on the same graph: bitwise equal to the ``xla`` pair and
-   to twice the sssp labels;
+   drivers count them; median wall times; each merge_path run launches
+   ``merge_path_relax`` once a round with an LB member and
+   ``merge_path_map`` never; phases 3 and 3b assert that no pass of the
+   built-in operators took a kernel pair's unfused route
+   (``ops.unfused_passes``);
+3c. a user operator (int32 min, ``msg = v + 2w``) through the kernel
+   pairs' unfused routes (``twc_bin_map`` / ``edge_lb_map``, and
+   ``merge_path_map``, each with the torch epilogue) on the same graph:
+   bitwise equal to the ``xla`` pair and to twice the sssp labels;
 3d. the static-shape and fused round modes on the same two graphs:
    ALB sssp, bfs, sssp_batch, adaptive sssp, adaptive cc(sym),
    kcore(10) and pagerank(20) through the kernel pair in
@@ -68,7 +72,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    as host (spmd), zero syncing calls between a fused dispatch and its
    fetch under ``set_sync_debug_mode("error")``; each run's launches
    counted on the card and held against its rounds x bins (and the bin
-   listing, ``twc_bin_list``, once a round), launches
+   listing, ``twc_bin_list``, once a round; merge_path:
+   ``merge_path_relax`` and ``twc_bin_list`` once a round), launches
    recorded by the captures, graphs captured and their seconds, the
    condition kernel's decisions, medians of 6 walls host / spmd / fused in turns, device profiles of
    sssp and pagerank in host and spmd mode, and the device span of each
@@ -112,7 +117,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (pagerank within ``PR_RTOL_PAIR``), rounds equal host / fused,
    ``host_transfers`` as the JAX runtime counts them (0 fused), each
    run's static-entry launches on the card equal to rounds x bins x 4
-   (``twc_bin_list`` rounds x 4),
+   (``twc_bin_list`` rounds x 4; merge_path: ``merge_path_relax`` and
+   ``twc_bin_list`` rounds x 4),
    every mirror round's logical bytes ``mirrors_synced x (4 + B x 4)``
    and below the replicated baseline, the codecs bitwise the identity
    run with fewer bytes on the wire; zero syncing calls between a fused
@@ -123,18 +129,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the main path gave it (one ALB sssp, one sssp_batch and two pagerank
    rounds for the fused kernels, which are also timed beside the unfused route they
    replaced, index-map kernel + torch epilogue, and the index-map
-   kernels at the same shapes; one merge-path sssp; one prefill and one
-   decode step of phase 5), beside the least time the card could take
+   kernels at the same shapes; ``merge_path_relax`` at one merge-path
+   sssp's and two merge-path pagerank rounds' shapes, beside the route
+   it replaced, ``merge_path_map`` + torch epilogue, and the map alone;
+   one prefill and one decode step of phase 5), beside the least time
+   the card could take
    and, for ``flash_attention``, PyTorch's
    ``scaled_dot_product_attention``; ``moe_plan`` also beside the route
    it replaced (the torch plan with the ``positions_in_expert`` kernel)
    and ``positions_in_expert`` alone; device profiles of ALB sssp,
    sssp_batch, adaptive cc and pagerank; the static entries at phase
    3d's shapes (one static ALB, edge_lb, twc and merge-path sssp and two
-   static pagerank rounds, run eagerly and recorded: ``twc_bin_list``
-   beside its plain version and bound, ``twc_bin_relax`` over its lists,
-   ``edge_lb_relax`` over the LB list, its bound beside the V-row
-   layout's), the
+   static pagerank rounds through each pair, run eagerly and recorded:
+   ``twc_bin_list`` beside its plain version and bound,
+   ``twc_bin_relax`` over its lists, ``edge_lb_relax`` and
+   ``merge_path_relax`` over the LB list, their bounds beside the V-row
+   layout's, ``merge_path_relax`` beside the route it replaced: the map
+   over E ids and the torch epilogue), the
    host rounds' ``twc_bin_relax`` calls through the static schedule,
    and the condition kernel (a 1,000-turn WHILE loop against the same
    loop driven from the host);
@@ -240,8 +251,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 # the kernels the graph phases (3, 3b) launch; phase 5 runs two more,
-# and the index maps twc_bin_map / edge_lb_map are on no main path
-GRAPH_KERNELS = ("twc_bin_relax", "edge_lb_relax", "merge_path_map")
+# and the index maps twc_bin_map / edge_lb_map / merge_path_map are on
+# no main path (phase 3c's user operator takes them)
+GRAPH_KERNELS = ("twc_bin_relax", "edge_lb_relax", "merge_path_relax")
 # the kernel pair's static-round kernels: the fused relax kernels and the
 # bin listing (phases 3d-3g)
 STATIC_KERNELS = ("twc_bin_relax", "edge_lb_relax", "twc_bin_list")
@@ -392,6 +404,8 @@ RELAX_OPS = ("SSSP_RELAX", "BFS_HOP", "CC_MIN", "KCORE_DEC", "PR_PULL",
 # than the plain version's index_add_ (bins: a fixed tree; huge bin:
 # atomics), as tests/test_torch_cuda.py holds them
 RELAX_FLOAT_RTOL = 1e-4
+# the fused relax kernels
+RELAX_KERNELS = ("twc_bin_relax", "edge_lb_relax", "merge_path_relax")
 
 
 def relax_op(name):
@@ -446,16 +460,19 @@ def relax_state(dev, rng, opname, b, v) -> tuple:
 
 
 def relax_vs_plain(dev) -> dict:
-    """``twc_bin_relax`` and ``edge_lb_relax`` against their plain
-    versions on a random CSR (V = 50,000, degrees up to 6,000): every
-    operator and pull twin, B in {1, 3, 8}; bins at W in {8, 128, 1024}
-    and 2048 (wider than a pull lane's register slots),
-    chunk 0..2 (host int and device int32), sentinel rows and an empty
-    bin; huge bins of one row (on and off a 2048-edge tile), several
-    rows with sentinel slots, 2,000 rows with zero-degree slots, and a
-    3,000-slot zero-degree run wider than the cyclic deal's stage, both
-    deals, bucketed and ragged spans, 64 and 7 tiles.  Returns the max
-    errors ``{name: {"int": abs, "float": rel}}``."""
+    """``twc_bin_relax``, ``edge_lb_relax`` and ``merge_path_relax``
+    against their plain versions on a random CSR (V = 50,000, degrees up
+    to 6,000): every operator and pull twin, B in {1, 3, 8}; bins at W
+    in {8, 128, 1024} and 2048 (wider than a pull lane's register
+    slots), chunk 0..2 (host int and device int32), sentinel rows and an
+    empty bin; huge bins of one row (on and off a 2048-edge tile),
+    several rows with sentinel slots, 2,000 rows with zero-degree slots,
+    and a 3,000-slot zero-degree run wider than the cyclic deal's stage,
+    both deals, bucketed and ragged spans, 64 and 7 tiles;
+    ``merge_path_relax`` over the same slot lists at tiles of 128, 2048
+    and 65,536 ids (a stage past what a block's shared memory holds),
+    bucketed and ragged spans.  Returns the max errors ``{name: {"int":
+    abs, "float": rel}}``."""
     import torch
     from repro_torch.core.frontier import next_bucket
     from repro_torch.kernels import ref, relax
@@ -481,8 +498,7 @@ def relax_vs_plain(dev) -> dict:
         start_e = np.cumsum(hdeg) - hdeg
         huge.append(([t32(hvidx), t32(start_e), t32(hrow)],
                      int(hdeg.sum())))
-    errs = {"twc_bin_relax": {"int": 0.0, "float": 0.0},
-            "edge_lb_relax": {"int": 0.0, "float": 0.0}}
+    errs = {k: {"int": 0.0, "float": 0.0} for k in RELAX_KERNELS}
     counted = {k: getattr(relax, k).launches for k in errs}
     cases = {k: 0 for k in errs}
 
@@ -517,13 +533,22 @@ def relax_vs_plain(dev) -> dict:
                                 ref.edge_lb_relax_ref(
                                 val, lab.clone(), fm, col, w, *t, total,
                                 n_enum, op, **kw))
+                for tile in (128, 2048, 65_536):
+                    for ecap in sorted({total, next_bucket(total, tile)}):
+                        held("merge_path_relax", relax.merge_path_relax(
+                            val, lab.clone(), fm, col, w, *t, total, ecap,
+                            op, tile_edges=tile),
+                            ref.merge_path_relax_ref(
+                            val, lab.clone(), fm, col, w, *t, total, ecap,
+                            op, tile_edges=tile))
     torch.cuda.synchronize()
     for name, err in errs.items():
         check(err["int"] == 0 and err["float"] <= RELAX_FLOAT_RTOL,
               f"{name} != plain: {err}")
     launched = {k: getattr(relax, k).launches - counted[k] for k in errs}
     check(launched["twc_bin_relax"] == cases["twc_bin_relax"] // 2 and
-          launched["edge_lb_relax"] == cases["edge_lb_relax"],
+          launched["edge_lb_relax"] == cases["edge_lb_relax"] and
+          launched["merge_path_relax"] == cases["merge_path_relax"],
           f"relax launches {launched} for cases {cases}")
     print(f"phase 2: fused relax == plain on {cases} cases ({launched} "
           f"launches; min and int add exact, float add within rtol "
@@ -580,9 +605,12 @@ def static_entries_vs_plain(dev) -> dict:
     ``edge_lb_relax`` over the static span (every edge of the graph)
     with the total on the device (0, one row, several, 2,000 rows, over
     V rows), both deals, 64 and 7 tiles, and over the LB lists with
-    their device counts and totals; ``merge_path_map`` and ``edge_lb_map`` with a
-    device total against a span far past it (total 0, ragged tails,
-    zero-degree runs).  Returns the max errors."""
+    their device counts and totals; ``merge_path_relax`` the same way
+    (over V rows with the device total, over the LB lists with their
+    device counts, and with counts 0 and 1), tiles of 128 and 2048 ids;
+    ``merge_path_map`` and ``edge_lb_map`` with a device total against a
+    span far past it (total 0, ragged tails, zero-degree runs).  Returns
+    the max errors."""
     import torch
     from repro_torch.kernels import edge_lb, merge_path, ref, relax
     rng = np.random.default_rng(17)
@@ -613,8 +641,7 @@ def static_entries_vs_plain(dev) -> dict:
                              ((np.arange(v), v), (deg, 0), (row_ptr[:-1], 0)))
         huge.append(([t32(hvidx), t32(np.cumsum(hdeg) - hdeg), t32(hrow)],
                      int(hdeg.sum())))
-    errs = {"twc_bin_relax": {"int": 0.0, "float": 0.0},
-            "edge_lb_relax": {"int": 0.0, "float": 0.0},
+    errs = {**{k: {"int": 0.0, "float": 0.0} for k in RELAX_KERNELS},
             "merge_path_map": 0, "edge_lb_map": 0, "twc_bin_list": 0}
     cases = {k: 0 for k in errs}
 
@@ -683,6 +710,13 @@ def static_entries_vs_plain(dev) -> dict:
                             ref.edge_lb_relax_ref(
                             val, lab.clone(), fm, col, w, *t, total, e, op,
                             **kw))
+                for tile in (128, 2048):
+                    held("merge_path_relax", relax.merge_path_relax(
+                        val, lab.clone(), fm, col, w, *t, t32(total), e, op,
+                        tile_edges=tile),
+                        ref.merge_path_relax_ref(
+                        val, lab.clone(), fm, col, w, *t, total, e, op,
+                        tile_edges=tile))
             for got in lb_lists:                  # the LB list, last
                 k = got.count.shape[0] - 1
                 n = int(got.count[k])
@@ -699,6 +733,28 @@ def static_entries_vs_plain(dev) -> dict:
                         ref.edge_lb_relax_ref(
                         val, lab.clone(), fm, col, w, *t, int(got.total),
                         e, op, **kw))
+                lb = (got.vidx[k], got.start_e, got.row_start[k])
+                for tile in (128, 2048):
+                    kw = dict(tile_edges=tile)
+                    held("merge_path_relax", relax.merge_path_relax(
+                        val, lab.clone(), fm, col, w, *lb, got.total, e, op,
+                        rows=got.count[k:], **kw),
+                        ref.merge_path_relax_ref(
+                        val, lab.clone(), fm, col, w, *t, int(got.total),
+                        e, op, **kw))
+                    # counts 0 and 1 with the totals of the rows they keep
+                    for c in (0, 1):
+                        kept = min(c, n)
+                        tot = int(got.start_e[kept]) if kept < n else \
+                            int(got.total)
+                        part = [x[:kept] for x in t] if kept else \
+                            [t32([v]), t32([0]), t32([0])]
+                        held("merge_path_relax", relax.merge_path_relax(
+                            val, lab.clone(), fm, col, w, *lb, t32(tot), e,
+                            op, rows=t32([c]), **kw),
+                            ref.merge_path_relax_ref(
+                            val, lab.clone(), fm, col, w, *part, tot, e, op,
+                            **kw))
     for h in (1, 700, 5000):
         for tile in (128, 2048):
             hdeg = rng.integers(0, 50, h).astype(np.int32)
@@ -725,7 +781,7 @@ def static_entries_vs_plain(dev) -> dict:
                                           masked_err(k, p))
                 cases["edge_lb_map"] += 1
     torch.cuda.synchronize()
-    for name in ("twc_bin_relax", "edge_lb_relax"):
+    for name in RELAX_KERNELS:
         check(errs[name]["int"] == 0 and
               errs[name]["float"] <= RELAX_FLOAT_RTOL,
               f"{name} (device int32 entry) != plain: {errs[name]}")
@@ -1153,6 +1209,17 @@ def pull_path(g, src, sources, res) -> dict:
               f"path")
     check(ops.unfused_passes == 0, "a built-in operator took the unfused "
           "route")
+    # merge_path: one fused launch a round whose frontier has an edge (a
+    # host round with no LB member launches nothing), no index map
+    for (app, route), r in out.items():
+        got = by_run[f"{app}/{route}"]
+        lb_rounds = sum(bool(s.lb_invoked) for s in r.stats)
+        want = lb_rounds if route == "merge_path" else 0
+        check(got["merge_path_relax"] == want and
+              got["merge_path_map"] == 0,
+              f"{app}/{route}: launches of merge_path_relax "
+              f"{got['merge_path_relax']} (want {want}), merge_path_map "
+              f"{got['merge_path_map']}")
     # the kernel pair on pull rounds: pagerank's rounds are all pulls
     # (PR_PULL over the reverse CSR); adaptive cc's pull rounds served
     # both the bins and the huge bin
@@ -1255,12 +1322,13 @@ def pull_path(g, src, sources, res) -> dict:
 def user_op_path(g, src, sssp_labels) -> dict:
     """A user operator, int32 min with ``msg = v + 2w`` (no msg kind of
     the fused kernels), from ``src`` to the fixpoint through the
-    ``pallas`` pair and through the ``xla`` pair (``drivers.resume_loop``),
-    counted as one run (launch counts and ``ops.unfused_passes`` reset
-    just before, read just after).  The pair takes its unfused route:
-    the index maps ``twc_bin_map`` / ``edge_lb_map`` and the torch
-    epilogue.  Labels and rounds bitwise equal between the pairs, and
-    equal to twice the sssp labels of phase 3 (INF kept)."""
+    ``pallas`` pair, the ``merge_path`` pair and the ``xla`` pair
+    (``drivers.resume_loop``), each kernel pair counted as one run
+    (launch counts and ``ops.unfused_passes`` reset just before, read
+    just after).  The kernel pairs take their unfused routes: the index
+    maps ``twc_bin_map`` / ``edge_lb_map``, and ``merge_path_map``, then
+    the torch epilogue.  Labels and rounds bitwise equal between the
+    pairs, and equal to twice the sssp labels of phase 3 (INF kept)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.apps import drivers
@@ -1280,6 +1348,9 @@ def user_op_path(g, src, sssp_labels) -> dict:
     kernels.reset_launch_counts()
     kern = run(BalancerConfig(strategy="alb", use_pallas=True))
     launches, unfused = kernels.launch_counts(), ops.unfused_passes
+    kernels.reset_launch_counts()
+    mpath = run(BalancerConfig(strategy="alb", backend="merge_path"))
+    mp_launches, mp_unfused = kernels.launch_counts(), ops.unfused_passes
     plain = run(BalancerConfig(strategy="alb"))
     want = torch.where(sssp_labels < inf, 2 * sssp_labels, inf)
     print(f"phase 3c: user operator {op.name} (int32 min, msg v + 2w) "
@@ -1296,11 +1367,25 @@ def user_op_path(g, src, sssp_labels) -> dict:
           "pair")
     check(torch.equal(kern.labels, want), "user operator: labels != 2 x "
           "sssp")
+    print(f"phase 3c: the same operator through the merge_path pair: "
+          f"{mpath.rounds} rounds, {mp_unfused} unfused passes, launches "
+          f"{mp_launches}; wall {mpath.seconds:.5f} s", flush=True)
+    check(mp_unfused > 0 and
+          mp_launches["merge_path_map"] == mp_unfused and
+          mp_launches["merge_path_relax"] == 0,
+          "user operator: merge_path's unfused route was not taken")
+    check(torch.equal(mpath.labels, plain.labels) and
+          mpath.rounds == plain.rounds, "user operator: merge_path pair != "
+          "xla pair")
     print("phase 3c: labels and rounds bitwise equal to the xla pair and "
-          "to 2 x the sssp labels", flush=True)
+          "to 2 x the sssp labels, through both kernel pairs", flush=True)
     return {"rounds": kern.rounds, "unfused_passes": unfused,
             "launches": launches, "seconds": kern.seconds,
-            "seconds_xla": plain.seconds}
+            "seconds_xla": plain.seconds,
+            "merge_path": {"rounds": mpath.rounds,
+                           "unfused_passes": mp_unfused,
+                           "launches": mp_launches,
+                           "seconds": mpath.seconds}}
 
 
 # ---------------------------------------------------------------------------
@@ -1448,14 +1533,17 @@ def static_path(g, sym, src, sources) -> dict:
     def needed(a, m, rounds) -> dict:
         """Launches a run's rounds need: each bin of the plan, the
         listing (of the bins and the LB bin) and the huge bin once a
-        round."""
+        round (merge_path: the listing of its LB-all bin and
+        ``merge_path_relax``)."""
         ran = rounds + (m == "spmd" and a != "pagerank")
         plan = effective_plan(cfg_of[a])
         if cfg_of[a].executor == "merge_path":
             return {"twc_bin_relax": 0, "edge_lb_relax": 0,
-                    "twc_bin_list": 0, "merge_path_map": ran}
+                    "merge_path_relax": ran, "twc_bin_list": ran,
+                    "merge_path_map": 0}
         return {"twc_bin_relax": ran * len(plan.bins),
                 "edge_lb_relax": ran * (plan.lb != "none"),
+                "merge_path_relax": 0,
                 "twc_bin_list": ran * (len(plan.bins) > 0
                                        or plan.lb != "none"),
                 "merge_path_map": 0}
@@ -2166,15 +2254,17 @@ DIST_CUTS = (("g/oec", "g", "oec"), ("g/iec", "g", "iec"),
 def dist_launches_needed(cfg, rounds: int) -> dict:
     """Launches of the static entries a distributed run's rounds need:
     each partition runs every bin of the plan, the listing (of the bins
-    and the LB bin) and the huge bin once a round (``merge_path_map``
-    once, under merge_path)."""
+    and the LB bin) and the huge bin once a round (under merge_path the
+    listing of its LB-all bin and ``merge_path_relax``)."""
     from repro_torch.core.balancer import effective_plan
     if cfg.executor == "merge_path":
-        return {"twc_bin_relax": 0, "edge_lb_relax": 0, "twc_bin_list": 0,
-                "merge_path_map": rounds * DIST_PARTS}
+        return {"twc_bin_relax": 0, "edge_lb_relax": 0,
+                "merge_path_relax": rounds * DIST_PARTS,
+                "twc_bin_list": rounds * DIST_PARTS, "merge_path_map": 0}
     plan = effective_plan(cfg)
     return {"twc_bin_relax": rounds * len(plan.bins) * DIST_PARTS,
             "edge_lb_relax": rounds * (plan.lb != "none") * DIST_PARTS,
+            "merge_path_relax": 0,
             "twc_bin_list": rounds * (len(plan.bins) > 0
                                       or plan.lb != "none") * DIST_PARTS,
             "merge_path_map": 0}
@@ -2482,8 +2572,7 @@ def dist_path(g, sym, src, sources, ref) -> dict:
     capture_s = graph_loop.capture_seconds - cap_s0
     decisions = graph_loop.set_runs(reset=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for k in ("twc_bin_relax", "edge_lb_relax", "twc_bin_list",
-              "merge_path_map"):
+    for k in GRAPH_KERNELS + ("twc_bin_list",):
         check(launches[k] > 0, f"{k} was not launched by phase 3g")
     print(f"phase 3g: {len(out['runs'])} runs: labels == phases 3 / 3b "
           f"(pagerank within rtol {PR_RTOL_PAIR}), rounds host == fused, "
@@ -2514,9 +2603,6 @@ def dist_path(g, sym, src, sources, ref) -> dict:
 # phase 4: timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
-RELAX_KERNELS = ("twc_bin_relax", "edge_lb_relax")
-
-
 def capture_launches(run) -> dict:
     """The arguments of every kernel launch of ``run()``, recorded by
     swapping the kernel modules the executor entries call through for
@@ -2525,8 +2611,8 @@ def capture_launches(run) -> dict:
     combines into them)."""
     import types
     from repro_torch.kernels import ops
-    calls = {"twc_bin_relax": [], "edge_lb_relax": [], "twc_bin_list": [],
-             "merge_path_map": []}
+    calls = {k: [] for k in RELAX_KERNELS + ("twc_bin_list",
+                                             "merge_path_map")}
 
     def recorder(name, fn):
         def rec(*a, **k):
@@ -2595,14 +2681,32 @@ def lb_unfused(values, labels, fmask, col_idx, edge_w, hvidx, start_e,
                              ge, mask, op)
 
 
+def mp_unfused(values, labels, fmask, col_idx, edge_w, hvidx, start_e,
+               row_start, total, ecap, op, *, tile_edges=2048):
+    """The route ``merge_path_relax`` replaced, as ``ops.merge_path_apply``
+    ran it before the fused kernel (a yardstick the port never calls):
+    the ``merge_path_map`` kernel over ``ecap`` ids (every edge of the
+    graph in the static round), then the torch epilogue into fresh
+    labels."""
+    from repro_torch.kernels import merge_path, ref
+    ge, j, mask = merge_path.merge_path_map(start_e, row_start, total, ecap,
+                                            tile_edges=tile_edges)
+    return ref.slot_epilogue(col_idx, edge_w, values, labels, fmask,
+                             hvidx[j], ge, mask, op)
+
+
 def map_args(name, a, k) -> tuple:
-    """The index-map kernel's call at a fused call's shapes."""
+    """The index-map kernel's call at a fused call's shapes (a static
+    call's list bounded to its count: ``lb_members``)."""
     if name == "twc_bin_relax":
         vidx, deg, row_start = a[5:8]
         return ((vidx, deg, row_start, vidx),
                 {"width": k["width"], "chunk": k["chunk"],
                  "sentinel": a[1].shape[-1]})
     start_e, row_start, total, n_enum = a[6:10]
+    if name == "merge_path_relax":
+        return ((start_e, row_start, total, n_enum),
+                {"tile_edges": k.get("tile_edges", 2048)})
     return ((start_e, row_start, start_e, total, n_enum),
             {n: x for n, x in k.items() if n != "rows"})
 
@@ -2618,9 +2722,10 @@ def relax_work(name, a, k, slots=None) -> tuple:
     Writes: a label only where the pass changes it (the plain version's
     output differs from its input).  So at most the whole [B, V]
     arrays.  Operations: ~8 integer operations per live (edge, query),
-    plus 4 per step of each huge-bin id's slot search.  ``slots``
-    charges a huge-bin call that many slots instead of its H (the V-row
-    layout's bound beside a list's)."""
+    plus 4 per step of each huge-bin id's slot search.  A
+    ``merge_path_relax`` call is charged as a huge-bin call over its
+    slots.  ``slots`` charges a huge-bin call that many slots instead of
+    its H (the V-row layout's bound beside a list's)."""
     import torch
     from repro_torch.core.operators import msg_kind
     from repro_torch.kernels import ref
@@ -2648,8 +2753,16 @@ def relax_work(name, a, k, slots=None) -> tuple:
         search = 0
     else:
         op, hvidx = a[10], a[5]
-        ge, j, _, mask = ref.edge_lb_map_ref(*map_args(name, a, k)[0], **k)
-        want = ref.edge_lb_relax_ref(values, labels.clone(), *a[2:], **k)
+        if name == "merge_path_relax":
+            ge, j, mask = ref.merge_path_map_ref(*map_args(name, a, k)[0],
+                                                 **k)
+            want = ref.merge_path_relax_ref(values, labels.clone(), *a[2:],
+                                            **k)
+        else:
+            ge, j, _, mask = ref.edge_lb_map_ref(*map_args(name, a, k)[0],
+                                                 **k)
+            want = ref.edge_lb_relax_ref(values, labels.clone(), *a[2:],
+                                         **k)
         src = hvidx[j]
         h = hvidx.shape[0] if slots is None else slots
         fixed = 12 * h
@@ -2786,8 +2899,9 @@ def members_only(a, k) -> tuple:
 
 
 def lb_members(a, k) -> tuple:
-    """A static round's ``edge_lb_relax`` call (one with ``rows``, over
-    the LB list, whose rows past its count are unwritten) reduced to its
+    """A static round's ``edge_lb_relax`` or ``merge_path_relax`` call
+    (one with ``rows``, over the LB list, whose rows past its count are
+    unwritten) reduced to its
     listed rows, for the plain version, the unfused route and the work
     count; a list with no member becomes one sentinel slot (no id is
     live).  Returns the call with host-int keywords, and 0 extra bytes
@@ -2814,15 +2928,18 @@ def time_relax(name, cs) -> dict:
     float), then timed beside its plain version, the unfused route it
     replaced and its bound.  A ``twc_bin_relax`` call's plain version,
     unfused route and work take its member rows (``members_only``), a
-    listed ``edge_lb_relax`` call's its listed rows (``lb_members``),
-    whose bound is also given as the V-row layout's
-    (``v_row_bound_ms``: 12 bytes and the search depth of V slots)."""
+    listed ``edge_lb_relax`` or ``merge_path_relax`` call's its listed
+    rows (``lb_members``), whose bound is also given as the V-row
+    layout's (``v_row_bound_ms``: 12 bytes and the search depth of V
+    slots)."""
     from repro_torch.kernels import ref, relax
     fn = getattr(relax, name)
     plain = {"twc_bin_relax": ref.twc_bin_relax_ref,
-             "edge_lb_relax": ref.edge_lb_relax_ref}[name]
+             "edge_lb_relax": ref.edge_lb_relax_ref,
+             "merge_path_relax": ref.merge_path_relax_ref}[name]
     unfused = {"twc_bin_relax": twc_unfused,
-               "edge_lb_relax": lb_unfused}[name]
+               "edge_lb_relax": lb_unfused,
+               "merge_path_relax": mp_unfused}[name]
     reduced = [members_only(a, k) if name == "twc_bin_relax"
                else lb_members(a, k) for a, k in cs]
     host_cs = [(a, k) for a, k, _ in reduced]
@@ -2848,7 +2965,7 @@ def time_relax(name, cs) -> dict:
            "bound_ms": bms, "bound_by": by, "max_abs_err": abs_err,
            "max_rel_err": rel_err, "timed_launches": len(cs),
            "mean_bytes": nbytes}
-    if name == "edge_lb_relax" and any(k.get("rows") is not None
+    if name != "twc_bin_relax" and any(k.get("rows") is not None
                                        for _, k in cs):
         out["v_row_bound_ms"] = bound(
             lambda a, k: relax_work(name, a, k, slots=a[1].shape[-1]),
@@ -2887,29 +3004,36 @@ def time_kernels(g, src, sources, errs: dict, launches: dict) -> list:
     """Phase 4's rows of the graph kernels.  The fused kernels at the
     shapes of one ALB sssp (their row), of one sssp_batch (B = 8) and of
     two pagerank rounds (``by_run``; ``twc_bin_relax`` also through the
-    static round's row schedule, :func:`static_schedule_ms`); the index-map
-    kernels at the same sssp's shapes (no main path launches them);
-    ``merge_path_map`` at one merge-path sssp's."""
+    static round's row schedule, :func:`static_schedule_ms`);
+    ``merge_path_relax`` at the shapes of one merge-path sssp (its row)
+    and two merge-path pagerank rounds; the index-map kernels at the
+    same sssp's shapes (no main path launches them)."""
     from repro_torch.core.apps import drivers
     from repro_torch.core.balancer import BalancerConfig
     from repro_torch.kernels import edge_lb, merge_path, ref, twc_gather
     kern = BalancerConfig(strategy="alb", use_pallas=True)
+    mpath = BalancerConfig(strategy="alb", backend="merge_path")
     calls = {"sssp": capture_launches(lambda: drivers.sssp(g, src, kern)),
              "sssp_batch": capture_launches(
                  lambda: drivers.sssp_batch(g, sources, kern)),
              "pagerank": capture_launches(lambda: drivers.pagerank(
                  g, cfg=kern, max_rounds=2, tol=0.0))}
-    mp_calls = capture_launches(lambda: drivers.sssp(
-        g, src, BalancerConfig(strategy="alb", backend="merge_path")))
+    mp_calls = {"sssp": capture_launches(
+                    lambda: drivers.sssp(g, src, mpath)),
+                "pagerank": capture_launches(lambda: drivers.pagerank(
+                    g, cfg=mpath, max_rounds=2, tol=0.0))}
     rows = []
-    for name, source, replaces in (
+    for name, source, replaces, by_calls in (
             ("twc_bin_relax", "src/repro_torch/kernels/csrc/twc_relax.cu",
-             "src/repro/kernels/twc_gather.py:54"),
+             "src/repro/kernels/twc_gather.py:54", calls),
             ("edge_lb_relax",
              "src/repro_torch/kernels/csrc/edge_lb_relax.cu",
-             "src/repro/kernels/edge_lb.py:105")):
+             "src/repro/kernels/edge_lb.py:105", calls),
+            ("merge_path_relax",
+             "src/repro_torch/kernels/csrc/merge_path_relax.cu",
+             "src/repro/kernels/merge_path.py:107", mp_calls)):
         by_run = {}
-        for run, cs in calls.items():
+        for run, cs in by_calls.items():
             check(len(cs[name]) > 0, f"{name}: no launch captured ({run})")
             by_run[run] = time_relax(name, cs[name])
             if name == "twc_bin_relax":
@@ -2939,7 +3063,8 @@ def time_kernels(g, src, sources, errs: dict, launches: dict) -> list:
               ref.merge_path_map_ref, mp_work,
               "src/repro_torch/kernels/csrc/merge_path.cu",
               "src/repro/kernels/merge_path.py:107",
-              mp_calls["merge_path_map"])]
+              [map_args("merge_path_relax", a, k)
+               for a, k in mp_calls["sssp"]["merge_path_relax"]])]
     for name, fn, plain, work, source, replaces, cs in table:
         check(len(cs) > 0, f"{name}: no launch captured")
         # the kernel against its plain version on the main path's inputs
@@ -3055,24 +3180,29 @@ def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
     list with its device count and total, an E-id span), one static
     edge_lb sssp (every frontier vertex with an edge in the LB list),
     one static twc sssp (its unbounded bin: the device pass count), two
-    static pagerank rounds (every vertex listed) and one static
-    merge-path sssp (``merge_path_map`` over E ids with the device
-    total), each held against its plain version and timed beside it,
-    the unfused route (the fused kernels) and its bound
-    (``edge_lb_relax`` also beside the V-row layout's bound).
-    ``launches``: phases 3d-3g's counts on the card; ``captured``: the
-    launches phase 3d's captures recorded."""
+    static pagerank rounds (every vertex listed), one static merge-path
+    sssp and two static merge-path pagerank rounds (``merge_path_relax``
+    over the LB-all list with its device count and total, an E-id span),
+    each held against its plain version and timed beside it, the route
+    it replaced (the index map and the torch epilogue: for
+    ``merge_path_relax`` the map over all E ids) and its bound
+    (``edge_lb_relax`` and ``merge_path_relax`` also beside the V-row
+    layout's bound); ``merge_path_map`` at the merge-path sssp's shapes
+    over E ids (the route's map alone).  ``launches``: phases 3d-3g's
+    counts on the card; ``captured``: the launches phase 3d's captures
+    recorded."""
     from repro_torch.core.balancer import BalancerConfig
     from repro_torch.kernels import merge_path, ref
     kern = BalancerConfig(strategy="alb", use_pallas=True)
+    mpath = BalancerConfig(strategy="alb", backend="merge_path")
     alb = static_calls(g, src, kern)
     elb = static_calls(g, src, BalancerConfig(strategy="edge_lb",
                                               use_pallas=True))
     twc = static_calls(g, src, BalancerConfig(strategy="twc",
                                               use_pallas=True))
     pr = static_pagerank_calls(g, kern)
-    mp = static_calls(g, src, BalancerConfig(strategy="alb",
-                                             backend="merge_path"))
+    mp = static_calls(g, src, mpath)
+    mp_pr = static_pagerank_calls(g, mpath)
     unbounded = [(a, k) for a, k in twc["twc_bin_relax"]
                  if "passes" in k and hasattr(k["passes"], "device")]
     check(len(unbounded) > 0, "twc: no launch with a device pass count")
@@ -3086,12 +3216,17 @@ def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
              "src/repro_torch/kernels/csrc/edge_lb_relax.cu",
              "src/repro/kernels/edge_lb.py:105",
              {"alb": alb["edge_lb_relax"], "edge_lb": elb["edge_lb_relax"],
-              "pagerank": pr["edge_lb_relax"]})):
+              "pagerank": pr["edge_lb_relax"]}),
+            ("merge_path_relax",
+             "src/repro_torch/kernels/csrc/merge_path_relax.cu",
+             "src/repro/kernels/merge_path.py:107",
+             {"sssp": mp["merge_path_relax"],
+              "pagerank": mp_pr["merge_path_relax"]})):
         timed_runs = {}
         for run, cs in by_run.items():
             check(len(cs) > 0, f"{name} (static): no launch ({run})")
             timed_runs[run] = time_relax(name, cs)
-        top = timed_runs["alb"]
+        top = timed_runs[next(iter(timed_runs))]
         rows.append({
             "name": f"{name} (static entry)", "route": "cuda",
             "source": source, "replaces": replaces,
@@ -3105,7 +3240,8 @@ def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
             "timed_launches": top["timed_launches"],
             "mean_bytes": top["mean_bytes"], "by_run": timed_runs})
     listed = {"alb": alb["twc_bin_list"], "edge_lb": elb["twc_bin_list"],
-              "pagerank": pr["twc_bin_list"]}
+              "pagerank": pr["twc_bin_list"],
+              "merge_path": mp["twc_bin_list"]}
     for run, cs in listed.items():
         check(len(cs) > 0, f"twc_bin_list: no launch ({run})")
     timed_runs = {run: time_list(cs) for run, cs in listed.items()}
@@ -3121,23 +3257,25 @@ def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
         **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "timed_launches": top["timed_launches"],
         "mean_bytes": top["mean_bytes"], "by_run": timed_runs})
-    cs = mp["merge_path_map"]
-    check(len(cs) > 0, "merge_path_map (static): no launch")
+    # the route's map alone, at the static merge-path sssp's shapes: the
+    # LB-all list bounded to its count (``lb_members``), E ids
+    dev_cs = [map_args("merge_path_relax", *lb_members(a, k)[:2])
+              for a, k in mp["merge_path_relax"]]
+    cs = [(a[:2] + (int(a[2]),) + a[3:], k) for a, k in dev_cs]
     err = 0
-    for a, k in cs:
+    for (a, k), (ha, _) in zip(dev_cs, cs):
         err = max(err, masked_err(merge_path.merge_path_map(*a, **k),
-                                  ref.merge_path_map_ref(*a, **k)))
+                                  ref.merge_path_map_ref(*ha, **k)))
     check(err == 0, "merge_path_map (static) != plain on phase 3d inputs")
     bms, by, nbytes = bound(mp_work, cs)
-    host_cs = [(a[:2] + (int(a[2]),) + a[3:], k) for a, k in cs]
     rows.append({
         "name": "merge_path_map (static entry)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/merge_path.cu",
         "replaces": "src/repro/kernels/merge_path.py:107",
         "launches": launches["merge_path_map"],
         "captured": captured["merge_path_map"], "max_abs_err": err,
-        "ms": device_ms(merge_path.merge_path_map, cs),
-        "plain_ms": device_ms(ref.merge_path_map_ref, host_cs),
+        "ms": device_ms(merge_path.merge_path_map, dev_cs),
+        "plain_ms": device_ms(ref.merge_path_map_ref, cs),
         "bound_ms": bms, "bound_by": by, "library_ms": None,
         "timed_launches": len(cs), "mean_bytes": nbytes})
     return rows
@@ -4780,12 +4918,14 @@ def main() -> int:
     del ref
     # launches on the main paths: phases 3 and 3b (host entries), 3d
     # and 3g (static entries), and 3e and 3f (host entries in host mode,
-    # static entries in spmd and fused mode)
+    # static entries in spmd and fused mode); the index maps' on the
+    # unfused routes of phase 3c
     launches = {k: mp["launches"][k] + pp["launches"][k]
-                for k in GRAPH_KERNELS + ("twc_bin_map", "edge_lb_map")}
+                for k in GRAPH_KERNELS + ("twc_bin_map", "edge_lb_map",
+                                          "merge_path_map")}
     static_launches = dict(sp["launches"])
     by_phase = {}
-    for k in STATIC_KERNELS:
+    for k in STATIC_KERNELS + ("merge_path_relax", "merge_path_map"):
         by_phase[k] = {"3": mp["launches"].get(k, 0),
                        "3b": pp["launches"].get(k, 0),
                        "3d": sp["launches"][k]}
@@ -4795,21 +4935,24 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + host_n
             static_launches[k] += static_n
             by_phase[k][ph] = {"host": host_n, "static": static_n}
-    by_phase["merge_path_map"] = {"3b": pp["launches"]["merge_path_map"],
-                                  "3d": sp["launches"]["merge_path_map"]}
-    for k in GRAPH_KERNELS + ("twc_bin_list",):
         static_launches[k] += dp["launches"][k]
         by_phase[k]["3g"] = {"static": dp["launches"][k]}
+    user = pp["user_operator"]
+    for k in ("twc_bin_map", "edge_lb_map", "merge_path_map"):
+        by_phase.setdefault(k, {})["3c"] = \
+            user["launches"][k] + user["merge_path"]["launches"][k]
     rows = time_kernels(g, src, sources, errs, launches)
-    rows += time_static_kernels(g, src, static_launches, sp["captured"])
+    static_rows = time_static_kernels(g, src, static_launches,
+                                      sp["captured"])
+    for r in static_rows:
+        r["phase2_err"] = static_errs.get(r["name"].split()[0])
+    rows += static_rows
     rows.append(time_graph_loop(
         dev, sp["condition_decisions"] + se["condition_decisions"]
         + sv["condition_decisions"] + dp["condition_decisions"]))
     for r in rows:
         if r["name"].split()[0] in by_phase:
             r["launches_by_phase"] = by_phase[r["name"].split()[0]]
-    for r in rows[-5:]:
-        r["phase2_err"] = static_errs.get(r["name"].split()[0])
     for r in rows:
         print(f"phase 4: {r['name']}: {r['ms']:.4f} ms per launch "
               f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "

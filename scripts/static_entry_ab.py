@@ -7,8 +7,13 @@ port, on one card: for comparing two commits in one call.
 ``GRAPH_DIR`` caches ``rmat(22, 16, seed=0)`` as ``g.npz`` (built on the
 first run, loaded by the next, so that runs of two checkouts in turns
 share one graph).  Prints one ``RESULT {...}`` JSON line: the card, the
-device span of fused sssp (alb, edge_lb and twc) and pagerank (20
-rounds; CUDA events, median of 6), ``twc_bin_relax``'s static entry at
+device span of fused sssp (alb, edge_lb, twc and merge_path) and
+pagerank (20 rounds; the kernel pair and merge_path; CUDA events,
+median of 6), the merge-path pair's static launch at one static
+merge-path sssp's and two static pagerank rounds' shapes
+(``merge_path_relax`` beside the route it replaced, where the checkout
+has it, else ``merge_path_map`` alone), ``twc_bin_relax``'s static
+entry at
 one static ALB sssp's, twc's unbounded bin's and (where the checkout
 lists bins) two static pagerank rounds' shapes, ``edge_lb_relax``'s
 static entry at one static ALB sssp's, one static edge_lb sssp's and
@@ -38,7 +43,7 @@ def main() -> int:
     from repro_torch.core.apps import drivers
     from repro_torch.core.balancer import BalancerConfig
     from repro_torch.core.graph import INF
-    from repro_torch.kernels import build, relax
+    from repro_torch.kernels import build, merge_path, relax
 
     if not torch.cuda.is_available():
         print("static_entry_ab: needs a CUDA device", file=sys.stderr)
@@ -63,6 +68,7 @@ def main() -> int:
     kern = BalancerConfig(strategy="alb", use_pallas=True)
     twc = BalancerConfig(strategy="twc", use_pallas=True)
     elb = BalancerConfig(strategy="edge_lb", use_pallas=True)
+    mpc = BalancerConfig(strategy="alb", backend="merge_path")
     out = {"label": label, "card": cs.card_line()}
 
     def single():
@@ -81,8 +87,12 @@ def main() -> int:
                                                tops.SSSP_RELAX)[:3],
         "sssp/edge_lb": lambda: balancer.run_fused(g, *single(), elb,
                                                    tops.SSSP_RELAX)[:3],
+        "sssp/merge_path": lambda: balancer.run_fused(
+            g, *single(), mpc, tops.SSSP_RELAX)[:3],
         "pagerank": lambda: drivers._pagerank_fused(
-            rg, inv_out, outdeg == 0, 0.85, 0.0, kern, 20, False)[:2]}
+            rg, inv_out, outdeg == 0, 0.85, 0.0, kern, 20, False)[:2],
+        "pagerank/merge_path": lambda: drivers._pagerank_fused(
+            rg, inv_out, outdeg == 0, 0.85, 0.0, mpc, 20, False)[:2]}
     for fn in fused.values():                     # capture, warm up
         fn()
     torch.cuda.synchronize()
@@ -118,6 +128,16 @@ def main() -> int:
     host = cs.capture_launches(
         lambda: drivers.sssp(g, src, kern))["twc_bin_relax"]
     out["host_relax_ms"] = cs.time_relax("twc_bin_relax", host)["ms"]
+    mp = {"sssp": cs.static_calls(g, src, mpc),
+          "pagerank": cs.static_pagerank_calls(g, mpc)}
+    if mp["sssp"].get("merge_path_relax"):
+        out["static_mp"] = {r: cs.time_relax("merge_path_relax",
+                                             c["merge_path_relax"])
+                            for r, c in mp.items()}
+    else:                            # the parent: the index map alone
+        out["static_mp_map_ms"] = {
+            r: cs.device_ms(merge_path.merge_path_map, c["merge_path_map"])
+            for r, c in mp.items()}
     schedule = getattr(cs, "static_schedule_ms", None) or \
         getattr(cs, "tile_walk_ms")
     out["static_schedule_ms"] = schedule(host)

@@ -19,7 +19,8 @@ of three interchangeable executor pairs:
   and ``edge_lb_relax``: one launch per pass, combined into the labels
   with atomics;
 * ``merge_path`` — no bins and no inspector: every frontier edge goes
-  through the co-ranked equal-work kernel ``merge_path_map``.
+  through the co-ranked equal-work kernel ``merge_path_relax``, fused
+  the same way, one launch a round.
 
 The registry names are kept from the JAX package for config parity:
 one ``BalancerConfig`` value selects the same path in both packages.
@@ -30,9 +31,9 @@ the union frontier, and per-query activity is re-gathered per edge.
 
 No round updates its input labels in place.  The torch-ops entries
 scatter into a fresh labels tensor (``scatter.scatter_combine``) in every
-pass; a pair registered ``in_place`` (``pallas``) combines into the
-labels it is given, so the round clones the labels once and every pass
-combines into that copy.  Either way the round-entry ``values`` (which
+pass; a pair registered ``in_place`` (``pallas``, ``merge_path``)
+combines into the labels it is given, so the round clones the labels
+once and every pass combines into that copy.  Either way the round-entry ``values`` (which
 alias the app loop's labels) and the loop's ``old`` labels stay intact.
 
 A pull round (``direction="pull"``, or ``"adaptive"`` resolving to
@@ -304,7 +305,9 @@ def get_executor(name: str) -> ExecutorPair:
     """Look up a backend by name (``"xla"`` | ``"pallas"`` |
     ``"merge_path"``); the two kernel pairs are registered on first
     use.  ``merge_path``'s plan has no bins (:func:`effective_plan`), so
-    its bin entry is unreachable and raises if ever called."""
+    its bin entry is unreachable and raises if ever called; its static
+    round lists the LB-all bin as the ``pallas`` pair lists its LB
+    bin."""
     if name not in _REGISTRY and name in ("pallas", "merge_path"):
         from repro_torch.kernels import ops as kops   # lazy: import cycle
         register_executor(ExecutorPair(
@@ -313,7 +316,8 @@ def get_executor(name: str) -> ExecutorPair:
             bin_list=kops.list_bins))
         register_executor(ExecutorPair(
             "merge_path", bin_host=kops.merge_path_no_bins,
-            lb_host=kops.merge_path_apply))
+            lb_host=kops.merge_path_apply, in_place=True,
+            bin_list=kops.list_bins))
     return _REGISTRY[name]
 
 

@@ -5,14 +5,19 @@
   combine into the labels;
 * ``relax.edge_lb_relax``       — ``csrc/edge_lb_relax.cu`` (CUDA C++),
   the huge bin's edge-balanced ALB pass fused the same way;
+* ``relax.merge_path_relax``    — ``csrc/merge_path_relax.cu`` (CUDA
+  C++), the merge-path pass over every frontier edge fused the same way
+  (the tile walk ``csrc/tile_relax.cuh`` is ``edge_lb_relax``'s too);
 * ``relax.twc_bin_list``        — ``csrc/twc_list.cu`` (CUDA C++), no TPU
   kernel: each degree bin's members of a static round listed once a
-  round, in frontier order, for ``twc_bin_relax``;
+  round, in frontier order, for ``twc_bin_relax``, and the LB bin's for
+  ``edge_lb_relax`` / ``merge_path_relax``;
 * ``twc_gather.twc_bin_map``    — ``csrc/twc_gather.cu`` (CUDA C++), the
   index map of a degree bin (the Pallas kernel's counterpart);
 * ``edge_lb.edge_lb_map``       — ``csrc/edge_lb.cu`` (CUDA C++), the
   huge bin's index map (the Pallas kernel's counterpart);
-* ``merge_path.merge_path_map`` — ``csrc/merge_path.cu`` (CUDA C++);
+* ``merge_path.merge_path_map`` — ``csrc/merge_path.cu`` (CUDA C++), the
+  merge-path index map (the Pallas kernel's counterpart);
 * ``moe_plan.moe_plan``          — ``csrc/moe_plan.cu`` (CUDA C++), the
   whole MoE dispatch plan of a layer (top-k, gates, arrival ranks, ALB
   rebalance, keep) in one launch, one thread block cluster per group;
@@ -27,12 +32,11 @@
 * ``csrc/graph_loop.cu``        — no TPU kernel: the conditional graph
   nodes (IF, WHILE) and their condition kernel, for
   ``core.graph_loop``'s device control flow;
-* ``ref``                       — plain PyTorch versions of all nine;
+* ``ref``                       — plain PyTorch versions of all ten;
 * ``ops``                       — the executor pairs of
   ``core.balancer``: the fused relax kernels (or, for an operator they
   do not take, the index maps with the torch epilogue, counted in
-  ``ops.unfused_passes``), and ``merge_path_map`` with its torch
-  gather/scatter epilogue;
+  ``ops.unfused_passes``);
 * ``build``                     — ``nvcc`` + ``ctypes``, on first use.
 
 Each wrapper keeps a plain-integer launch counter (``fn.launches``),
@@ -52,10 +56,12 @@ from . import ops as _ops
 from .edge_lb import edge_lb_map
 from .merge_path import merge_path_map
 from .moe_dispatch import positions_in_expert
-from .relax import edge_lb_relax, twc_bin_list, twc_bin_relax
+from .relax import (edge_lb_relax, merge_path_relax, twc_bin_list,
+                    twc_bin_relax)
 from .twc_gather import twc_bin_map
 
 KERNELS = {"twc_bin_relax": twc_bin_relax, "edge_lb_relax": edge_lb_relax,
+           "merge_path_relax": merge_path_relax,
            "twc_bin_list": twc_bin_list,
            "twc_bin_map": twc_bin_map, "edge_lb_map": edge_lb_map,
            "merge_path_map": merge_path_map,
@@ -72,6 +78,7 @@ def launch_counts() -> dict:
 #: kernels that count their own launches on the card, by source
 DEVICE_COUNTED = {"twc_bin_relax": "twc_relax",
                   "edge_lb_relax": "edge_lb_relax",
+                  "merge_path_relax": "merge_path_relax",
                   "twc_bin_list": "twc_list",
                   "merge_path_map": "merge_path"}
 

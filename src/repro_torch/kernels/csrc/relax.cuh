@@ -1,5 +1,6 @@
-// relax.cuh: what the fused relax kernels (twc_relax.cu, edge_lb_relax.cu)
-// share: the operator's msg as an enum, and the combine into the labels.
+// relax.cuh: what the fused relax kernels (twc_relax.cu, edge_lb_relax.cu,
+// merge_path_relax.cu) share: the operator's msg as an enum, and the
+// combine into the labels.
 //
 // Label types and combines the kernels take (the wrapper raises on any
 // other): int32 min, int32 add, float32 add.

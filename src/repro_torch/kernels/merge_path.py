@@ -5,9 +5,11 @@ kernel ``csrc/merge_path.cu``.  The frontier's edge ids ``[0, total)``
 are cut into tiles of ``tile_edges`` consecutive ids; each tile bounds
 its slot window by two co-rank searches over the exclusive degree
 prefix sum ``start_e`` and maps every id to its slot and CSR edge by a
-search inside that window.  No bins and no inspector: the merge-path
-executor (``ops.merge_path_apply``) routes the whole frontier through
-it.
+search inside that window.  No bins and no inspector.  The merge-path
+executor's main path runs the fused ``relax.merge_path_relax`` instead
+(the same tiles, combined into the labels in the kernel);
+``ops.merge_path_apply`` sends through this map and the torch epilogue
+only an operator the fused kernel does not take.
 
 For CPU tensors the wrapper computes the plain version
 (``ref.merge_path_map_ref``); for CUDA tensors it launches the kernel or

@@ -4,7 +4,7 @@ Port of ``repro/kernels/ops.py`` (host-driven entries), where the
 Pallas mapping kernels emit index tiles and XLA does the gather, the
 ``msg`` and the scatter-combine.  That split is a TPU choice; on this
 card the index tiles would make a round trip through device memory, so
-the two pairs differ:
+both kernel pairs fuse the map with its epilogue:
 
 * ``pallas`` — ``twc_bin_apply`` / ``edge_lb_apply``: ONE fused kernel
   launch per pass (``relax.twc_bin_relax`` / ``relax.edge_lb_relax``),
@@ -20,10 +20,14 @@ the two pairs differ:
   ``ref.slot_epilogue``, copied into ``labels``.  The operator chooses
   the route before any launch; ``unfused_passes`` counts the passes
   that took it.
-* ``merge_path`` — ``merge_path_apply``: the index-map kernel
-  ``merge_path_map`` plus the torch epilogue ``_slot_apply``, which
-  returns fresh labels.  Fusing that epilogue is later work (ROADMAP
-  Queue 2).
+* ``merge_path`` — ``merge_path_apply``: ONE fused kernel launch per
+  pass (``relax.merge_path_relax``), which cuts the frontier's edges
+  into equal-work tiles, maps each id to its slot and edge in registers
+  and combines into ``labels`` with atomics.  The pair is registered
+  ``in_place`` too.  An operator the kernel does not take runs the JAX
+  pair's route: the index-map kernel ``merge_path.merge_path_map``, then
+  ``ref.slot_epilogue``, copied into ``labels`` and counted in
+  ``unfused_passes``.
 
 Each entry serves the host round and the static round (``relax_spmd``,
 ``run_fused``) alike, as the registry's ``bin_host`` and ``lb_host``:
@@ -31,10 +35,12 @@ the pass count and the huge-bin total may be device int32 tensors that
 the kernels read on the card, so a captured round never reads them on
 the host.  They stand for the JAX package's
 ``twc_bin_apply_static`` / ``edge_lb_apply_static`` /
-``merge_path_apply_static`` too.  The ``pallas`` pair's static round
-first lists each bin's members once, and the LB bin's with their edge
-prefix and total (``list_bins``, the registry's ``bin_list``: one
-``relax.twc_bin_list`` launch), where JAX lays every bin over V rows.
+``merge_path_apply_static`` too.  Both pairs' static round first lists
+each bin's members once, and the LB bin's with their edge prefix and
+total (``list_bins``, the registry's ``bin_list``: one
+``relax.twc_bin_list`` launch; the merge-path plan's one bin is its
+LB-all bin), where JAX lays every bin over V rows and the merge-path
+map enumerates all E ids.
 
 Entries are batched: ``values`` / ``labels`` / ``fmask`` are ``[B, V]``
 while the enumeration is batch-shared, so each kernel runs ONCE per
@@ -56,7 +62,7 @@ from . import relax as _relax
 from . import twc_gather as _twc
 from .ref import slot_epilogue
 
-#: passes of the ``pallas`` pair that took the unfused route because the
+#: passes of the kernel pairs that took the unfused route because the
 #: fused kernels do not take their operator (``kernels.reset_launch_counts``
 #: resets it)
 unfused_passes = 0
@@ -69,14 +75,6 @@ def _unfused(g, values, labels, fmask, src, ge, mask, op):
     unfused_passes += 1
     return labels.copy_(slot_epilogue(g.col_idx, g.edge_w, values, labels,
                                       fmask, src, ge, mask, op))
-
-
-def _slot_apply(g, values, labels, fmask, hvidx, ge, j, mask, op):
-    """Epilogue of the merge-path entry: id -> (slot ``j``, CSR edge
-    ``ge``), both flat and batch-shared; fresh labels."""
-    src = hvidx[j.clamp(0, hvidx.shape[0] - 1)]
-    return slot_epilogue(g.col_idx, g.edge_w, values, labels, fmask, src,
-                         ge, mask, op)
 
 
 def edge_lb_apply(g, values, labels, fmask, hvidx, hdeg, hrow, total,
@@ -104,17 +102,26 @@ def edge_lb_apply(g, values, labels, fmask, hvidx, hdeg, hrow, total,
 
 def merge_path_apply(g, values, labels, fmask, hvidx, hdeg, hrow, total,
                      ecap: int, op, distribution: str, num_tiles: int,
-                     tile_edges: int):
+                     tile_edges: int, start_e=None, rows=None):
     """Merge-path entry of both rounds, signature-compatible with the LB
-    entries (``effective_plan`` routes the whole frontier here); ``total``
-    is a host int or a device int32.  The equal-work deal is contiguous
-    by construction, so ``distribution`` and ``num_tiles`` do not
-    apply."""
+    entries (``effective_plan`` routes the whole frontier here): one
+    ``merge_path_relax`` launch, combined into ``labels`` in place (or
+    the unfused route, for an operator the kernel does not take).
+    ``total`` is a host int or, in the static round, a device int32; the
+    static round's LB-all list comes with its degree prefix ``start_e``
+    and device member count ``rows``, as for :func:`edge_lb_apply`.  The
+    equal-work deal is contiguous by construction, so ``distribution``
+    and ``num_tiles`` do not apply."""
     del distribution, num_tiles
-    start_e = torch.cumsum(hdeg, 0, dtype=torch.int32) - hdeg
-    ge, j, mask = _merge_path.merge_path_map(start_e, hrow, total, ecap,
-                                             tile_edges=tile_edges)
-    return _slot_apply(g, values, labels, fmask, hvidx, ge, j, mask, op)
+    if start_e is None:
+        start_e = torch.cumsum(hdeg, 0, dtype=torch.int32) - hdeg
+    if not _relax.takes(op, labels.dtype):
+        ge, j, mask = _merge_path.merge_path_map(start_e, hrow, total, ecap,
+                                                 tile_edges=tile_edges)
+        return _unfused(g, values, labels, fmask, hvidx[j], ge, mask, op)
+    return _relax.merge_path_relax(
+        values, labels, fmask, g.col_idx, g.edge_w, hvidx, start_e, hrow,
+        total, ecap, op, tile_edges=tile_edges, rows=rows)
 
 
 def merge_path_no_bins(*_args, **_kwargs):
@@ -126,12 +133,13 @@ def merge_path_no_bins(*_args, **_kwargs):
 
 def list_bins(fidx, deg, row_start, n_listed, bounds, op, labels_dtype,
               lb: bool = False):
-    """The ``pallas`` pair's bin listing of the static round: one
+    """The kernel pairs' bin listing of the static round: one
     ``twc_bin_list`` launch over the frontier layout's rows ``[0,
     n_listed)``, each bin ``(lo, hi)`` of ``bounds`` compacted in
     frontier order (a ``ref.BinLists``), for :func:`twc_bin_apply` with
     ``rows`` its member count; with ``lb`` the last bin is the LB bin,
-    listed with its edge prefix and total for :func:`edge_lb_apply`.
+    listed with its edge prefix and total for :func:`edge_lb_apply` or
+    :func:`merge_path_apply`.
     None for an operator the fused kernels do not take: its unfused
     route keeps the round's V-row layout."""
     if not _relax.takes(op, labels_dtype):

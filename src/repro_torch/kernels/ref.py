@@ -4,9 +4,10 @@ Same output contract as ``repro/kernels/ref.py`` (and the CUDA kernels):
 four outputs ``(graph_e, anchor_or_slot, val, mask)`` for the mapping
 kernels, three for the merge-path map ``(graph_e, slot_j, mask)``; the
 labels combined in place for the fused relax kernels
-(``twc_bin_relax_ref``, ``edge_lb_relax_ref``: the index map above plus
-the torch epilogue ``slot_epilogue``); each degree bin's member list
-of a static round for ``twc_bin_list_ref``; the arrival rank for
+(``twc_bin_relax_ref``, ``edge_lb_relax_ref``, ``merge_path_relax_ref``:
+the index map above plus the torch epilogue ``slot_epilogue``); each
+degree bin's member list of a static round for ``twc_bin_list_ref``; the
+arrival rank for
 ``positions_in_expert_ref``; the whole MoE dispatch plan for
 ``moe_plan_ref``; the attention output for ``flash_attention_ref``.
 The kernel wrappers call these for CPU tensors, and the CUDA kernels
@@ -187,6 +188,19 @@ def twc_bin_list_ref(fidx, deg, row_start, n_listed, bounds, *,
         total=d.sum(dtype=torch.int32))
 
 
+def _row_bound(start_e, total_edges, rows):
+    """A slot list bounded to its first ``rows`` slots (an int or a
+    one-element int32 tensor; None keeps every slot): ``start_e`` past
+    the bound reads as the int32 maximum, so no id lands there, and with
+    no slot the total is 0, so no id is live."""
+    if rows is None:
+        return start_e, total_edges
+    keep = torch.arange(start_e.shape[0], device=start_e.device) < rows
+    return (torch.where(keep, start_e, torch.iinfo(torch.int32).max),
+            torch.where(keep[0], torch.as_tensor(total_edges,
+                                                 device=keep.device), 0))
+
+
 def edge_lb_relax_ref(values, labels, fmask, col_idx, edge_w, hvidx,
                       start_e, row_start, total_edges, n_enum, op, *,
                       tile_edges: int = 2048, distribution: str = "cyclic",
@@ -194,19 +208,29 @@ def edge_lb_relax_ref(values, labels, fmask, col_idx, edge_w, hvidx,
     """Oracle for relax.edge_lb_relax: ``edge_lb_map_ref`` over the huge
     bin, then :func:`slot_epilogue` with ``src = hvidx[slot]``, written
     into ``labels``.  ``rows`` (an int or a one-element int32 tensor),
-    when given, bounds the slots to ``[0, rows)``: ``start_e`` past it
-    reads as the int32 maximum, so no id lands there, and with no slot
-    no id is live."""
-    if rows is not None:
-        keep = torch.arange(start_e.shape[0], device=start_e.device) < rows
-        start_e = torch.where(keep, start_e, torch.iinfo(torch.int32).max)
-        total_edges = torch.where(
-            keep[0], torch.as_tensor(total_edges, device=keep.device), 0)
+    when given, bounds the slots to ``[0, rows)`` (:func:`_row_bound`)."""
+    start_e, total_edges = _row_bound(start_e, total_edges, rows)
     ge, j, _, mask = edge_lb_map_ref(start_e, row_start, start_e,
                                      total_edges, n_enum,
                                      tile_edges=tile_edges,
                                      distribution=distribution,
                                      num_tiles=num_tiles)
+    out = slot_epilogue(col_idx, edge_w, values, labels, fmask, hvidx[j],
+                        ge, mask, op)
+    return labels.copy_(out)
+
+
+def merge_path_relax_ref(values, labels, fmask, col_idx, edge_w, hvidx,
+                         start_e, row_start, total_edges, ecap: int, op, *,
+                         tile_edges: int = 2048, rows=None):
+    """Oracle for relax.merge_path_relax: ``merge_path_map_ref`` over the
+    slots, then :func:`slot_epilogue` with ``src = hvidx[slot]``, written
+    into ``labels`` (the JAX package's ``merge_path_apply_static``).
+    ``rows``, when given, bounds the slots to ``[0, rows)``
+    (:func:`_row_bound`)."""
+    start_e, total_edges = _row_bound(start_e, total_edges, rows)
+    ge, j, mask = merge_path_map_ref(start_e, row_start, total_edges, ecap,
+                                     tile_edges=tile_edges)
     out = slot_epilogue(col_idx, edge_w, values, labels, fmask, hvidx[j],
                         ge, mask, op)
     return labels.copy_(out)

@@ -1,19 +1,25 @@
 """``twc_bin_relax`` and ``edge_lb_relax``: one whole ALB pass, fused;
+``merge_path_relax``: one whole merge-path pass, fused;
 ``twc_bin_list``: the static round's bins, listed once a round.
 
-Hand-written CUDA C++ kernels for the two hot paths of the ``pallas``
-executor pair (``kernels/ops.py``): ``csrc/twc_relax.cu`` serves one
-degree bin's pass ``chunk``, ``csrc/edge_lb_relax.cu`` the huge bin's
-edge-balanced pass.  Each maps slot -> CSR edge in registers, loads
-``col_idx`` (and ``edge_w`` for ``v + w``), applies the operator's
-``msg`` per query and combines into ``labels`` with atomics, so no index
-tile reaches device memory.  They replace, on the main path, the Pallas
-TPU kernels ``twc_bin_map`` / ``edge_lb_map`` together with the
-gather/scatter epilogue the JAX package leaves to XLA.
+Hand-written CUDA C++ kernels for the hot paths of the ``pallas`` and
+``merge_path`` executor pairs (``kernels/ops.py``):
+``csrc/twc_relax.cu`` serves one degree bin's pass ``chunk``,
+``csrc/edge_lb_relax.cu`` the huge bin's edge-balanced pass,
+``csrc/merge_path_relax.cu`` the merge-path pass over every frontier
+edge in equal-work tiles (``edge_lb_relax``'s cyclic deal and
+``merge_path_relax`` share one tile walk, ``csrc/tile_relax.cuh``).
+Each maps slot -> CSR edge in registers, loads ``col_idx`` (and
+``edge_w`` for ``v + w``), applies the operator's ``msg`` per query and
+combines into ``labels`` with atomics, so no index tile reaches device
+memory.  They replace, on the main path, the Pallas TPU kernels
+``twc_bin_map`` / ``edge_lb_map`` / ``merge_path_map`` together with
+the gather/scatter epilogue the JAX package leaves to XLA.
 ``csrc/twc_list.cu`` (no TPU kernel) lists each degree bin's members of
-a static round in frontier order, and the huge (LB) bin's with their
-edge prefix and total, so that each bin's ``twc_bin_relax`` launch and
-the ``edge_lb_relax`` launch run over their members alone.
+a static round in frontier order, and the edge-balanced (LB) bin's with
+their edge prefix and total, so that each bin's ``twc_bin_relax``
+launch and the ``edge_lb_relax`` or ``merge_path_relax`` launch run
+over their members alone.
 
 ``values`` / ``labels`` / ``fmask`` are ``[B, V]`` and the enumeration is
 batch-shared.  ``labels`` is written in place and returned; it must not
@@ -22,15 +28,15 @@ its labels and reads the round-entry values).  The operator's ``msg``
 goes to the kernel as ``operators.msg_kind``; the labels may be int32
 (min or add) or float32 (add).  :func:`takes` says whether the kernels
 take an operator and a label dtype; the wrappers raise on anything
-else.  The ``pallas`` pair's entries (``kernels/ops.py``) ask
-:func:`takes` first and send any other operator through the unfused
-route, as the JAX pair runs every operator.
+else.  The kernel pairs' entries (``kernels/ops.py``) ask :func:`takes`
+first and send any other operator through the unfused route, as the
+JAX pairs run every operator.
 
 For CPU tensors the wrappers compute the plain version
-(``ref.twc_bin_relax_ref`` / ``ref.edge_lb_relax_ref``: the reference
-index map plus the torch epilogue, written into ``labels``;
-``ref.twc_bin_list_ref``); for CUDA tensors they launch the kernel or
-raise.
+(``ref.twc_bin_relax_ref`` / ``ref.edge_lb_relax_ref`` /
+``ref.merge_path_relax_ref``: the reference index map plus the torch
+epilogue, written into ``labels``; ``ref.twc_bin_list_ref``); for CUDA
+tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -42,8 +48,8 @@ import torch
 from repro_torch.core.operators import has_msg_kind, msg_kind
 
 from . import build
-from .ref import (BinLists, edge_lb_relax_ref, twc_bin_list_ref,
-                  twc_bin_relax_ref)
+from .ref import (BinLists, edge_lb_relax_ref, merge_path_relax_ref,
+                  twc_bin_list_ref, twc_bin_relax_ref)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -303,6 +309,70 @@ def edge_lb_relax(values: torch.Tensor, labels: torch.Tensor,
     return labels
 
 
+def merge_path_relax(values: torch.Tensor, labels: torch.Tensor,
+                     fmask: torch.Tensor, col_idx: torch.Tensor,
+                     edge_w: torch.Tensor, hvidx: torch.Tensor,
+                     start_e: torch.Tensor, row_start: torch.Tensor,
+                     total_edges, ecap: int, op, *, tile_edges: int = 2048,
+                     rows=None) -> torch.Tensor:
+    """Combine the merge-path pass over every frontier edge into
+    ``labels``.
+
+    ``hvidx``/``start_e``/``row_start`` are int32 ``[H]`` (H >= 1): the
+    enumerated vertices, the exclusive prefix sum of their degrees and
+    their CSR row starts.  The ids ``[0, n)``, ``n = max(1, ceil(ecap /
+    tile_edges)) * tile_edges``, are cut into tiles of ``tile_edges``
+    (a positive multiple of 128) and mapped as ``merge_path.
+    merge_path_map`` maps them; ids at or past ``total_edges`` (a host
+    int or a one-element int32 tensor on the device, read there) do
+    nothing.  ``rows``, a one-element int32 tensor on the device, bounds
+    the slots to ``[0, rows)``: the static round's LB-all list
+    (:func:`twc_bin_list` with ``lb``) with its member count, whose
+    slots past it are unwritten.  Returns ``labels``.
+    """
+    h, dev = start_e.shape[0], labels.device
+    if h < 1:
+        raise ValueError("merge_path_relax: needs H >= 1 slots")
+    if tile_edges <= 0 or tile_edges % 128:
+        raise ValueError(f"merge_path_relax: tile_edges={tile_edges} is "
+                         f"not a positive multiple of 128")
+    ints = _state("merge_path_relax", values, labels, fmask, col_idx,
+                  edge_w, op)
+    for name, t in (("hvidx", hvidx), ("start_e", start_e),
+                    ("row_start", row_start)):
+        build.check_vec("merge_path_relax", name, t, h, dev)
+    if dev.type == "cpu":
+        return merge_path_relax_ref(values, labels, fmask, col_idx, edge_w,
+                                    hvidx, start_e, row_start, total_edges,
+                                    ecap, op, tile_edges=tile_edges,
+                                    rows=rows)
+    if dev.type != "cuda":
+        raise ValueError(f"merge_path_relax runs on cuda or cpu, not {dev}")
+    total_ptr, total_host = build.scalar_arg("merge_path_relax",
+                                             "total_edges", total_edges, dev)
+    rows_ptr = None
+    if rows is not None:
+        if not isinstance(rows, torch.Tensor):
+            raise ValueError("merge_path_relax: rows is a device int32")
+        rows_ptr, _ = build.scalar_arg("merge_path_relax", "rows", rows,
+                                       dev)
+    span = max(1, -(-ecap // tile_edges)) * tile_edges
+    if span >= 1 << 31:
+        raise ValueError(f"merge_path_relax: {span} ids exceed int32")
+    if labels.numel() == 0 or (total_ptr is None and total_host == 0):
+        return labels
+    fn = _launcher("merge_path_relax", "merge_path_relax", 10, 10)
+    _launched("merge_path_relax", fn(
+        values.data_ptr(), labels.data_ptr(), fmask.data_ptr(),
+        col_idx.data_ptr(), edge_w.data_ptr(), hvidx.data_ptr(),
+        start_e.data_ptr(), row_start.data_ptr(), total_ptr, rows_ptr, h,
+        total_host, span, tile_edges, *ints,
+        torch.cuda.current_stream(dev).cuda_stream))
+    build.count_launch(merge_path_relax)
+    return labels
+
+
 twc_bin_relax.launches = twc_bin_relax.captured = 0
 twc_bin_list.launches = twc_bin_list.captured = 0
 edge_lb_relax.launches = edge_lb_relax.captured = 0
+merge_path_relax.launches = merge_path_relax.captured = 0

@@ -1,6 +1,7 @@
 """The CUDA kernels of ``repro_torch`` against their plain versions on
 the card (the index kernels exactly: masks equal, masked positions
-equal; the fused relax kernels exactly for min and int add, within
+equal; the fused relax kernels, ``merge_path_relax`` included, exactly
+for min and int add, within
 ``FLOAT_ADD_RTOL`` for float add; the fused MoE plan bitwise;
 attention, both routes, at the tolerances of tests/test_kernels_lm.py),
 the captured programs of the static and fused modes, and streaming
@@ -658,6 +659,111 @@ def test_cuda_edge_lb_relax_device_total_matches_plain(cuda_device, op,
             _assert_relax_equal(op, got, want)
 
 
+# ---- merge_path_relax: the merge-path pair's fused pass -------------------
+
+def _mp_slots(dev, deg, row_ptr, hv, pad):
+    """A slot list of the vertices ``hv`` (int32 on ``dev``: hvidx,
+    start_e, row_start) with ``pad`` sentinel slots (deg 0: a host
+    round's bucket padding), and its edge total."""
+    v = len(deg)
+    hvidx, hdeg, hrow = (np.concatenate([a, np.full(pad, f)]).astype(np.int32)
+                         for a, f in ((hv, v), (deg[hv], 0), (row_ptr[hv], 0)))
+    start_e = (np.cumsum(hdeg) - hdeg).astype(np.int32)
+    return ([torch.from_numpy(a).to(dev) for a in (hvidx, start_e, hrow)],
+            int(hdeg.sum()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", RELAX_OPS)
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_cuda_merge_path_relax_matches_plain(cuda_device, op, b):
+    """The host entry: one-slot lists (one tile, several tiles), several
+    slots with bucket padding, 2,000 slots, a 3,000-slot zero-degree run
+    (a window wider than a 2048-id tile's stage) and a V-row layout;
+    tiles of 128 and 2048 ids and of 65,536 (a stage past what a block's
+    shared memory holds: global windows); bucketed and ragged spans;
+    launches counted."""
+    col, w, row_ptr, deg = _relax_graph(cuda_device)
+    v = len(deg)
+    val, lab, fm = _relax_state(cuda_device, op, b, v, b + 17)
+    rng = np.random.default_rng(b)
+    rows = np.flatnonzero(rng.random(v) < 0.3)
+    cases = [[2], [0], list(range(7)), list(range(200, 2200)),
+             [1] + [11] * 3000 + [2], list(rows)]
+    before = trelax.merge_path_relax.launches
+    launched = 0
+    for hv in cases:
+        t, total = _mp_slots(cuda_device, deg, row_ptr, np.array(hv),
+                             0 if len(hv) == 1 else 5)
+        for tile in (128, 2048, 65_536):
+            for ecap in sorted({total, next_pow2(max(total, tile))}):
+                kw = dict(tile_edges=tile)
+                got = trelax.merge_path_relax(val, lab.clone(), fm, col, w,
+                                              *t, total, ecap, _relax_op(op),
+                                              **kw)
+                want = tref.merge_path_relax_ref(val, lab.clone(), fm, col,
+                                                 w, *t, total, ecap,
+                                                 _relax_op(op), **kw)
+                _assert_relax_equal(op, got, want)
+                launched += 1
+    assert trelax.merge_path_relax.launches == before + launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", RELAX_OPS)
+def test_cuda_merge_path_relax_static_entry_matches_plain(cuda_device, op):
+    """The static entry, B = 2, every edge of the graph as the span: over
+    the kernel's own LB-all list (``twc_bin_list``) with its device count
+    and total, over the plain list with device counts 0, 1 and V and
+    the total of the slots they keep, and over V rows with a device
+    total (0, one vertex, several, 2,000); tiles of 128 and 2048."""
+    col, w, row_ptr, deg = _relax_graph(cuda_device)
+    v, e = len(deg), int(row_ptr[-1])
+    val, lab, fm = _relax_state(cuda_device, op, 2, v, 23)
+    rows, n = _frontier_layout(cuda_device, deg, row_ptr, 0.5, 9)
+    bounds = LB_BOUNDS["edge_lb"]
+    kern = trelax.twc_bin_list(*rows, _dev_int(n, cuda_device), bounds,
+                               lb=True)
+    plain = tref.twc_bin_list_ref(*rows, n, bounds, lb=True)
+    members = int(plain.count[0])
+    cases = [(kern, kern.count, kern.total, members)]
+    for c in (0, 1, v):
+        kept = min(c, members)
+        total = int(plain.start_e[kept]) if kept < members else \
+            int(plain.total)
+        cases.append((plain, _dev_int(c, cuda_device),
+                      _dev_int(total, cuda_device), kept))
+    for tile in (128, 2048):
+        for lists, count, total, kept in cases:
+            got = trelax.merge_path_relax(
+                val, lab.clone(), fm, col, w, lists.vidx[0], lists.start_e,
+                lists.row_start[0], total, e, _relax_op(op), rows=count,
+                tile_edges=tile)
+            want = tref.merge_path_relax_ref(
+                val, lab.clone(), fm, col, w, plain.vidx[0], plain.start_e,
+                plain.row_start[0], int(total), e, _relax_op(op), rows=kept,
+                tile_edges=tile)
+            _assert_relax_equal(op, got, want)
+        for hv in ([], [0], list(range(7)), list(range(12, 2012))):
+            member = np.zeros(v, bool)
+            member[hv] = True
+            hvidx, hdeg, hrow = (np.where(member, a, f).astype(np.int32)
+                                 for a, f in ((np.arange(v), v), (deg, 0),
+                                              (row_ptr[:-1], 0)))
+            start_e = (np.cumsum(hdeg) - hdeg).astype(np.int32)
+            t = [torch.from_numpy(a).to(cuda_device)
+                 for a in (hvidx, start_e, hrow)]
+            total = int(hdeg.sum())
+            got = trelax.merge_path_relax(
+                val, lab.clone(), fm, col, w, *t,
+                _dev_int(total, cuda_device), e, _relax_op(op),
+                tile_edges=tile)
+            want = tref.merge_path_relax_ref(val, lab.clone(), fm, col, w,
+                                             *t, total, e, _relax_op(op),
+                                             tile_edges=tile)
+            _assert_relax_equal(op, got, want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("tile_edges", [128, 2048])
 def test_cuda_index_maps_device_total_match_plain(cuda_device, tile_edges):
@@ -768,8 +874,8 @@ def test_cuda_device_launch_counts(cuda_device):
     assert trelax.twc_bin_relax.launches == 1
     assert tk.capture_counts()["twc_bin_relax"] == 1
     assert tk.device_launch_counts(reset=True) == {
-        "twc_bin_relax": 3, "edge_lb_relax": 0, "twc_bin_list": 0,
-        "merge_path_map": 0}
+        "twc_bin_relax": 3, "edge_lb_relax": 0, "merge_path_relax": 0,
+        "twc_bin_list": 0, "merge_path_map": 0}
 
 
 @pytest.mark.gpu

@@ -211,12 +211,14 @@ def test_static_round_launches_each_kernel_once_a_round(graphs, monkeypatch,
                                                         case, mode):
     """Through the kernel pairs, a static round calls the bin kernel once
     for every bin of the plan (an unbounded bin too: its pass count is
-    the kernel's own loop), the ``pallas`` pair's listing of the bins
-    and the LB bin once, and
-    the huge-bin kernel once (with a device total of 0 when the bin is
-    empty), whatever the direction: so a traversal launches them rounds
-    x bins, rounds and rounds times, which chip_smoke.py holds the
-    card's own launch counts against.  In spmd
+    the kernel's own loop), the pair's listing of the bins and the LB
+    bin once, and the huge-bin kernel once (with a device total of 0
+    when the bin is empty), whatever the direction: so a traversal
+    launches them rounds x bins, rounds and rounds times, which
+    chip_smoke.py holds the card's own launch counts against.  The
+    merge-path pair lists its LB-all bin and launches
+    ``merge_path_relax`` once a round, and ``merge_path_map`` never.  In
+    spmd
     mode a loop that converges learns it from the liveness of the round
     it ran, so it runs one round on an empty frontier past its count
     (pagerank stops on its round limit)."""
@@ -235,6 +237,7 @@ def test_static_round_launches_each_kernel_once_a_round(graphs, monkeypatch,
     counted(trelax, "edge_lb_relax")
     counted(trelax, "twc_bin_list")
     counted(tmp, "merge_path_map")
+    counted(trelax, "merge_path_relax")
     kw, run = STATIC_RUNS[case]
     cfg = tb.BalancerConfig(**{"threshold": 16, "use_pallas": True, **kw})
     out = run(graphs["uniform"][1], graphs["uniform_sym"][1], cfg, mode)
@@ -242,7 +245,7 @@ def test_static_round_launches_each_kernel_once_a_round(graphs, monkeypatch,
     ran = out.rounds + (mode == "spmd" and case != "pagerank")
     plan = tb.effective_plan(cfg)
     if cfg.executor == "merge_path":
-        want = {"merge_path_map": ran}
+        want = {"merge_path_relax": ran, "twc_bin_list": ran}
     else:
         want = {"twc_bin_relax": ran * len(plan.bins),
                 "twc_bin_list": ran * (len(plan.bins) > 0

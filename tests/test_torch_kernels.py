@@ -130,7 +130,7 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
     for a, b in zip(out, tref.merge_path_map_ref(s, s, 190, 2048)):
         assert torch.equal(a, b)
     assert tk.launch_counts() == {"twc_bin_relax": 0, "edge_lb_relax": 0,
-                                  "twc_bin_list": 0,
+                                  "merge_path_relax": 0, "twc_bin_list": 0,
                                   "twc_bin_map": 0, "edge_lb_map": 0,
                                   "merge_path_map": 0, "moe_plan": 0,
                                   "positions_in_expert": 0,
@@ -164,7 +164,8 @@ def test_kernel_sources_present():
     from repro_torch.kernels import build
     assert build.sources() == ["edge_lb", "edge_lb_relax",
                                "flash_attention", "flash_attention_wgmma",
-                               "graph_loop", "merge_path", "moe_dispatch",
+                               "graph_loop", "merge_path",
+                               "merge_path_relax", "moe_dispatch",
                                "moe_plan", "twc_gather", "twc_list",
                                "twc_relax"]
 

@@ -281,9 +281,9 @@ def test_listed_static_round_pagerank_matches_jax_and_host(graphs,
 
 def test_unfused_operator_keeps_the_v_row_layout(graphs, monkeypatch):
     """An operator the fused kernels do not take: the pair's hook lists
-    nothing, and the bins keep the V-row layout with the frontier count
-    as their row bound (the unfused route's index maps take every
-    row)."""
+    nothing (the merge-path pair's too), and the bins keep the V-row
+    layout with the frontier count as their row bound (the unfused
+    route's index maps take every row)."""
     _, gt = graphs["rmat"]
     op = tops.Operator("v_plus_2w", "push", "min", lambda v, w: v + 2 * w)
     cfg = tb.BalancerConfig(strategy="alb", use_pallas=True, **TWO_PASS)
@@ -296,7 +296,9 @@ def test_unfused_operator_keeps_the_v_row_layout(graphs, monkeypatch):
     assert tb.get_executor("pallas").bin_list(
         *_layout(gt, fr.numpy())[:3], 5, ((0, 8),), op, torch.int32) is None
     assert tb.get_executor("xla").bin_list is None
-    assert tb.get_executor("merge_path").bin_list is None
+    assert tb.get_executor("merge_path").bin_list(
+        *_layout(gt, fr.numpy())[:3], 5, ((0, None),), op, torch.int32,
+        True) is None
 
 
 # ---- the LB bin, listed in the same launch -------------------------------
