@@ -31,12 +31,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    cluster size the wrapper picks; the static round's device-int32
    entries (``twc_bin_relax`` with its first chunk and pass count on the
    device, over V rows and over the bin lists of ``twc_bin_list``, which
-   is held against its plain version exactly, with and without an LB
-   bin; ``edge_lb_relax`` and ``merge_path_relax`` over V rows and over
-   the LB lists with their device counts (0, 1, the members, V),
-   ``merge_path_map`` and ``edge_lb_map`` with the total on the device,
-   over a span far past it: total 0, ragged tails, both deals, pass
-   counts 0..k) against their plain versions given the same ints;
+   is held against its plain version exactly over swept frontier masks
+   (sparse, dense, empty, all-set, R = 1 and 8, a reverse CSR's
+   ``emask``, V = 1), with and without an LB bin; ``edge_lb_relax``
+   and ``merge_path_relax`` over V rows and over the LB lists with
+   their device counts (0, 1, the members, V), ``merge_path_map`` and
+   ``edge_lb_map`` with the total on the device, over a span far past
+   it: total 0, ragged tails, both deals, pass counts 0..k) against
+   their plain versions given the same ints;
 3. the main path at full size: ALB ``sssp``, ``bfs`` and ``sssp_batch``
    (B = 8) on ``rmat(22, 16, seed=0)`` through the kernel pair (one
    fused ``twc_bin_relax`` / ``edge_lb_relax`` launch per pass), with
@@ -76,8 +78,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``merge_path_relax`` and ``twc_bin_list`` once a round), launches
    recorded by the captures, graphs captured and their seconds, the
    condition kernel's decisions, medians of 6 walls host / spmd / fused in turns, device profiles of
-   sssp and pagerank in host and spmd mode, and the device span of each
-   fused traversal's one launch (CUDA events);
+   sssp and pagerank in host and spmd mode (launch totals and the
+   ``index_elementwise_kernel`` time; the spmd runs have none: the
+   listing reads the dense frontier, no frontier layout is gathered),
+   and the device span of each fused traversal's one launch (CUDA
+   events);
 3e. streaming updates on the same two graphs made streaming
    (``streaming_graph``: V 4,194,312 padded, Ecap 2**27; the symmetrized
    form 2**28): sssp and bfs from the hub and cc kept by
@@ -141,7 +146,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    sssp_batch, adaptive cc and pagerank; the static entries at phase
    3d's shapes (one static ALB, edge_lb, twc and merge-path sssp and two
    static pagerank rounds through each pair, run eagerly and recorded:
-   ``twc_bin_list`` beside its plain version and bound,
+   ``twc_bin_list`` beside its plain version and bound, also at one
+   static ``sssp_batch``'s shapes (an ``[8, V]`` mask),
    ``twc_bin_relax`` over its lists, ``edge_lb_relax`` and
    ``merge_path_relax`` over the LB list, their bounds beside the V-row
    layout's, ``merge_path_relax`` beside the route it replaced: the map
@@ -597,10 +603,14 @@ def static_entries_vs_plain(dev) -> dict:
     pass a 6,000-degree row needs), without a row bound and with one on
     the device (V, V / 3: a row bound over sentinel rows), every
     operator, B in {1, 3};
-    ``twc_bin_list`` over frontier layouts of the same CSR (sparse and
-    dense frontiers; frontier counts 0, 1, a tile, a third, all; the
-    alb, twc and vertex bins, and with an LB bin alb's bins with its
-    huge bin and edge_lb's LB-all), exactly, and ``twc_bin_relax`` over
+    ``twc_bin_list`` over dense frontier masks of the same CSR and its
+    ``row_ptr`` (sparse and dense, R = 1 and 8, empty, all-set, the
+    reverse CSR's in-degree ``emask``, V = 50,000, no multiple of the
+    tile, and a one-vertex CSR; rows that start unaligned: R = 8 at V =
+    50,003 and masks at a 1-byte offset, R = 1 and 8; the alb, twc and
+    vertex bins, and with
+    an LB bin alb's bins with its huge bin and edge_lb's LB-all, which
+    the merge-path plan lists too), exactly, and ``twc_bin_relax`` over
     its lists with their device counts, every operator, B in {1, 3};
     ``edge_lb_relax`` over the static span (every edge of the graph)
     with the total on the device (0, one row, several, 2,000 rows, over
@@ -619,16 +629,30 @@ def static_entries_vs_plain(dev) -> dict:
 
     def t32(a):
         return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
-    layouts = []
-    for density in (0.05, 0.9):
-        listed = np.flatnonzero(rng.random(v) < density)
-        fidx = np.full(v, v)
-        fidx[:len(listed)] = listed
-        real = fidx < v
-        safe = np.where(real, fidx, 0)
-        layouts.append(([t32(np.where(real, a, f)) for a, f in
-                         ((fidx, v), (deg[safe], 0), (row_ptr[:-1][safe], 0))],
-                        len(listed)))
+
+    def dense(density, r):
+        return torch.from_numpy(rng.random((r, v)) < density / r).to(dev)
+    rp = t32(row_ptr)
+    indeg = np.bincount(col.cpu().numpy(), minlength=v)
+    masks = [(dense(d, r), rp) for d in (0.05, 0.9) for r in (1, 8)]
+    masks += [(torch.zeros((1, v), dtype=torch.bool, device=dev), rp),
+              (torch.ones((8, v), dtype=torch.bool, device=dev), rp),
+              (torch.from_numpy(indeg > 0)[None].to(dev),
+               t32(np.concatenate([[0], np.cumsum(indeg)]))),
+              (torch.ones((1, 1), dtype=torch.bool, device=dev),
+               t32([0, 5000]))]
+    # rows that start unaligned: V = 50,003 (row r at r V bytes), and
+    # masks at a 1-byte offset into their buffer, R = 1 and 8
+    # (their own generator, so the sweeps below draw what they drew)
+    urng = np.random.default_rng(29)
+    v2 = v + 3
+    rp2 = t32(np.concatenate([[0], np.cumsum(urng.integers(0, 40, v2))]))
+    masks += [(torch.from_numpy(urng.random((8, v2)) < d / 8).to(dev), rp2)
+              for d in (0.05, 0.9)]
+    for r in (1, 8):
+        buf = torch.zeros(r * v + 1, dtype=torch.bool, device=dev)
+        buf[1:] = torch.from_numpy(urng.random(r * v) < 0.3 / r)
+        masks.append((buf[1:].view(r, v), rp))
     member = rng.random(v) < 0.2
     member[:12] = True
     rows = [t32(np.where(member, a, f)) for a, f in
@@ -651,19 +675,19 @@ def static_entries_vs_plain(dev) -> dict:
         cases[name] += 1
 
     lists, lb_lists = [], []
-    for rows, n in layouts:
+    for i, (mask, ptr) in enumerate(masks):
         for bounds, lb in ([(b, False) for b in LIST_BOUNDS.values()] +
                            [(b, True) for b in LB_LIST_BOUNDS.values()]):
-            for cut in sorted({0, 1, 1024, n // 3, n}):
-                got = relax.twc_bin_list(*rows, t32([cut]), bounds, lb=lb)
-                want = ref.twc_bin_list_ref(*rows, cut, bounds, lb=lb)
-                errs["twc_bin_list"] = max(errs["twc_bin_list"],
-                                           list_err(got, want))
-                cases["twc_bin_list"] += 1
-            if bounds == LIST_BOUNDS["twc"]:
-                lists.append(got)             # every row listed
-            if lb:
-                lb_lists.append(got)
+            got = relax.twc_bin_list(mask, ptr, bounds, lb=lb)
+            want = ref.twc_bin_list_ref(mask, ptr, bounds, lb=lb)
+            errs["twc_bin_list"] = max(errs["twc_bin_list"],
+                                       list_err(got, want))
+            cases["twc_bin_list"] += 1
+            if i in (0, 2):                   # sparse and dense, R = 1
+                if bounds == LIST_BOUNDS["twc"]:
+                    lists.append(got)
+                if lb:
+                    lb_lists.append(got)
     for opname in RELAX_OPS:
         op = relax_op(opname)
         for b in (1, 3):
@@ -1657,6 +1681,12 @@ def static_path(g, sym, src, sources) -> dict:
         {f"{a}/{m}": (lambda a=a, m=m: apps[a](m, False))
          for a in ("sssp", "pagerank") for m in ("host", "spmd")},
         med, label="phase 3d")
+    # the listing reads the dense frontier: a static round of the kernel
+    # pair gathers no frontier layout (compact's index_put_, row_ptr)
+    for a in ("sssp/spmd", "pagerank/spmd"):
+        check(prof[a]["index_elementwise_launches"] == 0,
+              f"{a}: {prof[a]['index_elementwise_launches']} index kernels "
+              f"in a static round of the kernel pair")
     return {"launches": launches, "launches_by_run": by_run,
             "captured": captured, "captured_by_run": captured_by_run,
             "captures": captures, "capture_s": capture_s,
@@ -3084,8 +3114,9 @@ def time_kernels(g, src, sources, errs: dict, launches: dict) -> list:
 
 
 def static_calls(g, src, cfg) -> dict:
-    """The kernel launches of one static-shape sssp, run eagerly round by
-    round on the card and recorded with their inputs
+    """The kernel launches of one static-shape sssp (``src`` a vertex,
+    or a list of them: one ``sssp_batch`` query each), run eagerly round
+    by round on the card and recorded with their inputs
     (:func:`capture_launches`): ``balancer._relax_spmd_impl`` in push
     direction through a kernel pair has no branch or loop of its own,
     so it needs no capture; its entries get the device pass count and
@@ -3095,11 +3126,12 @@ def static_calls(g, src, cfg) -> dict:
     from repro_torch.core import balancer
     from repro_torch.core.graph import INF
     from repro_torch.core.operators import SSSP_RELAX
+    srcs = [src] if isinstance(src, int) else list(src)
 
     def run():
-        lab = torch.full((1, g.num_vertices), int(INF), dtype=torch.int32,
-                         device=g.device)
-        lab[0, src] = 0
+        lab = torch.full((len(srcs), g.num_vertices), int(INF),
+                         dtype=torch.int32, device=g.device)
+        lab[torch.arange(len(srcs)), torch.tensor(srcs)] = 0
         fr = lab == 0
         while bool(fr.any()):
             new = balancer._relax_spmd_impl(g, lab, lab, fr, cfg,
@@ -3141,17 +3173,28 @@ def static_pagerank_calls(g, cfg, rounds: int = 2) -> dict:
 
 
 def list_work(a, k) -> tuple:
-    """(bytes, operations) one listing must do on these inputs: each
-    listed row's three int32 inputs read once (12 bytes), each member's
-    three int32 outputs written once (12 bytes; an LB member's degree
-    prefix 4 more), and each bin's count and largest degree (and the LB
-    total); ~4 integer operations per listed row."""
+    """(bytes, operations) one listing must do on these inputs: the
+    ``[R, V]`` mask read once (R V bytes), the distinct ``row_ptr``
+    entries the listed vertices need (``row_ptr[v]`` and ``row_ptr[v +
+    1]`` of each; two listed neighbours share one), each member's three
+    int32 outputs written once (12 bytes; an LB member's degree prefix 4
+    more), and each bin's count and largest degree (and the LB total);
+    an OR a mask byte and ~4 integer operations per listed vertex."""
+    import torch
     from repro_torch.kernels import ref
-    n = int(a[3])
+    mask, row_ptr, bounds = a
     lists = ref.twc_bin_list_ref(*a, **k)
+    union = mask.any(dim=0)
+    need = torch.zeros(row_ptr.numel(), dtype=torch.bool,
+                       device=mask.device)
+    need[:-1] |= union
+    need[1:] |= union
+    listed = int(union.sum())
     members = int(lists.count.sum())
     lb = 4 * int(lists.count[-1]) + 4 if k.get("lb") else 0
-    return 12 * n + 12 * members + lb + 8 * len(a[4]), 4 * n
+    return (mask.numel() + 4 * int(need.sum())
+            + 12 * members + lb + 8 * len(bounds),
+            mask.numel() + 4 * listed)
 
 
 def time_list(cs) -> dict:
@@ -3159,7 +3202,9 @@ def time_list(cs) -> dict:
     plain version (exact: members, counts, largest degrees), then timed
     beside it and its bound.  A call's time includes the zeroing of its
     small scratch (one memset), which the wrapper makes before the
-    launch."""
+    launch.  The plain version is the layout the round built before the
+    kernel read the mask: ``compact``, ``frontier_meta``'s gathers,
+    then each bin's compaction."""
     from repro_torch.kernels import ref, relax
     err = 0
     for a, k in cs:
@@ -3173,7 +3218,8 @@ def time_list(cs) -> dict:
             "timed_launches": len(cs), "mean_bytes": nbytes}
 
 
-def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
+def time_static_kernels(g, src, sources, launches: dict,
+                        captured: dict) -> list:
     """Phase 4's rows of the static entries, at the shapes of one static
     ALB sssp (``twc_bin_list`` over the frontier, ``twc_bin_relax`` over
     each bin's list with its device count, ``edge_lb_relax`` over the LB
@@ -3183,7 +3229,9 @@ def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
     static pagerank rounds (every vertex listed), one static merge-path
     sssp and two static merge-path pagerank rounds (``merge_path_relax``
     over the LB-all list with its device count and total, an E-id span),
-    each held against its plain version and timed beside it, the route
+    and, for ``twc_bin_list``, one static ALB ``sssp_batch`` (B = 8:
+    an ``[8, V]`` mask), each held against its plain version and timed
+    beside it, the route
     it replaced (the index map and the torch epilogue: for
     ``merge_path_relax`` the map over all E ids) and its bound
     (``edge_lb_relax`` and ``merge_path_relax`` also beside the V-row
@@ -3241,7 +3289,8 @@ def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
             "mean_bytes": top["mean_bytes"], "by_run": timed_runs})
     listed = {"alb": alb["twc_bin_list"], "edge_lb": elb["twc_bin_list"],
               "pagerank": pr["twc_bin_list"],
-              "merge_path": mp["twc_bin_list"]}
+              "merge_path": mp["twc_bin_list"],
+              "sssp_batch": static_calls(g, sources, kern)["twc_bin_list"]}
     for run, cs in listed.items():
         check(len(cs) > 0, f"twc_bin_list: no launch ({run})")
     timed_runs = {run: time_list(cs) for run, cs in listed.items()}
@@ -3249,8 +3298,9 @@ def time_static_kernels(g, src, launches: dict, captured: dict) -> list:
     rows.append({
         "name": "twc_bin_list", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/twc_list.cu",
-        "replaces": "none: no TPU kernel (the static round's per-bin "
-                    "jnp.where layout, src/repro/core/balancer.py:999)",
+        "replaces": "none: no TPU kernel (the static round's frontier "
+                    "layout and per-bin jnp.where layout, "
+                    "src/repro/core/balancer.py:989-990, :999)",
         "launches": launches["twc_bin_list"],
         "captured": captured["twc_bin_list"],
         "max_abs_err": max(r["max_abs_err"] for r in timed_runs.values()),
@@ -3356,6 +3406,8 @@ def profile_path(runs: dict, wall_s: dict, label: str = "phase 4") -> dict:
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
         plain_wall_us = wall_s[name] * 1e6
         plan = [v for n, v in by_name.items() if "moe_plan" in n]
+        index = [v for n, v in by_name.items()
+                 if "index_elementwise_kernel" in n]
         out[name] = {
             "profiled_wall_ms": wall_us / 1e3,
             "unprofiled_wall_ms": plain_wall_us / 1e3,
@@ -3364,6 +3416,8 @@ def profile_path(runs: dict, wall_s: dict, label: str = "phase 4") -> dict:
             "launches": sum(v[1] for v in by_name.values()),
             "moe_plan_ms": sum(v[0] for v in plan) / 1e3,
             "moe_plan_launches": sum(v[1] for v in plan),
+            "index_elementwise_ms": sum(v[0] for v in index) / 1e3,
+            "index_elementwise_launches": sum(v[1] for v in index),
             "top": [[n, round(t / 1e3, 4), c] for n, (t, c) in top]}
         print(f"{label}: profiled {name}: device busy "
               f"{busy_us / 1e3:.2f} ms of the unprofiled median wall "
@@ -3371,7 +3425,10 @@ def profile_path(runs: dict, wall_s: dict, label: str = "phase 4") -> dict:
               + (f"({busy_us / plain_wall_us:.1%})" if busy_us else
                  "(profiler saw no device time: not measured)")
               + f"; profiled wall {wall_us / 1e3:.2f} ms; "
-              f"{out[name]['launches']} kernel launches", flush=True)
+              f"{out[name]['launches']} kernel launches; "
+              f"index_elementwise_kernel "
+              f"{out[name]['index_elementwise_launches']}x "
+              f"{out[name]['index_elementwise_ms']:.3f} ms", flush=True)
         for n, t, c in out[name]["top"]:
             print(f"{label}:   {t:9.3f} ms {c:5d}x {n}", flush=True)
     return out
@@ -4942,7 +4999,7 @@ def main() -> int:
         by_phase.setdefault(k, {})["3c"] = \
             user["launches"][k] + user["merge_path"]["launches"][k]
     rows = time_kernels(g, src, sources, errs, launches)
-    static_rows = time_static_kernels(g, src, static_launches,
+    static_rows = time_static_kernels(g, src, sources, static_launches,
                                       sp["captured"])
     for r in static_rows:
         r["phase2_err"] = static_errs.get(r["name"].split()[0])

@@ -7,9 +7,12 @@ port, on one card: for comparing two commits in one call.
 ``GRAPH_DIR`` caches ``rmat(22, 16, seed=0)`` as ``g.npz`` (built on the
 first run, loaded by the next, so that runs of two checkouts in turns
 share one graph).  Prints one ``RESULT {...}`` JSON line: the card, the
-device span of fused sssp (alb, edge_lb, twc and merge_path) and
-pagerank (20 rounds; the kernel pair and merge_path; CUDA events,
-median of 6), the merge-path pair's static launch at one static
+device span of fused sssp (alb, edge_lb, twc and merge_path),
+sssp_batch (B = 8) and pagerank (20 rounds; the kernel pair and
+merge_path; CUDA events, median of 6), the device profile of sssp and
+pagerank in ``mode="spmd"`` (launches, busy ms and the
+``index_elementwise_kernel`` ms), the merge-path pair's static launch
+at one static
 merge-path sssp's and two static pagerank rounds' shapes
 (``merge_path_relax`` beside the route it replaced, where the checkout
 has it, else ``merge_path_map`` alone), ``twc_bin_relax``'s static
@@ -20,14 +23,67 @@ static entry at one static ALB sssp's, one static edge_lb sssp's and
 two static pagerank rounds' shapes (and each ALB sssp call alone: its
 total, its slots, its time and the time of the same launch with a total
 of 0), ``twc_bin_list`` at the shapes
-where the checkout lists (ALB sssp, edge_lb sssp, pagerank), and the
-host round's ``twc_bin_relax`` calls of one sssp, one group a row and
-through the static schedule.  Needs a CUDA device.
+where the checkout lists (ALB sssp, edge_lb sssp, pagerank, ALB
+sssp_batch), each call in the checkout's own signature (recorded by its
+``chip_smoke.capture_launches``, timed by its ``time_list``), the
+host round's ``twc_bin_relax`` calls of one sssp, one group a row
+and through the static schedule, and, where the checkout's listing
+reads the dense mask, where its time goes (``list_sweep``).  Needs a
+CUDA device.
 """
+import inspect
 import json
 import sys
 import time
 from pathlib import Path
+
+
+def list_sweep(cs, g) -> dict:
+    """Where ``twc_bin_list``'s time goes at ``g``'s V, with alb's bins
+    and its huge (LB) bin: the listing over ``[R, V]`` masks, R = 1 and
+    8, that list nothing, a sparse union (0.1% of the vertices), 5% and
+    every vertex (each beside its bound, ``chip_smoke.list_work``, and
+    ``mask.any(0)``: torch reading the same mask); then empty ``[1, V']``
+    masks over 1 to 1,024 tiles of 4,096 vertices (V' = 4,096 t, a
+    ``row_ptr`` of zeros), whose time beyond one tile's is the mask read
+    and the look-back across tiles; and the wrapper's scratch zeroing
+    alone at ``g``'s V."""
+    import torch
+    from repro_torch.kernels import relax
+    dev, v = g.row_ptr.device, g.num_vertices
+    bounds = cs.LB_LIST_BOUNDS["alb+lb"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {"masks": [], "empty_tiles": []}
+    for r in (1, 8):
+        for name, p in (("empty", 0.0), ("sparse", 1e-3), ("5%", 0.05),
+                        ("all", 1.0)):
+            mask = torch.rand((r, v), generator=gen, device=dev) < p / r
+            if p == 1.0:
+                mask.fill_(True)
+            calls = [((mask, g.row_ptr, bounds), {"lb": True})]
+            lists = relax.twc_bin_list(*calls[0][0], lb=True)
+            bms, _, nbytes = cs.bound(cs.list_work, calls)
+            out["masks"].append({
+                "r": r, "mask": name,
+                "listed": int(mask.any(0).sum()),
+                "members": int(lists.count.sum()),
+                "ms": cs.device_ms(relax.twc_bin_list, calls),
+                "bound_ms": bms, "bytes": nbytes,
+                "any_ms": cs.device_ms(lambda m: m.any(0),
+                                       [((mask,), {})])})
+    for tiles in (1, 8, 64, 256, 1024):
+        n = 4096 * tiles
+        mask = torch.zeros((1, n), dtype=torch.bool, device=dev)
+        rp = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        out["empty_tiles"].append({
+            "tiles": tiles, "v": n,
+            "ms": cs.device_ms(relax.twc_bin_list,
+                               [((mask, rp, bounds), {"lb": True})])})
+    size = relax._list_scratch()(v, len(bounds))
+    out["scratch_zeros_ms"] = cs.device_ms(
+        lambda: torch.zeros(size, dtype=torch.int32, device=dev), [((), {})])
+    return out
 
 
 def main() -> int:
@@ -64,6 +120,9 @@ def main() -> int:
                  col_idx=g.col_idx.cpu().numpy(),
                  edge_w=g.edge_w.cpu().numpy())
     src = int(tg.highest_out_degree_vertex(g))
+    deg = np.diff(g.row_ptr.cpu().numpy())
+    sources = [src] + [int(x) for x in np.random.default_rng(0).choice(
+        np.flatnonzero(deg), 7, replace=False)]
     print(label, "set-up", time.perf_counter() - t0, flush=True)
     kern = BalancerConfig(strategy="alb", use_pallas=True)
     twc = BalancerConfig(strategy="twc", use_pallas=True)
@@ -76,6 +135,23 @@ def main() -> int:
                          device=dev)
         lab[src] = 0
         return lab, lab == 0
+
+    def batch():
+        lab = torch.full((len(sources), g.num_vertices), int(INF),
+                         dtype=torch.int32, device=dev)
+        lab[torch.arange(len(sources)), torch.tensor(sources)] = 0
+        return lab, lab == 0
+
+    def batch_calls(cfg):
+        """The launches of one static sssp_batch, round by round, in
+        this checkout's signature."""
+        def run():
+            lab, fr = batch()
+            while bool(fr.any()):
+                new = balancer._relax_spmd_impl(g, lab, lab, fr, cfg,
+                                                tops.SSSP_RELAX)
+                fr, lab = new < lab, new
+        return cs.capture_launches(run)
     rg = g.reverse()
     outdeg = g.out_degrees().to(torch.float32)
     inv_out = torch.where(outdeg > 0, 1.0 / torch.clamp(outdeg, min=1.0),
@@ -89,6 +165,8 @@ def main() -> int:
                                                    tops.SSSP_RELAX)[:3],
         "sssp/merge_path": lambda: balancer.run_fused(
             g, *single(), mpc, tops.SSSP_RELAX)[:3],
+        "sssp_batch": lambda: balancer.run_fused(g, *batch(), kern,
+                                                 tops.SSSP_RELAX)[:3],
         "pagerank": lambda: drivers._pagerank_fused(
             rg, inv_out, outdeg == 0, 0.85, 0.0, kern, 20, False)[:2],
         "pagerank/merge_path": lambda: drivers._pagerank_fused(
@@ -99,6 +177,18 @@ def main() -> int:
     out["fused_span_ms"] = {
         k: float(np.median([cs.event_span_ms(fn) for _ in range(6)]))
         for k, fn in fused.items()}
+    spmd = {"sssp/spmd": lambda: drivers.sssp(g, src, kern, mode="spmd"),
+            "pagerank/spmd": lambda: drivers.pagerank(
+                g, cfg=kern, max_rounds=20, tol=0.0, mode="spmd")}
+    walls = {k: float(np.median([fn().seconds for _ in range(4)]))
+             for k, fn in spmd.items()}
+    prof = cs.profile_path(spmd, walls, label=label)
+    out["spmd_profile"] = {
+        k: {"launches": r["launches"], "device_ms": r["device_ms"],
+            "wall_ms": walls[k] * 1e3,
+            "index_elementwise_ms": sum(t for n, t, _ in r["top"]
+                                        if "index_elementwise" in n)}
+        for k, r in prof.items()}
     alb = cs.static_calls(g, src, kern)
     tw = cs.static_calls(g, src, twc)
     el = cs.static_calls(g, src, elb)
@@ -112,6 +202,7 @@ def main() -> int:
         runs["pagerank"] = pr["twc_bin_relax"]
         lb_runs["pagerank"] = pr["edge_lb_relax"]
         listed["pagerank"] = pr["twc_bin_list"]
+    listed["sssp_batch"] = batch_calls(kern)["twc_bin_list"]
     # a checkout lists the edge_lb strategy only if it lists its LB bin
     out["list"] = {r: cs.time_list(c) for r, c in listed.items() if c}
     out["static_relax"] = {r: cs.time_relax("twc_bin_relax", c)
@@ -141,6 +232,9 @@ def main() -> int:
     schedule = getattr(cs, "static_schedule_ms", None) or \
         getattr(cs, "tile_walk_ms")
     out["static_schedule_ms"] = schedule(host)
+    if next(iter(inspect.signature(relax.twc_bin_list).parameters)) == \
+            "mask":                          # a checkout that reads it
+        out["list_sweep"] = list_sweep(cs, g)
     out["seconds"] = time.perf_counter() - t0
     print("RESULT " + json.dumps(out), flush=True)
     return 0

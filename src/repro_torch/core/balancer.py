@@ -65,7 +65,7 @@ import torch
 from . import graph_loop
 from .graph import Graph
 from .frontier import (next_bucket, compact, count, dirty_mask,
-                       rows_active, union_frontier)
+                       frontier_meta, rows_active, union_frontier)
 from .operators import Operator, as_pull
 from .scatter import scatter_combine
 from .wire import validate_wire
@@ -264,15 +264,17 @@ class ExecutorPair:
                changes nothing; ``start_e`` and ``rows`` (a device
                int32), given by the static round with a ``bin_list``,
                are the LB list's degree prefix and member count
-    bin_list: optional, the static round's bin listing: (fidx, deg,
-               row_start, n_listed, bounds, op, labels_dtype, lb) ->
-               ``kernels.ref.BinLists`` | None: each bin ``(lo, hi)`` of
-               ``bounds``'s members among the frontier layout's rows
-               ``[0, n_listed)``, once a round, in frontier order, with
-               their device counts and largest degrees, and with ``lb``
-               the last bin, the LB bin's, with its degree prefix and
-               device total; None for an operator the pair lists no
-               bins for.  Without it (or on None) the static round lays
+    bin_list: optional, the static round's bin listing: (g, mask,
+               bounds, op, labels_dtype, lb) -> ``kernels.ref.BinLists``
+               | None: each bin ``(lo, hi)`` of ``bounds``'s members
+               among the vertices the dense ``mask`` (bool ``[R, V]``,
+               its rows OR-ed: the round's frontier, or a pull round's
+               ``emask[None]``) lists, degrees from ``g.row_ptr``, once
+               a round, in vertex order, with their device counts and
+               largest degrees, and with ``lb`` the last bin, the LB
+               bin's, with its degree prefix and device total; None for
+               an operator the pair lists no bins for.  Without it (or
+               on None) the static round compacts the frontier and lays
                every bin and the LB bin over V rows, as the JAX package
                does
 
@@ -412,17 +414,6 @@ def _unpack_stats(p: torch.Tensor, num_tiles: int) -> RoundStatsDev:
 # ---------------------------------------------------------------------------
 # torch-ops building blocks (the "xla" executor)
 # ---------------------------------------------------------------------------
-
-def _frontier_meta(g: Graph, frontier_idx: torch.Tensor):
-    """degree / row start / validity for a compacted frontier."""
-    v = g.num_vertices
-    valid = frontier_idx < v
-    safe = torch.where(valid, frontier_idx, 0)
-    lo = g.row_ptr[safe]
-    deg = torch.where(valid, g.row_ptr[safe + 1] - lo, 0)
-    row_start = torch.where(valid, lo, 0)
-    return deg, row_start, valid
-
 
 def _bin_pass_impl(g: Graph, values, labels, fmask, vidx, deg, row_start,
                    width: int, op: Operator, chunk, passes=1, rows=None):
@@ -659,7 +650,7 @@ def _build_pull_enum(g: Graph, cfg: BalancerConfig) -> _PullEnum:
     cnt = cnt.cpu().numpy()  # repro: allow[host-sync] -- one-time set-up, cached per graph and config, not per round
     fcap = next_bucket(int(cnt[0]))
     fidx = compact(union, fcap)
-    deg, row_start, valid = _frontier_meta(rg, fidx)
+    deg, row_start, valid = frontier_meta(rg.row_ptr, fidx)
     bins, lb = _assemble_bins(cnt, effective_plan(cfg), cfg, fidx, deg,
                               row_start, valid, fcap, v)
     return _PullEnum(rg, emask, bins, lb)
@@ -772,7 +763,7 @@ def relax(g: Graph, values: torch.Tensor, labels: torch.Tensor,
     else:
         fcap = next_bucket(nf)
         fidx = compact(union, fcap)
-        deg, row_start, valid = _frontier_meta(g, fidx)
+        deg, row_start, valid = frontier_meta(g.row_ptr, fidx)
         bins, lb = _assemble_bins(cnt, plan, cfg, fidx, deg, row_start,
                                   valid, fcap, v)
         labels = _run_plan_host(g, values, labels, frontier, plan, cfg,
@@ -791,11 +782,14 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
                      collect_stats: bool = False, return_dirty: bool = False,
                      emask: Optional[torch.Tensor] = None,
                      owned: bool = False):
-    """Static-shape ALB round: bins over ``compact(union or emask, V)``
-    at capacity V (sentinel ``V`` for non-members), or, through a pair
-    with a ``bin_list`` hook, each bin's members and the LB bin's
-    listed once from it with device counts (the LB bin also with its
-    degree prefix and device total); the LB span at E ids;
+    """Static-shape ALB round: through a pair with a ``bin_list`` hook,
+    each bin's members and the LB bin's listed once, straight from the
+    dense frontier (or ``emask``) and ``row_ptr``, with device counts
+    (the LB bin also with its degree prefix and device total); else
+    (no hook, or an operator the hook lists nothing for) bins over
+    ``compact(union or emask, V)`` at capacity V (sentinel ``V`` for
+    non-members), the frontier layout that ``collect_stats``' V-row
+    masks read too; the LB span at E ids;
     a bounded bin runs its static passes, an unbounded one (twc's large
     bin, the vertex strategy) its pass count ``ceil(max_deg / W)``
     computed on the device, and the LB path always runs with the device
@@ -808,7 +802,9 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
     ``collect_stats`` and/or ``(..., dirty)`` with ``return_dirty``.
     ``tile_loads_twc`` deals the static V slots to tiles, so it differs
     from the host round's bucketed deal.  Accepts ``[V]`` or ``[B, V]``
-    state.  ``emask`` (a pull round over the reverse CSR) enumerates
+    state, and a frontier of any strides or dtype (the pair's hooks are
+    handed it as a contiguous bool).  ``emask`` (a pull round over the
+    reverse CSR) enumerates
     the vertices it marks instead of the union frontier.  ``owned``:
     ``labels`` is a private buffer that an ``in_place`` pair may combine
     into (the fused round's direction branches share one)."""
@@ -816,14 +812,12 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
     if not batched:
         values, labels, frontier = (values[None], labels[None],
                                     frontier[None])
+    # the kernels take a contiguous bool frontier and copy nothing: a
+    # view or a non-bool mask is made one here (free when it is one)
+    frontier = frontier.to(torch.bool).contiguous()
     labels_in = labels
     v = labels.shape[-1]
     dev = labels.device
-    union = union_frontier(frontier)
-    listed = union if emask is None else emask
-    fidx = compact(listed, v)
-    n_listed = count(listed)           # bin rows past it are all empty
-    deg, row_start, valid = _frontier_meta(g, fidx)
     ex = get_executor(cfg.executor)
     plan = effective_plan(cfg)
     if ex.in_place and not owned:
@@ -834,15 +828,21 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
 
     edges_twc, tl_twc = zeros(), zeros(cfg.num_tiles)
     # a pair with a listing hook lists each bin's members and the LB
-    # bin's once, and each launch takes its list and count; else every
-    # bin spans V rows
+    # bin's once, from the dense frontier, and each launch takes its
+    # list and count; else every bin spans the V-row frontier layout
     has_lb = plan.lb != "none"
     bounds = tuple((s.lo, s.hi) for s in plan.bins) + \
         ((plan.lb_bound(cfg),) if has_lb else ())
     lists = None
     if bounds and ex.bin_list is not None:
-        lists = ex.bin_list(fidx, deg, row_start, n_listed, bounds, op,
-                            labels.dtype, has_lb)
+        lists = ex.bin_list(g, frontier if emask is None else emask[None],
+                            bounds, op, labels.dtype, has_lb)
+    if lists is None or collect_stats:
+        union = union_frontier(frontier)
+        listed = union if emask is None else emask
+        fidx = compact(listed, v)
+        n_listed = count(listed)       # bin rows past it are all empty
+        deg, row_start, valid = frontier_meta(g.row_ptr, fidx)
     for i, spec in enumerate(plan.bins):
         mask = None
         if lists is not None:

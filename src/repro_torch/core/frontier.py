@@ -48,6 +48,20 @@ def compact(mask: torch.Tensor, size: int) -> torch.Tensor:
     return out[:size]
 
 
+def frontier_meta(row_ptr: torch.Tensor, frontier_idx: torch.Tensor):
+    """degree / row start / validity for a compacted frontier over the
+    CSR whose row pointers are ``row_ptr`` (``[V + 1]``): an id ``>= V``
+    (the sentinel) is invalid, with degree 0 and row start 0 —
+    ``_frontier_meta`` of ``repro.core.balancer``."""
+    v = row_ptr.shape[0] - 1
+    valid = frontier_idx < v
+    safe = torch.where(valid, frontier_idx, 0)
+    lo = row_ptr[safe]
+    deg = torch.where(valid, row_ptr[safe + 1] - lo, 0)
+    row_start = torch.where(valid, lo, 0)
+    return deg, row_start, valid
+
+
 def count(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum(dtype=torch.int32)
 

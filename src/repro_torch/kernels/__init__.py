@@ -9,8 +9,9 @@
   C++), the merge-path pass over every frontier edge fused the same way
   (the tile walk ``csrc/tile_relax.cuh`` is ``edge_lb_relax``'s too);
 * ``relax.twc_bin_list``        — ``csrc/twc_list.cu`` (CUDA C++), no TPU
-  kernel: each degree bin's members of a static round listed once a
-  round, in frontier order, for ``twc_bin_relax``, and the LB bin's for
+  kernel: the static round's frontier inspector, each degree bin's
+  members listed once a round from the dense frontier and ``row_ptr``,
+  in vertex order, for ``twc_bin_relax``, and the LB bin's for
   ``edge_lb_relax`` / ``merge_path_relax``;
 * ``twc_gather.twc_bin_map``    — ``csrc/twc_gather.cu`` (CUDA C++), the
   index map of a degree bin (the Pallas kernel's counterpart);

@@ -37,10 +37,11 @@ the host.  They stand for the JAX package's
 ``twc_bin_apply_static`` / ``edge_lb_apply_static`` /
 ``merge_path_apply_static`` too.  Both pairs' static round first lists
 each bin's members once, and the LB bin's with their edge prefix and
-total (``list_bins``, the registry's ``bin_list``: one
-``relax.twc_bin_list`` launch; the merge-path plan's one bin is its
-LB-all bin), where JAX lays every bin over V rows and the merge-path
-map enumerates all E ids.
+total, straight from the dense frontier and ``row_ptr`` (``list_bins``,
+the registry's ``bin_list``: one ``relax.twc_bin_list`` launch; the
+merge-path plan's one bin is its LB-all bin), where JAX compacts the
+frontier, lays every bin over V rows and the merge-path map enumerates
+all E ids.
 
 Entries are batched: ``values`` / ``labels`` / ``fmask`` are ``[B, V]``
 while the enumeration is batch-shared, so each kernel runs ONCE per
@@ -131,12 +132,12 @@ def merge_path_no_bins(*_args, **_kwargs):
                        "its bin executor entries are unreachable")
 
 
-def list_bins(fidx, deg, row_start, n_listed, bounds, op, labels_dtype,
-              lb: bool = False):
+def list_bins(g, mask, bounds, op, labels_dtype, lb: bool = False):
     """The kernel pairs' bin listing of the static round: one
-    ``twc_bin_list`` launch over the frontier layout's rows ``[0,
-    n_listed)``, each bin ``(lo, hi)`` of ``bounds`` compacted in
-    frontier order (a ``ref.BinLists``), for :func:`twc_bin_apply` with
+    ``twc_bin_list`` launch over the dense ``mask`` (bool ``[R, V]``:
+    the round's frontier, or a pull round's ``emask[None]``) and
+    ``g.row_ptr``, each bin ``(lo, hi)`` of ``bounds`` compacted in
+    vertex order (a ``ref.BinLists``), for :func:`twc_bin_apply` with
     ``rows`` its member count; with ``lb`` the last bin is the LB bin,
     listed with its edge prefix and total for :func:`edge_lb_apply` or
     :func:`merge_path_apply`.
@@ -144,8 +145,7 @@ def list_bins(fidx, deg, row_start, n_listed, bounds, op, labels_dtype,
     route keeps the round's V-row layout."""
     if not _relax.takes(op, labels_dtype):
         return None
-    return _relax.twc_bin_list(fidx, deg, row_start, n_listed, bounds,
-                               lb=lb)
+    return _relax.twc_bin_list(mask, g.row_ptr, bounds, lb=lb)
 
 
 def twc_bin_apply(g, values, labels, fmask, bvidx, bdeg, brow,

@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.frontier import compact, count
+from repro_torch.core.frontier import compact, count, frontier_meta
 from repro_torch.core.scatter import scatter_combine
 
 
@@ -130,13 +130,14 @@ def twc_bin_relax_ref(values, labels, fmask, col_idx, edge_w, vidx, deg,
 
 
 class BinLists(NamedTuple):
-    """Each bin's members of a static round, in frontier order:
-    ``vidx`` / ``deg`` / ``row_start`` int32 ``[nbins, N]``, whose rows
-    ``[0, count[b])`` are bin ``b``'s members (the plain version pads the
-    rest with the sentinel ``N``, deg 0 and row 0; the kernel leaves them
-    unwritten); ``count`` and ``max_deg`` int32 ``[nbins]``, the members
-    and their largest degree (0 for an empty bin).  When the last bin is
-    the plan's edge-balanced (LB) bin, ``start_e`` (int32 ``[N]``) is the
+    """Each bin's members of a static round, in vertex order (the order
+    the compacted frontier lists them in): ``vidx`` / ``deg`` /
+    ``row_start`` int32 ``[nbins, V]``, whose rows ``[0, count[b])`` are
+    bin ``b``'s members (the plain version pads the rest with the
+    sentinel ``V``, deg 0 and row 0; the kernel leaves them unwritten);
+    ``count`` and ``max_deg`` int32 ``[nbins]``, the members and their
+    largest degree (0 for an empty bin).  When the last bin is the
+    plan's edge-balanced (LB) bin, ``start_e`` (int32 ``[V]``) is the
     exclusive prefix of its members' degrees in list order (the plain
     version pads it with the total) and ``total`` (a 0-d int32) their
     sum; else both are None."""
@@ -149,21 +150,24 @@ class BinLists(NamedTuple):
     total: Optional[torch.Tensor] = None
 
 
-def twc_bin_list_ref(fidx, deg, row_start, n_listed, bounds, *,
-                     lb: bool = False) -> BinLists:
-    """Oracle for relax.twc_bin_list: rows ``[0, n_listed)`` of a
-    frontier layout (``fidx`` / ``deg`` / ``row_start``, int32 ``[N]``;
-    ``fidx >= N`` a sentinel), each bin ``(lo, hi)`` of ``bounds``
-    compacted (``core.frontier.compact``) over its mask ``lo < deg``
-    and, unless ``hi`` is None, ``deg <= hi``: the rows a static round's
-    V-row layout marks for that bin, in the same order.  With ``lb`` the
-    last bin's degrees, padded with 0, give ``start_e`` (their exclusive
-    cumsum, so the padding holds the total, as the host round's
-    bucketed gather pads) and ``total``.  ``n_listed`` is an int or a
-    one-element int32 tensor."""
-    n = fidx.shape[0]
-    dev = fidx.device
-    valid = (fidx < n) & (torch.arange(n, device=dev) < n_listed)
+def twc_bin_list_ref(mask, row_ptr, bounds, *, lb: bool = False) -> BinLists:
+    """Oracle for relax.twc_bin_list: the vertices ``mask`` (bool ``[R,
+    V]``) lists in any of its rows, in the layout the static round
+    builds without the kernel, then each bin of it.  The union over the
+    R rows is compacted at capacity V (``core.frontier.compact``), each
+    row takes its degree and row start from ``row_ptr`` (int32 ``[V +
+    1]``) by ``core.frontier.frontier_meta`` (deg 0 and row 0 at the
+    sentinel ``V``), as the static round does, and each bin ``(lo, hi)`` of ``bounds`` is
+    compacted over the rows with ``lo < deg`` and, unless ``hi`` is
+    None, ``deg <= hi``: the rows the V-row layout marks for that bin,
+    in the same order.  With ``lb`` the last bin's degrees, padded with
+    0, give ``start_e`` (their exclusive cumsum, so the padding holds
+    the total, as the host round's bucketed gather pads) and
+    ``total``."""
+    n = mask.shape[-1]
+    dev = mask.device
+    fidx = compact(mask.any(dim=0), n)
+    deg, row_start, valid = frontier_meta(row_ptr, fidx)
     cols = {k: [] for k in BinLists._fields[:5]}
     for lo, hi in bounds:
         m = valid & (deg > lo)

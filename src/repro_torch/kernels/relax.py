@@ -15,8 +15,9 @@ combines into ``labels`` with atomics, so no index tile reaches device
 memory.  They replace, on the main path, the Pallas TPU kernels
 ``twc_bin_map`` / ``edge_lb_map`` / ``merge_path_map`` together with
 the gather/scatter epilogue the JAX package leaves to XLA.
-``csrc/twc_list.cu`` (no TPU kernel) lists each degree bin's members of
-a static round in frontier order, and the edge-balanced (LB) bin's with
+``csrc/twc_list.cu`` (no TPU kernel) is the static round's frontier
+inspector: from the dense frontier and ``row_ptr`` it lists each degree
+bin's members in vertex order, and the edge-balanced (LB) bin's with
 their edge prefix and total, so that each bin's ``twc_bin_relax``
 launch and the ``edge_lb_relax`` or ``merge_path_relax`` launch run
 over their members alone.
@@ -169,8 +170,8 @@ def twc_bin_relax(values: torch.Tensor, labels: torch.Tensor,
     return labels
 
 
-# rows a list may hold: the listing kernel packs a tile's prefix count in
-# 31 bits of its status word
+# vertices a list may hold: the listing kernel packs a tile's prefix count
+# in 31 bits of its status word
 _LIST_ROWS = 1 << 30
 _NO_CAP = (1 << 31) - 1
 
@@ -178,48 +179,55 @@ _NO_CAP = (1 << 31) - 1
 @functools.cache
 def _list_scratch():
     """``twc_bin_list_scratch`` of ``csrc/twc_list.cu``: the int32
-    scratch a launch over ``(n rows, nb bins)`` needs zeroed."""
+    scratch a launch over ``(V vertices, nb bins)`` needs zeroed."""
     fn = build.load("twc_list").twc_bin_list_scratch
     fn.argtypes, fn.restype = [_I, _I], _I
     return fn
 
 
-def twc_bin_list(fidx: torch.Tensor, deg: torch.Tensor,
-                 row_start: torch.Tensor, n_listed, bounds, *,
+def twc_bin_list(mask: torch.Tensor, row_ptr: torch.Tensor, bounds, *,
                  lb: bool = False) -> BinLists:
-    """List each degree bin's members of a static round, once.
+    """List each degree bin's members of a static round, once, straight
+    from the dense frontier.
 
-    Rows ``[0, n_listed)`` of a frontier layout (``fidx`` / ``deg`` /
-    ``row_start``: int32 ``[N]``, as ``balancer._frontier_meta`` gives
-    them; ``fidx >= N`` is a sentinel) go to the bin ``(lo, hi)`` of
-    ``bounds`` (1 to 4 disjoint ranges ``lo < deg <= hi``, ``hi`` None
-    for no cap) that holds their degree.  With ``lb`` the last bin is
-    the plan's edge-balanced (LB) bin: its list also carries the
-    exclusive prefix of its members' degrees and their total.
-    ``n_listed`` is a host int or a one-element int32 tensor on the
-    device, which the kernel reads there.  Returns a
-    :class:`ref.BinLists`: each bin's members in frontier order, their
+    ``mask`` is a contiguous bool ``[R, V]`` (R >= 1): a push round's
+    ``[B, V]`` frontier, whose rows are OR-ed, or a pull round's
+    ``emask[None]``.  Each vertex it lists goes to the bin ``(lo, hi)``
+    of ``bounds`` (1 to 4 disjoint ranges ``lo < deg <= hi``, ``hi``
+    None for no cap) that holds its degree ``row_ptr[v + 1] -
+    row_ptr[v]`` (``row_ptr``: int32 ``[V + 1]``).  With ``lb`` the last
+    bin is the plan's edge-balanced (LB) bin: its list also carries the
+    exclusive prefix of its members' degrees and their total.  Nothing
+    is read on the host.  Returns a :class:`ref.BinLists`: each bin's
+    members in vertex order (the compacted frontier's order), their
     count and their largest degree (and the LB bin's ``start_e`` and
     ``total``), on the device, allocated here; rows past a bin's count
     are left unwritten by the kernel.  Each degree bin's list with its
     count feeds one :func:`twc_bin_relax` launch
     (``rows=count[b:b + 1]``), the LB bin's one :func:`edge_lb_relax`
-    launch (``rows=count[-1:]``)."""
-    n, dev = fidx.shape[0], fidx.device
+    or :func:`merge_path_relax` launch (``rows=count[-1:]``).  Raises on
+    a mask that is not a contiguous bool ``[R, V]`` or whose V is not
+    ``row_ptr``'s; it is never copied or converted here."""
     nb = len(bounds)
     if not 1 <= nb <= 4:
         raise ValueError(f"twc_bin_list: 1 to 4 bins, got {nb}")
-    for name, t in (("fidx", fidx), ("deg", deg), ("row_start", row_start)):
-        build.check_vec("twc_bin_list", name, t, n, dev)
+    if mask.dtype != torch.bool:
+        raise TypeError(f"twc_bin_list: mask must be torch.bool, got "
+                        f"{mask.dtype}")
+    if mask.ndim != 2 or mask.shape[0] < 1 or not mask.is_contiguous():
+        raise ValueError(f"twc_bin_list: mask must be a contiguous bool "
+                         f"[R, V] with R >= 1; got {tuple(mask.shape)}, "
+                         f"strides {mask.stride()}")
+    r, n = mask.shape
+    dev = mask.device
+    build.check_vec("twc_bin_list", "row_ptr", row_ptr, n + 1, dev)
     if dev.type == "cpu":
-        return twc_bin_list_ref(fidx, deg, row_start, n_listed, bounds,
-                                lb=lb)
+        return twc_bin_list_ref(mask, row_ptr, bounds, lb=lb)
     if dev.type != "cuda":
         raise ValueError(f"twc_bin_list runs on cuda or cpu, not {dev}")
     if n >= _LIST_ROWS:
-        raise ValueError(f"twc_bin_list: {n} rows exceed {_LIST_ROWS - 1}")
-    n_ptr, n_host = build.scalar_arg("twc_bin_list", "n_listed", n_listed,
-                                     dev)
+        raise ValueError(f"twc_bin_list: {n} vertices exceed "
+                         f"{_LIST_ROWS - 1}")
     scratch = torch.zeros(_list_scratch()(n, nb), dtype=torch.int32,
                           device=dev)
     buf = torch.empty((3 * nb + lb) * n, dtype=torch.int32, device=dev)
@@ -233,12 +241,12 @@ def twc_bin_list(fidx: torch.Tensor, deg: torch.Tensor,
     cut = (_I * (2 * nb))(*[lo for lo, _ in bounds],
                           *[_NO_CAP if hi is None else hi
                             for _, hi in bounds])
-    fn = _launcher("twc_list", "twc_bin_list", 10, 4)
+    fn = _launcher("twc_list", "twc_bin_list", 8, 4)
     _launched("twc_bin_list", fn(
-        fidx.data_ptr(), deg.data_ptr(), row_start.data_ptr(), n_ptr,
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        mask.data_ptr(), row_ptr.data_ptr(), out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(),
         None if start_e is None else start_e.data_ptr(), scratch.data_ptr(),
-        ctypes.addressof(cut), n_host, n, nb, nb - 1 if lb else -1,
+        ctypes.addressof(cut), r, n, nb, nb - 1 if lb else -1,
         torch.cuda.current_stream(dev).cuda_stream))
     build.count_launch(twc_bin_list)
     return lists

@@ -407,20 +407,26 @@ LIST_BOUNDS = {"alb": ((0, 8), (8, 128), (128, 1023)),
                "four": ((0, 1), (1, 8), (8, 40), (40, None))}
 
 
-def _frontier_layout(dev, deg, row_ptr, density, seed):
-    """A static round's frontier layout over a random frontier: the
-    listed vertices first, in order, then sentinels ``V`` (deg 0, row
-    0), as ``balancer._frontier_meta`` gives it; and the listed count."""
-    v = len(deg)
+def _frontier_mask(dev, v, density, seed, r=1):
+    """A static round's dense frontier: a random bool ``[r, V]`` on
+    ``dev`` whose union lists about ``density`` of the vertices."""
     rng = np.random.default_rng(seed)
-    listed = np.flatnonzero(rng.random(v) < density)
-    fidx = np.full(v, v)
-    fidx[:len(listed)] = listed
-    real = fidx < v
-    safe = np.where(real, fidx, 0)
-    cols = [np.where(real, a, f).astype(np.int32)
-            for a, f in ((fidx, v), (deg[safe], 0), (row_ptr[safe], 0))]
-    return [torch.from_numpy(a).to(dev) for a in cols], len(listed)
+    return torch.from_numpy(rng.random((r, v)) < density / r).to(dev)
+
+
+def _list_masks(dev, v, seed):
+    """The listing's swept masks: sparse and dense, R = 1 and 8, empty
+    and all-set, one vertex, and an R = 1 mask off a 16-byte boundary
+    (the kernel's shifted loads)."""
+    masks = [_frontier_mask(dev, v, d, seed + r, r)
+             for d in (0.05, 0.9) for r in (1, 8)]
+    one = torch.zeros((1, v), dtype=torch.bool, device=dev)
+    one[0, v // 2] = True
+    odd = torch.zeros(v + 1, dtype=torch.bool, device=dev)
+    odd[1:] = _frontier_mask(dev, v, 0.5, seed, 1)[0]
+    return masks + [torch.zeros((3, v), dtype=torch.bool, device=dev),
+                    torch.ones((1, v), dtype=torch.bool, device=dev), one,
+                    odd[1:][None]]
 
 
 def _assert_lists_equal(got, want):
@@ -436,37 +442,41 @@ def _assert_lists_equal(got, want):
         assert torch.equal(got.start_e[:k], want.start_e[:k])
 
 
+def _list_graph(dev, v, seed, hub):
+    """Degrees of a listing sweep (zero-degree runs, 50 heavy vertices
+    of ``hub`` to 3000) and their ``row_ptr`` on ``dev`` twice: aligned,
+    and off a 16-byte boundary (the kernel's scalar loads)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 40, v)
+    deg[rng.integers(0, v, 50)] = rng.integers(hub, 3000, 50)
+    deg[rng.random(v) < 0.1] = 0
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    rp = torch.from_numpy(row_ptr).to(dev)
+    shifted = torch.zeros(v + 2, dtype=torch.int32, device=dev)
+    shifted[1:] = rp
+    return rp, shifted[1:]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("v", [20_000, 3_000_001])
+@pytest.mark.parametrize("v", [1, 20_000, 3_000_001])
 @pytest.mark.parametrize("bins", sorted(LIST_BOUNDS))
 def test_cuda_twc_bin_list_matches_plain(cuda_device, v, bins):
-    """The listing kernel against its plain version: frontier counts 0,
-    1, one tile and one past it, a third, all rows (given on the card
-    and as host ints), dense and sparse frontiers, a V that is no
-    multiple of 4 and inputs off a 16-byte boundary (the kernel's
-    scalar loads); members, counts and largest degrees equal."""
-    rng = np.random.default_rng(v)
-    deg = rng.integers(0, 40, v)
-    deg[rng.integers(0, v, 50)] = rng.integers(100, 3000, 50)
-    deg[rng.random(v) < 0.1] = 0
-    row_ptr = np.concatenate([[0], np.cumsum(deg)])
+    """The listing kernel against its plain version over swept masks:
+    sparse and dense, R = 1 and 8 (OR-ed in the kernel), empty, all-set
+    and one vertex, a V that is no multiple of the tile (and of 16:
+    rows after the first start unaligned), V = 1, a mask and a
+    ``row_ptr`` off a 16-byte boundary; members, counts and largest
+    degrees equal."""
+    rp, shifted = _list_graph(cuda_device, v, v, 100)
     bounds = LIST_BOUNDS[bins]
     before = trelax.twc_bin_list.launches
     launched = 0
-    for density in (0.05, 0.9):
-        rows, n = _frontier_layout(cuda_device, deg, row_ptr, density,
-                                   int(density * 100))
-        for cut in sorted({0, 1, 1024, 1025, n // 3, n}):
-            for bound in (cut, _dev_int(cut, cuda_device)):
-                got = trelax.twc_bin_list(*rows, bound, bounds)
-                want = tref.twc_bin_list_ref(*rows, cut, bounds)
-                _assert_lists_equal(got, want)
-                launched += 1
-        odd = [r[1:] for r in rows]                 # 4-byte aligned only
-        got = trelax.twc_bin_list(*odd, _dev_int(n - 1, cuda_device),
-                                  bounds)
-        _assert_lists_equal(got, tref.twc_bin_list_ref(*odd, n - 1, bounds))
-        launched += 1
+    for mask in _list_masks(cuda_device, v, v):
+        for row_ptr in (rp, shifted):
+            got = trelax.twc_bin_list(mask, row_ptr, bounds)
+            want = tref.twc_bin_list_ref(mask, row_ptr, bounds)
+            _assert_lists_equal(got, want)
+            launched += 1
     torch.cuda.synchronize()
     assert trelax.twc_bin_list.launches == before + launched
 
@@ -478,14 +488,16 @@ def test_cuda_twc_bin_relax_on_lists_matches_plain(cuda_device, op, b):
     """The static entry over a bin list: the kernel's own lists with
     their device counts, and the plain version's (padded with
     sentinels) with device counts 0, 1 and V, each pass count of the
-    bin; the same labels as ``twc_bin_relax_ref`` given the same rows."""
+    bin, over a frontier of B rows; the same labels as
+    ``twc_bin_relax_ref`` given the same rows."""
     col, w, row_ptr, deg = _relax_graph(cuda_device)
     v = len(deg)
-    rows, n = _frontier_layout(cuda_device, deg, row_ptr, 0.5, b)
+    mask = _frontier_mask(cuda_device, v, 0.5, b, b)
+    rp = torch.from_numpy(row_ptr).to(cuda_device)
     val, lab, fm = _relax_state(cuda_device, op, b, v, b + 5)
     bounds = LIST_BOUNDS["twc"]
-    kern = trelax.twc_bin_list(*rows, _dev_int(n, cuda_device), bounds)
-    plain = tref.twc_bin_list_ref(*rows, n, bounds)
+    kern = trelax.twc_bin_list(mask, rp, bounds)
+    plain = tref.twc_bin_list_ref(mask, rp, bounds)
     for i, width in enumerate((8, 128, 1024)):
         most = -(-int(plain.max_deg[i]) // width)
         for passes in sorted({1, most}):
@@ -508,19 +520,19 @@ def test_cuda_twc_bin_relax_on_lists_matches_plain(cuda_device, op, b):
 @pytest.mark.gpu
 def test_cuda_listed_bins_replay_with_a_new_count(cuda_device):
     """The listing and the list-fed bin launches captured once
-    (``graph_loop.run``) and replayed with other frontier counts: each
-    replay equals the same launches run eagerly on the CPU's plain
-    versions, and no replay captures again."""
+    (``graph_loop.run``) and replayed with other frontiers: each replay
+    equals the same launches run eagerly on the CPU's plain versions,
+    and no replay captures again."""
     from repro_torch.core import graph_loop as gl
     col, w, row_ptr, deg = _relax_graph(cuda_device)
     v = len(deg)
-    rows, n = _frontier_layout(cuda_device, deg, row_ptr, 0.6, 9)
+    rp = torch.from_numpy(row_ptr).to(cuda_device)
     val, lab, fm = _relax_state(cuda_device, "SSSP_RELAX", 2, v, 4)
     bounds = LIST_BOUNDS["alb"]
     op = _relax_op("SSSP_RELAX")
 
-    def round_(lab, n_listed, *layout):
-        lists = trelax.twc_bin_list(*layout, n_listed, bounds)
+    def round_(lab, mask):
+        lists = trelax.twc_bin_list(mask, rp, bounds)
         lab = lab.clone()
         for i, width in enumerate((8, 128, 1024)):
             lab = trelax.twc_bin_relax(
@@ -533,12 +545,15 @@ def test_cuda_listed_bins_replay_with_a_new_count(cuda_device):
         version = 0
 
     owner = Owner()
-    host = [t.cpu() for t in (val, lab, fm, col, w, *rows)]
+    host = [t.cpu() for t in (val, lab, fm, col, w, rp)]
+    one = torch.zeros((2, v), dtype=torch.bool, device=cuda_device)
+    one[1, 7] = True
     before = gl.captures
-    for cut in (n, 0, 1, n // 2, n):
-        got = gl.run(owner, "listed", round_, lab, _dev_int(cut, cuda_device),
-                     *rows)
-        lists = trelax.twc_bin_list(*host[5:], cut, bounds)
+    for mask in (_frontier_mask(cuda_device, v, 0.6, 9, 2), one.logical_not(),
+                 torch.zeros_like(one), one,
+                 _frontier_mask(cuda_device, v, 0.3, 10, 2)):
+        got = gl.run(owner, "listed", round_, lab, mask)
+        lists = trelax.twc_bin_list(mask.cpu(), host[5], bounds)
         want = host[1].clone()
         for i, width in enumerate((8, 128, 1024)):
             want = tref.twc_bin_relax_ref(
@@ -556,33 +571,22 @@ LB_BOUNDS = {"alb": LIST_BOUNDS["alb"] + ((1023, None),),
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("v", [20_000, 3_000_001])
+@pytest.mark.parametrize("v", [1, 20_000, 3_000_001])
 @pytest.mark.parametrize("bins", sorted(LB_BOUNDS))
 def test_cuda_twc_bin_list_lb_matches_plain(cuda_device, v, bins):
     """The listing with an LB bin against its plain version: members,
     counts and largest degrees, and the LB bin's degree prefix up to its
-    count and its edge total, exactly; frontier counts 0, 1, a tile and
-    one past it, a third, all rows (on the card and as host ints), dense
-    and sparse frontiers, inputs off a 16-byte boundary."""
-    rng = np.random.default_rng(v + 1)
-    deg = rng.integers(0, 40, v)
-    deg[rng.integers(0, v, 50)] = rng.integers(1000, 3000, 50)
-    deg[rng.random(v) < 0.1] = 0
-    row_ptr = np.concatenate([[0], np.cumsum(deg)])
+    count and its edge total, exactly; the masks and ``row_ptr`` of
+    :func:`test_cuda_twc_bin_list_matches_plain`, and a pull round's
+    ``emask`` (every vertex with an edge)."""
+    rp, shifted = _list_graph(cuda_device, v, v + 1, 1000)
     bounds = LB_BOUNDS[bins]
-    for density in (0.05, 0.9):
-        rows, n = _frontier_layout(cuda_device, deg, row_ptr, density,
-                                   int(density * 100) + 1)
-        for cut in sorted({0, 1, 1024, 1025, n // 3, n}):
-            for bound in (cut, _dev_int(cut, cuda_device)):
-                got = trelax.twc_bin_list(*rows, bound, bounds, lb=True)
-                want = tref.twc_bin_list_ref(*rows, cut, bounds, lb=True)
-                _assert_lists_equal(got, want)
-        odd = [r[1:] for r in rows]
-        _assert_lists_equal(
-            trelax.twc_bin_list(*odd, _dev_int(n - 1, cuda_device), bounds,
-                                lb=True),
-            tref.twc_bin_list_ref(*odd, n - 1, bounds, lb=True))
+    emask = (rp[1:] > rp[:-1])[None]
+    for mask in _list_masks(cuda_device, v, v + 1) + [emask]:
+        for row_ptr in (rp, shifted):
+            _assert_lists_equal(
+                trelax.twc_bin_list(mask, row_ptr, bounds, lb=True),
+                tref.twc_bin_list_ref(mask, row_ptr, bounds, lb=True))
 
 
 @pytest.mark.gpu
@@ -598,13 +602,13 @@ def test_cuda_edge_lb_relax_on_lb_list_matches_plain(cuda_device, op,
     col, w, row_ptr, deg = _relax_graph(cuda_device)
     v, e = len(deg), int(row_ptr[-1])
     val, lab, fm = _relax_state(cuda_device, op, 2, v, 13)
-    rows, n = _frontier_layout(cuda_device, deg, row_ptr, 0.5, 7)
+    mask = _frontier_mask(cuda_device, v, 0.5, 7, 2)
+    rp = torch.from_numpy(row_ptr).to(cuda_device)
     for bins in sorted(LB_BOUNDS):
         bounds = LB_BOUNDS[bins]
         k = len(bounds) - 1
-        kern = trelax.twc_bin_list(*rows, _dev_int(n, cuda_device), bounds,
-                                   lb=True)
-        plain = tref.twc_bin_list_ref(*rows, n, bounds, lb=True)
+        kern = trelax.twc_bin_list(mask, rp, bounds, lb=True)
+        plain = tref.twc_bin_list_ref(mask, rp, bounds, lb=True)
         members = int(plain.count[k])
         cases = [(kern, kern.count[k:], kern.total, members)]
         for c in (0, 1, v):
@@ -720,11 +724,11 @@ def test_cuda_merge_path_relax_static_entry_matches_plain(cuda_device, op):
     col, w, row_ptr, deg = _relax_graph(cuda_device)
     v, e = len(deg), int(row_ptr[-1])
     val, lab, fm = _relax_state(cuda_device, op, 2, v, 23)
-    rows, n = _frontier_layout(cuda_device, deg, row_ptr, 0.5, 9)
+    mask = _frontier_mask(cuda_device, v, 0.5, 9, 2)
+    rp = torch.from_numpy(row_ptr).to(cuda_device)
     bounds = LB_BOUNDS["edge_lb"]
-    kern = trelax.twc_bin_list(*rows, _dev_int(n, cuda_device), bounds,
-                               lb=True)
-    plain = tref.twc_bin_list_ref(*rows, n, bounds, lb=True)
+    kern = trelax.twc_bin_list(mask, rp, bounds, lb=True)
+    plain = tref.twc_bin_list_ref(mask, rp, bounds, lb=True)
     members = int(plain.count[0])
     cases = [(kern, kern.count, kern.total, members)]
     for c in (0, 1, v):

@@ -2,10 +2,19 @@
 list-fed static round of the ``pallas`` pair, on the CPU.
 
 * The plain listing (``ref.twc_bin_list_ref``, what the wrapper runs on
-  CPU tensors) against the V-row layout the static round builds without
-  it: per bin, the members in frontier order, their count and their
+  CPU tensors), which reads the dense ``[R, V]`` frontier mask and
+  ``row_ptr``, against the V-row layout the static round builds without
+  it: per bin, the members in vertex order, their count and their
   largest degree, exactly; the LB bin's also with its degree prefix and
-  edge total (``cumsum(hdeg) - hdeg`` at the members, ``hdeg.sum()``).
+  edge total (``cumsum(hdeg) - hdeg`` at the members, ``hdeg.sum()``);
+  and bitwise, every field and its padding, against the composition it
+  stands for: ``compact`` + each row's degree and row start (``_meta``
+  below, from ``row_ptr`` in numpy) + the listing of that layout's rows
+  (``_layout_listing`` below).
+* With a kernel pair, no stats and an operator the kernels take, the
+  static round builds no V-row frontier layout (no ``compact``, no
+  ``frontier_meta``); the ``xla`` pair, an unfused operator and
+  ``collect_stats`` still build it.
 * The static round through the ``pallas`` pair (plain listing, then
   ``twc_bin_relax_ref`` over each list with ``rows`` its count, and
   ``edge_lb_relax_ref`` over the LB list with its count, prefix and
@@ -55,12 +64,27 @@ def _bounds(cfg):
     return tuple((s.lo, s.hi) for s in tb.make_plan(cfg).bins)
 
 
+def _meta(row_ptr, fidx):
+    """Each compacted frontier row's degree and row start from
+    ``row_ptr``, and whether it holds a vertex (deg 0 and row 0 at the
+    sentinel V), computed in numpy: what ``frontier_meta`` must give."""
+    rp = row_ptr.numpy().astype(np.int64)
+    f = fidx.numpy().astype(np.int64)
+    valid = f < len(rp) - 1
+    safe = np.where(valid, f, 0)
+    deg = np.where(valid, rp[safe + 1] - rp[safe], 0)
+    row_start = np.where(valid, rp[safe], 0)
+    return (torch.from_numpy(deg.astype(np.int32)),
+            torch.from_numpy(row_start.astype(np.int32)),
+            torch.from_numpy(valid))
+
+
 def _layout(gt, frontier):
     """The static round's frontier layout of a ``[B, V]`` frontier."""
     v = gt.num_vertices
     listed = torch.from_numpy(frontier).any(dim=0)
     fidx = compact(listed, v)
-    deg, row_start, valid = tb._frontier_meta(gt, fidx)
+    deg, row_start, valid = _meta(gt.row_ptr, fidx)
     return fidx, deg, row_start, valid, count(listed)
 
 
@@ -73,6 +97,11 @@ def _frontier(v, b, case, seed):
     fr = rng.random((b, v)) < {"sparse": 0.02, "dense": 0.4}[case]
     fr[:, 0] = True                                # the hub
     return fr
+
+
+def _mask(fr):
+    """A numpy ``[R, V]`` frontier as the listing's bool mask."""
+    return torch.from_numpy(np.ascontiguousarray(fr))
 
 
 @pytest.mark.parametrize("case", ["empty", "sparse", "dense", "all"])
@@ -90,8 +119,7 @@ def test_plain_listing_matches_v_row_layout(graphs, graph, b, strategy,
     cfg = tb.BalancerConfig(strategy=strategy, threshold=256)
     fr = _frontier(gt.num_vertices, b, case, b + len(case))
     fidx, deg, row_start, valid, n_listed = _layout(gt, fr)
-    lists = trelax.twc_bin_list(fidx, deg, row_start, n_listed,
-                                _bounds(cfg))
+    lists = trelax.twc_bin_list(_mask(fr), gt.row_ptr, _bounds(cfg))
     v = gt.num_vertices
     for i, spec in enumerate(tb.make_plan(cfg).bins):
         mask = spec.mask(deg, valid)
@@ -110,47 +138,226 @@ def test_plain_listing_matches_v_row_layout(graphs, graph, b, strategy,
 
 def test_plain_listing_keeps_empty_bins_and_the_row_bound(graphs):
     """A bin whose range holds no listed degree lists nothing (count 0,
-    largest degree 0); rows at or past ``n_listed`` are never members,
-    whatever they hold; a host int bound equals a tensor one."""
+    largest degree 0); a vertex the mask does not list is never a
+    member, whatever its degree (the mask cut to the vertices below a
+    bound lists the layout's members below it); a mask whose rows split
+    one frontier lists what its union lists."""
     _, gt = graphs["rmat"]
-    fr = _frontier(gt.num_vertices, 1, "dense", 3)
+    v = gt.num_vertices
+    fr = _frontier(v, 1, "dense", 3)
     fidx, deg, row_start, _, n_listed = _layout(gt, fr)
     top = int(deg.max())
     bounds = ((0, 8), (top, None), (8, top))
-    lists = trelax.twc_bin_list(fidx, deg, row_start, n_listed, bounds)
+    lists = trelax.twc_bin_list(_mask(fr), gt.row_ptr, bounds)
     assert int(lists.count[1]) == 0 and int(lists.max_deg[1]) == 0
     assert int(lists.count.sum()) == int(((deg > 0)
                                           & (fidx < len(fidx))).sum())
-    cut = int(n_listed) // 2
-    below = torch.arange(len(fidx)) < cut
-    for bound in (cut, torch.tensor([cut], dtype=torch.int32)):
-        part = trelax.twc_bin_list(fidx, deg, row_start, bound, bounds)
-        for i, (lo, hi) in enumerate(bounds):
-            m = below & (deg > lo) & (deg <= (top if hi is None else hi))
-            k = int(m.sum())
-            assert int(part.count[i]) == k
-            assert torch.equal(part.vidx[i][:k], fidx[m])
-            assert torch.equal(part.deg[i][:k], deg[m])
-            assert torch.equal(part.row_start[i][:k], row_start[m])
+    cut = int(fidx[int(n_listed) // 2])
+    below = fidx < cut
+    part = trelax.twc_bin_list(_mask(fr & (np.arange(v) < cut)),
+                               gt.row_ptr, bounds)
+    rows = np.zeros((3, v), bool)                 # fr's vertices, dealt
+    rows[np.arange(v) % 3, np.arange(v)] = fr[0]
+    split = trelax.twc_bin_list(_mask(rows), gt.row_ptr, bounds)
+    for i, (lo, hi) in enumerate(bounds):
+        m = below & (deg > lo) & (deg <= (top if hi is None else hi))
+        k = int(m.sum())
+        assert int(part.count[i]) == k
+        assert torch.equal(part.vidx[i][:k], fidx[m])
+        assert torch.equal(part.deg[i][:k], deg[m])
+        assert torch.equal(part.row_start[i][:k], row_start[m])
+    for got, want in zip(split[:5], lists[:5]):
+        assert torch.equal(got, want)
 
 
 def test_listing_wrapper_checks_and_counts_nothing_on_cpu(graphs):
+    """The plain version runs on CPU tensors and counts no launch; the
+    wrapper raises on a bin count outside 1..4, a mask that is not a
+    contiguous bool ``[R, V]`` (never copied or converted), and a
+    ``row_ptr`` that is not int32 ``[V + 1]``."""
     _, gt = graphs["rmat"]
-    fidx, deg, row_start, _, n_listed = _layout(
-        gt, _frontier(gt.num_vertices, 1, "sparse", 1))
+    v = gt.num_vertices
+    mask = _mask(_frontier(v, 2, "sparse", 1))
     tk.reset_launch_counts()
-    trelax.twc_bin_list(fidx, deg, row_start, n_listed, ((0, 8),))
+    trelax.twc_bin_list(mask, gt.row_ptr, ((0, 8),))
     assert tk.launch_counts()["twc_bin_list"] == 0
     with pytest.raises(ValueError, match="1 to 4 bins"):
-        trelax.twc_bin_list(fidx, deg, row_start, n_listed, ())
+        trelax.twc_bin_list(mask, gt.row_ptr, ())
     with pytest.raises(ValueError, match="1 to 4 bins"):
-        trelax.twc_bin_list(fidx, deg, row_start, n_listed,
-                            ((0, 1),) * 5)
-    with pytest.raises(TypeError, match="deg"):
-        trelax.twc_bin_list(fidx, deg.long(), row_start, n_listed,
-                            ((0, 8),))
+        trelax.twc_bin_list(mask, gt.row_ptr, ((0, 1),) * 5)
+    with pytest.raises(TypeError, match="mask must be torch.bool"):
+        trelax.twc_bin_list(mask.to(torch.uint8), gt.row_ptr, ((0, 8),))
+    for bad in (mask[0], mask[None], mask.new_zeros((0, v)),
+                mask.t().contiguous().t(), mask[:, ::2]):
+        with pytest.raises(ValueError, match="contiguous bool"):
+            trelax.twc_bin_list(bad, gt.row_ptr, ((0, 8),))
+    with pytest.raises(TypeError, match="row_ptr"):
+        trelax.twc_bin_list(mask, gt.row_ptr.long(), ((0, 8),))
     with pytest.raises(ValueError, match="contiguous"):
-        trelax.twc_bin_list(fidx, deg[:-1], row_start, n_listed, ((0, 8),))
+        trelax.twc_bin_list(mask, gt.row_ptr[:-1], ((0, 8),))
+    with pytest.raises(ValueError, match="contiguous"):
+        trelax.twc_bin_list(mask[:, :-1].contiguous(), gt.row_ptr,
+                            ((0, 8),))
+
+
+def _layout_listing(fidx, deg, row_start, n_listed, bounds, lb=False):
+    """The listing of a frontier layout's rows ``[0, n_listed)`` as the
+    port ran it before the listing read the mask: each bin compacted
+    over its mask ``lo < deg <= hi`` in frontier order, the rest padded
+    (sentinel ``N``, deg 0, row 0); with ``lb`` the last bin's exclusive
+    degree prefix (padded with the total) and total."""
+    n = fidx.shape[0]
+    valid = (fidx < n) & (torch.arange(n) < n_listed)
+    cols = {k: [] for k in tref.BinLists._fields[:5]}
+    for lo, hi in bounds:
+        m = valid & (deg > lo)
+        if hi is not None:
+            m = m & (deg <= hi)
+        sel = compact(m, n)
+        take = sel < n
+        safe = torch.where(take, sel, 0)
+        cols["vidx"].append(torch.where(take, fidx[safe], n))
+        cols["deg"].append(torch.where(take, deg[safe], 0))
+        cols["row_start"].append(torch.where(take, row_start[safe], 0))
+        cols["count"].append(count(m))
+        cols["max_deg"].append(torch.where(m, deg, 0).amax())
+    lists = tref.BinLists(**{k: torch.stack(v) for k, v in cols.items()})
+    if not lb:
+        return lists
+    d = lists.deg[-1]
+    return lists._replace(start_e=torch.cumsum(d, 0, dtype=torch.int32) - d,
+                          total=d.sum(dtype=torch.int32))
+
+
+# bound sets of the plans: alb's, twc's and vertex's bins, then listed
+# with their LB bin (alb's huge bin, edge_lb's LB-all)
+COMPOSED_BOUNDS = {"alb": (((0, 8), (8, 128), (128, 255)), False),
+                   "twc": (((0, 8), (8, 128), (128, None)), False),
+                   "vertex": (((0, None),), False),
+                   "alb+lb": (((0, 8), (8, 128), (128, 255),
+                               (255, None)), True),
+                   "edge_lb": (((0, None),), True)}
+
+
+@pytest.mark.parametrize("bset", sorted(COMPOSED_BOUNDS))
+@pytest.mark.parametrize("case", ["r1", "r3", "r8", "pull", "empty",
+                                  "all"])
+def test_plain_listing_is_the_layout_composition(graphs, case, bset):
+    """``twc_bin_list_ref`` over the dense mask and ``row_ptr`` equals,
+    in every ``BinLists`` field and its padding, ``compact`` over the
+    mask's union + each row's degree and row start (``_meta``) + the
+    layout's listing:
+    random masks of R = 1, 3 and 8 rows, the reverse CSR's in-degree
+    ``emask`` (R = 1), an empty mask and an all-set one."""
+    _, gt = graphs["hubs"]
+    v = gt.num_vertices
+    bounds, lb = COMPOSED_BOUNDS[bset]
+    g = gt
+    if case == "pull":
+        pe = tb._pull_enum(gt, tb.BalancerConfig(direction="pull"))
+        g, mask = pe.rg, pe.emask[None].contiguous()
+    elif case in ("empty", "all"):
+        mask = _mask(_frontier(v, 3, case, 0))
+    else:
+        r = int(case[1:])
+        rng = np.random.default_rng(r + len(bset))
+        mask = _mask(rng.random((r, v)) < 0.3 / r)
+    got = tref.twc_bin_list_ref(mask, g.row_ptr, bounds, lb=lb)
+    listed = mask.any(dim=0)
+    fidx = compact(listed, v)
+    deg, row_start, _ = _meta(g.row_ptr, fidx)
+    want = _layout_listing(fidx, deg, row_start, count(listed), bounds, lb)
+    for f in tref.BinLists._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None) == (f in ("start_e", "total")
+                                              and not lb), f
+        if a is not None:
+            assert a.dtype == b.dtype and torch.equal(a, b), f
+    if case == "all" and bset != "alb":          # bins that cover deg > 0
+        assert int(got.count.sum()) == int((gt.out_degrees() > 0).sum())
+
+
+def _layout_calls(monkeypatch):
+    """Count the static round's calls of ``compact`` and
+    ``frontier_meta`` (the V-row frontier layout)."""
+    seen = {"compact": 0, "meta": 0}
+    comp, meta = tb.compact, tb.frontier_meta
+
+    def compact_(*a, **k):
+        seen["compact"] += 1
+        return comp(*a, **k)
+
+    def meta_(*a, **k):
+        seen["meta"] += 1
+        return meta(*a, **k)
+    monkeypatch.setattr(tb, "compact", compact_)
+    monkeypatch.setattr(tb, "frontier_meta", meta_)
+    return seen
+
+
+@pytest.mark.parametrize("route", ["pallas", "merge_path", "xla",
+                                   "unfused", "stats"])
+@pytest.mark.parametrize("direction", ["push", "pull"])
+def test_static_round_builds_the_layout_only_where_needed(
+        graphs, monkeypatch, route, direction):
+    """A static round of the ``pallas`` or ``merge_path`` pair with an
+    operator the kernels take and no stats lists its bins from the mask
+    and calls neither ``compact`` nor ``frontier_meta``; the ``xla``
+    pair, an operator the kernels do not take and ``collect_stats``
+    build the V-row layout once (one ``compact``, one
+    ``frontier_meta``).  Labels equal the ``xla`` pair's either way."""
+    _, gt = graphs["rmat"]
+    v = gt.num_vertices
+    kw = dict(strategy="alb", direction=direction, **TWO_PASS)
+    cfg = tb.BalancerConfig(
+        **kw, backend={"merge_path": "merge_path", "xla": "xla"}.get(
+            route, "pallas"))
+    op = tops.SSSP_RELAX
+    if route == "unfused":
+        op = tops.Operator("v_plus_2w", "push", "min",
+                           lambda a, w: a + 2 * w)
+    g, extra = gt, {}
+    if direction == "pull":
+        pe = tb._pull_enum(gt, cfg)
+        g, op, extra = pe.rg, tops.as_pull(op), dict(emask=pe.emask)
+    rng = np.random.default_rng(2)
+    lab = torch.from_numpy(rng.integers(0, 500, (2, v)).astype(np.int32))
+    fr = torch.from_numpy(_frontier(v, 2, "dense", 6))
+    seen = _layout_calls(monkeypatch)
+    out = tb.relax_spmd(g, lab, lab, fr, cfg, op,
+                        collect_stats=route == "stats", **extra)
+    built = int(route not in ("pallas", "merge_path"))
+    assert seen == {"compact": built, "meta": built}
+    monkeypatch.undo()
+    want = tb.relax_spmd(g, lab, lab, fr,
+                         tb.BalancerConfig(**kw, backend="xla"), op,
+                         **extra)
+    got = out[0] if route == "stats" else out
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["view", "uint8"])
+@pytest.mark.parametrize("route", ["pallas", "merge_path"])
+def test_static_round_takes_any_frontier_layout(graphs, route, kind):
+    """The static round hands its kernels a contiguous bool frontier: a
+    kernel pair's round over a strided view of a ``[B, V]`` frontier, or
+    over a uint8 one, gives the ``xla`` pair's labels on its contiguous
+    bool copy."""
+    _, gt = graphs["rmat"]
+    v = gt.num_vertices
+    rng = np.random.default_rng(4)
+    lab = torch.from_numpy(rng.integers(0, 500, (2, v)).astype(np.int32))
+    fr = torch.from_numpy(rng.random((2, 2 * v)) < 0.4)[:, ::2]
+    assert not fr.is_contiguous()
+    kw = dict(strategy="alb", **TWO_PASS)
+    want = tb.relax_spmd(gt, lab, lab, fr.contiguous(),
+                         tb.BalancerConfig(**kw, backend="xla"),
+                         tops.SSSP_RELAX)
+    got = tb.relax_spmd(gt, lab, lab,
+                        fr if kind == "view" else fr.to(torch.uint8),
+                        tb.BalancerConfig(**kw, backend=route),
+                        tops.SSSP_RELAX)
+    assert torch.equal(got, want)
 
 
 def _count_calls(monkeypatch):
@@ -294,11 +501,10 @@ def test_unfused_operator_keeps_the_v_row_layout(graphs, monkeypatch):
     tb.relax_spmd(gt, lab, lab, fr, cfg, op)
     assert seen["list"] == 0 and seen["rows"] == []
     assert tb.get_executor("pallas").bin_list(
-        *_layout(gt, fr.numpy())[:3], 5, ((0, 8),), op, torch.int32) is None
+        gt, fr, ((0, 8),), op, torch.int32) is None
     assert tb.get_executor("xla").bin_list is None
     assert tb.get_executor("merge_path").bin_list(
-        *_layout(gt, fr.numpy())[:3], 5, ((0, None),), op, torch.int32,
-        True) is None
+        gt, fr, ((0, None),), op, torch.int32, True) is None
 
 
 # ---- the LB bin, listed in the same launch -------------------------------
@@ -327,16 +533,16 @@ def test_plain_lb_list_matches_v_row_layout(graphs, strategy, layout):
     plan = tb.make_plan(cfg)
     if layout == "pull":
         pe = tb._pull_enum(gt, cfg)
+        g, mask = pe.rg, pe.emask[None]
         fidx = compact(pe.emask, gt.num_vertices)
-        deg, row_start, valid = tb._frontier_meta(pe.rg, fidx)
-        n_listed = count(pe.emask)
+        deg, row_start, valid = _meta(pe.rg.row_ptr, fidx)
     else:
         case = layout.split("-")[1]
-        fidx, deg, row_start, valid, n_listed = _layout(
-            gt, _frontier(gt.num_vertices, 2, case, 11))
+        fr = _frontier(gt.num_vertices, 2, case, 11)
+        g, mask = gt, _mask(fr)
+        fidx, deg, row_start, valid, _ = _layout(gt, fr)
     bounds = _lb_bounds(cfg)
-    lists = trelax.twc_bin_list(fidx, deg, row_start, n_listed, bounds,
-                                lb=True)
+    lists = trelax.twc_bin_list(mask, g.row_ptr, bounds, lb=True)
     k = len(plan.bins)
     hmask = plan.lb_mask(deg, valid, cfg)
     hdeg = torch.where(hmask, deg, 0)
@@ -352,8 +558,7 @@ def test_plain_lb_list_matches_v_row_layout(graphs, strategy, layout):
     assert bool((lists.deg[k][n:] == 0).all())
     assert bool((lists.start_e[n:] == lists.total).all())
     if k:
-        bins = trelax.twc_bin_list(fidx, deg, row_start, n_listed,
-                                   bounds[:-1])
+        bins = trelax.twc_bin_list(mask, g.row_ptr, bounds[:-1])
         assert bins.start_e is None and bins.total is None
         for got, want in zip(lists[:5], bins[:5]):
             assert torch.equal(got[:k], want)
@@ -370,10 +575,9 @@ def test_plain_edge_lb_relax_respects_the_row_bound(graphs):
     the clean padded list's pass; with ``rows`` 0 it changes nothing."""
     _, gt = graphs["hubs"]
     cfg = tb.BalancerConfig(strategy="alb", threshold=64)
-    fidx, deg, row_start, _, n_listed = _layout(
-        gt, _frontier(gt.num_vertices, 1, "dense", 2))
-    lists = trelax.twc_bin_list(fidx, deg, row_start, n_listed,
-                                _lb_bounds(cfg), lb=True)
+    lists = trelax.twc_bin_list(
+        _mask(_frontier(gt.num_vertices, 1, "dense", 2)), gt.row_ptr,
+        _lb_bounds(cfg), lb=True)
     k = len(tb.make_plan(cfg).bins)
     n = int(lists.count[k])
     assert n > 0
