@@ -24,6 +24,12 @@ huge bin combines with atomics).  The min-combine drivers,
 ``resume_loop`` and ``step_batch`` take ``direction="push" | "pull" |
 "adaptive"``; every driver takes any ``BalancerConfig.backend``.
 Drivers follow the graph's device.
+
+A driver called while a ``torch.profiler`` is recording is traced
+(``core.spans``): its ``AppResult.spans`` holds its host spans
+(``repro.<app>``, ``repro.init``, the program's ``repro.graph.*``,
+``repro.fetch``) and, in fused mode, its loop and each round's phases
+as the card stamped them; untraced, it is None.
 """
 from __future__ import annotations
 
@@ -34,27 +40,29 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .. import graph_loop
+from .. import graph_loop, spans
 from ..graph import Graph, INF
 from ..frontier import full_frontier, single_source, multi_source_state
 from ..balancer import (BalancerConfig, RoundStats, relax,
                         relax_spmd_directed, relax_fused_round, run_fused,
                         fused_stats_host, host_transfer_count,
-                        _fused_stats_init, _note_host_transfer, _put_row,
-                        _unpack_stats)
+                        _arm_spans, _fused_stats_init, _note_host_transfer,
+                        _put_row, _stamped_while, _unpack_stats)
 from .. import operators as ops
 
 
 @dataclasses.dataclass
 class AppResult:
     """Final labels, round count, wall-clock seconds, per-round
-    :class:`RoundStats` (with ``collect_stats=True``) and the number of
-    blocking device->host sync points of the round loop."""
+    :class:`RoundStats` (with ``collect_stats=True``), the number of
+    blocking device->host sync points of the round loop, and, for a
+    call traced under a profiler, its ``core.spans.Traversal``."""
     labels: torch.Tensor
     rounds: int
     seconds: float
     stats: Optional[List[RoundStats]] = None
     host_transfers: int = 0
+    spans: Optional[spans.Traversal] = None
 
 
 #: executors whose LB or merge-path edge tile must be a multiple of this
@@ -123,6 +131,7 @@ QUERY_APPS = {
 }
 
 
+@spans.traced("resume_loop")
 def resume_loop(g, labels, frontier, cfg, op, max_rounds: int = 10_000,
                 collect_stats: bool = False, mode: str = "host",
                 direction: Optional[str] = None) -> "AppResult":
@@ -155,13 +164,15 @@ def _sync(t: torch.Tensor) -> None:
 
 def _fused_result(t_sync: int, t0: float, labels, r, st) -> tuple:
     """``_loop``'s tuple for a fused traversal: after the loop, the
-    caller's fetch (the round count, then the stat rows in one
-    transfer)."""
+    caller's fetch (the round count, the stat rows in one transfer and,
+    traced, the stamp rows in one more)."""
     _sync(labels)
     secs = time.perf_counter() - t0
-    rounds = int(r)
-    return (labels, rounds, secs, fused_stats_host(st, rounds),
-            host_transfer_count() - t_sync)
+    with spans.span("repro.fetch"):
+        rounds = int(r)
+        spans.fetch(labels.device, rounds)
+        stats = fused_stats_host(st, rounds)
+    return (labels, rounds, secs, stats, host_transfer_count() - t_sync)
 
 
 def _loop(g: Graph, values_of, labels, frontier, cfg, op,
@@ -211,15 +222,17 @@ def _with_direction(cfg: BalancerConfig, direction) -> BalancerConfig:
 
 def _single(g: Graph, source: int, cfg, op, max_rounds, collect_stats,
             mode) -> AppResult:
-    labels = torch.full((g.num_vertices,), int(INF), dtype=torch.int32,
-                        device=g.device)
-    labels[source] = 0
-    frontier = single_source(g.num_vertices, source, g.device)
+    with spans.span("repro.init"):
+        labels = torch.full((g.num_vertices,), int(INF), dtype=torch.int32,
+                            device=g.device)
+        labels[source] = 0
+        frontier = single_source(g.num_vertices, source, g.device)
     return AppResult(*_loop(g, _identity, labels, frontier, cfg, op,
                             max_rounds, collect_stats, _min_changed,
                             mode=mode))
 
 
+@spans.traced("sssp")
 def sssp(g: Graph, source: int, cfg: BalancerConfig = BalancerConfig(),
          max_rounds: int = 10_000, collect_stats: bool = False,
          mode: str = "host", direction: Optional[str] = None) -> AppResult:
@@ -228,6 +241,7 @@ def sssp(g: Graph, source: int, cfg: BalancerConfig = BalancerConfig(),
                    ops.SSSP_RELAX, max_rounds, collect_stats, mode)
 
 
+@spans.traced("bfs")
 def bfs(g: Graph, source: int, cfg: BalancerConfig = BalancerConfig(),
         max_rounds: int = 10_000, collect_stats: bool = False,
         mode: str = "host", direction: Optional[str] = None) -> AppResult:
@@ -243,13 +257,15 @@ def _batch_loop(g: Graph, sources, cfg, op, max_rounds, collect_stats,
     """One convergence loop for B sources over ``[B, V]`` state: each
     round is ONE balancer invocation serving the whole batch, and a
     query whose frontier row empties stops contributing to the union."""
-    labels, frontier = multi_source_state(g.num_vertices, sources, INF,
-                                          g.device)
+    with spans.span("repro.init"):
+        labels, frontier = multi_source_state(g.num_vertices, sources, INF,
+                                              g.device)
     return AppResult(*_loop(g, _identity, labels, frontier, cfg, op,
                             max_rounds, collect_stats, _min_changed,
                             mode=mode))
 
 
+@spans.traced("sssp_batch")
 def sssp_batch(g: Graph, sources, cfg: BalancerConfig = BalancerConfig(),
                max_rounds: int = 10_000, collect_stats: bool = False,
                mode: str = "host",
@@ -260,6 +276,7 @@ def sssp_batch(g: Graph, sources, cfg: BalancerConfig = BalancerConfig(),
                        ops.SSSP_RELAX, max_rounds, collect_stats, mode)
 
 
+@spans.traced("bfs_batch")
 def bfs_batch(g: Graph, sources, cfg: BalancerConfig = BalancerConfig(),
               max_rounds: int = 10_000, collect_stats: bool = False,
               mode: str = "host",
@@ -269,6 +286,7 @@ def bfs_batch(g: Graph, sources, cfg: BalancerConfig = BalancerConfig(),
                        ops.BFS_HOP, max_rounds, collect_stats, mode)
 
 
+@spans.traced("cc")
 def cc(g: Graph, cfg: BalancerConfig = BalancerConfig(),
        max_rounds: int = 10_000, collect_stats: bool = False,
        mode: str = "host", direction: Optional[str] = None) -> AppResult:
@@ -276,8 +294,10 @@ def cc(g: Graph, cfg: BalancerConfig = BalancerConfig(),
     components when ``g`` is symmetrized).  On cc's dense early
     frontiers, adaptive rounds run as pulls."""
     cfg = _with_direction(cfg, direction)
-    comp = torch.arange(g.num_vertices, dtype=torch.int32, device=g.device)
-    frontier = full_frontier(g.num_vertices, g.device)
+    with spans.span("repro.init"):
+        comp = torch.arange(g.num_vertices, dtype=torch.int32,
+                            device=g.device)
+        frontier = full_frontier(g.num_vertices, g.device)
     return AppResult(*_loop(g, _identity, comp, frontier, cfg, ops.CC_MIN,
                             max_rounds, collect_stats, _min_changed,
                             mode=mode))
@@ -308,7 +328,7 @@ def _kcore_loop(g: Graph, deg, frontier, dead_acc, k: int,
             rows = (_put_row(rows[0], r, st),)
         return (r + 1, new_deg, dead | newly_dead, newly_dead) + rows
 
-    r, _, dead, _, *rows = graph_loop.while_(cond, body, carry)
+    r, _, dead, _, *rows = _stamped_while(cond, body, carry)
     return ((~dead).to(torch.int32), r, *rows)
 
 
@@ -317,6 +337,7 @@ def _kcore_fused(g: Graph, deg, frontier, dead_acc, k: int,
     """:func:`_kcore_loop` as one program (one graph launch on the card):
     ``(in_core, rounds, stats)`` on the device, ``stats`` a
     ``RoundStatsDev`` of the round rows or None."""
+    _arm_spans(deg.device, cfg)
     in_core, r, *rows = graph_loop.run(
         g, ("kcore", k, cfg, max_rounds, collect_stats),
         lambda d, f, da: _kcore_loop(g, d, f, da, k, cfg, max_rounds,
@@ -326,6 +347,7 @@ def _kcore_fused(g: Graph, deg, frontier, dead_acc, k: int,
                         else None)
 
 
+@spans.traced("kcore")
 def kcore(g: Graph, k: int, cfg: BalancerConfig = BalancerConfig(),
           max_rounds: int = 10_000, collect_stats: bool = False,
           mode: str = "host") -> AppResult:
@@ -417,7 +439,7 @@ def _pagerank_loop(rg: Graph, inv_out, sink, damping: float, tol: float,
             rows = (_put_row(rows[0], r, st),)
         return (r + 1, new_rank, delta) + rows
 
-    r, rank, _, *rows = graph_loop.while_(cond, body, carry)
+    r, rank, _, *rows = _stamped_while(cond, body, carry)
     return (rank, r, *rows)
 
 
@@ -426,6 +448,7 @@ def _pagerank_fused(rg: Graph, inv_out, sink, damping: float, tol: float,
                     collect_stats: bool):
     """:func:`_pagerank_loop` as one program, cached on ``rg``, the graph
     it reads: ``(rank, rounds, stats)`` on the device."""
+    _arm_spans(inv_out.device, cfg)
     rank, r, *rows = graph_loop.run(
         rg, ("pagerank", damping, tol, cfg, max_rounds, collect_stats),
         lambda io, sk: _pagerank_loop(rg, io, sk, damping, tol, cfg,
@@ -435,6 +458,7 @@ def _pagerank_fused(rg: Graph, inv_out, sink, damping: float, tol: float,
                      else None)
 
 
+@spans.traced("pagerank")
 def pagerank(g: Graph, damping: float = 0.85, tol: float = 1e-6,
              cfg: BalancerConfig = BalancerConfig(),
              max_rounds: int = 1000, collect_stats: bool = False,

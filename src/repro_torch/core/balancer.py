@@ -62,7 +62,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import graph_loop
+from . import graph_loop, spans
 from .graph import Graph
 from .frontier import (next_bucket, compact, count, dirty_mask,
                        frontier_meta, rows_active, union_frontier)
@@ -781,7 +781,7 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
                      cfg: BalancerConfig, op: Operator,
                      collect_stats: bool = False, return_dirty: bool = False,
                      emask: Optional[torch.Tensor] = None,
-                     owned: bool = False):
+                     owned: bool = False, inspect: tuple = ()):
     """Static-shape ALB round: through a pair with a ``bin_list`` hook,
     each bin's members and the LB bin's listed once, straight from the
     dense frontier (or ``emask``) and ``row_ptr``, with device counts
@@ -807,7 +807,10 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
     reverse CSR) enumerates
     the vertices it marks instead of the union frontier.  ``owned``:
     ``labels`` is a private buffer that an ``in_place`` pair may combine
-    into (the fused round's direction branches share one)."""
+    into (the fused round's direction branches share one).  Inside a
+    stamped loop's round (``core.spans``) it stamps the listing's start
+    with the ``inspect`` counts (the fused round's ``n_f``, ``m_f``), its
+    end with each bin's members and the LB total, and each pass's end."""
     batched = labels.ndim == 2
     if not batched:
         values, labels, frontier = (values[None], labels[None],
@@ -834,6 +837,7 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
     bounds = tuple((s.lo, s.hi) for s in plan.bins) + \
         ((plan.lb_bound(cfg),) if has_lb else ())
     lists = None
+    spans.stamp(spans.LIST, *inspect)
     if bounds and ex.bin_list is not None:
         lists = ex.bin_list(g, frontier if emask is None else emask[None],
                             bounds, op, labels.dtype, has_lb)
@@ -843,6 +847,8 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
         fidx = compact(listed, v)
         n_listed = count(listed)       # bin rows past it are all empty
         deg, row_start, valid = frontier_meta(g.row_ptr, fidx)
+    spans.stamp(spans.LISTED, *(() if lists is None
+                                else (lists.count, lists.total)))
     for i, spec in enumerate(plan.bins):
         mask = None
         if lists is not None:
@@ -863,6 +869,7 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
             passes = (max_deg + (spec.width - 1)) // spec.width
         labels = ex.bin_host(g, values, labels, frontier, bvidx, bdeg, brow,
                             spec.width, op, 0, passes, rows)
+        spans.stamp(spans.BIN + i)
         if collect_stats:
             if mask is None:
                 mask = spec.mask(deg, valid)
@@ -893,6 +900,7 @@ def _relax_spmd_impl(g: Graph, values, labels, frontier,
                                 g.num_edges, op, cfg.distribution,
                                 cfg.num_tiles, cfg.lb_tile_edges)
             lb_invoked = count(hmask) > 0
+        spans.stamp(spans.LB, total)
         edges_lb = torch.where(lb_invoked, total, 0)
         tl_lb = torch.where(lb_invoked,
                             _lb_tile_loads(total, cfg.num_tiles), 0)
@@ -961,12 +969,14 @@ def relax_fused_round(g: Graph, rg: Optional[Graph],
     nf = count(union)
     m_f = torch.where(union, deg, 0).sum(dtype=torch.int32)
     is_pull = resolve_direction_device(cfg, nf, m_f, v, g.num_edges)
+    seen = (nf, m_f)        # stamped with the listing's start
     if cfg.direction == "push":
         out = _relax_spmd_impl(g, values, labels, frontier, cfg, op,
-                               collect_stats=collect_stats)
+                               collect_stats=collect_stats, inspect=seen)
     elif cfg.direction == "pull":
         out = _relax_spmd_impl(rg, values, labels, frontier, cfg, pull_op,
-                               collect_stats=collect_stats, emask=emask)
+                               collect_stats=collect_stats, emask=emask,
+                               inspect=seen)
     else:
         # an in_place pair: both branches combine into one private copy
         owned = get_executor(cfg.executor).in_place
@@ -976,10 +986,11 @@ def relax_fused_round(g: Graph, rg: Optional[Graph],
             is_pull,
             lambda: _relax_spmd_impl(rg, values, lab, frontier, cfg,
                                      pull_op, collect_stats=collect_stats,
-                                     emask=emask, owned=owned),
+                                     emask=emask, owned=owned,
+                                     inspect=seen),
             lambda: _relax_spmd_impl(g, values, lab, frontier, cfg, op,
                                      collect_stats=collect_stats,
-                                     owned=owned))
+                                     owned=owned, inspect=seen))
     if collect_stats:
         labels_out, st = out
         st = st._replace(frontier_edges=m_f, is_pull=is_pull)
@@ -1068,6 +1079,31 @@ def _put_row(rows: torch.Tensor, r: torch.Tensor,
     return rows.index_copy_(0, r.reshape(1).long(), _pack_stats(st)[None])  # repro: allow[scatter-determinism] -- one index, round r: no duplicate targets
 
 
+def _arm_spans(device, cfg: BalancerConfig) -> None:
+    """:func:`core.spans.arm` for a stamped loop of ``cfg``'s plan,
+    before its dispatch."""
+    plan = effective_plan(cfg)
+    spans.arm(device, tuple(s.name for s in plan.bins)
+              + (("lb",) if plan.lb != "none" else ()))
+
+
+def _stamped_while(cond_fn, body_fn, carry):
+    """:func:`graph_loop.while_` over a carry whose first element is the
+    round index ``r``, stamped (``core.spans``): the loop's start and
+    end (with the final ``r``) and each round's start; the round's other
+    points are stamped where it reaches them.  The caller arms the
+    device's ring first (:func:`_arm_spans`)."""
+    spans.stamp_loop(spans.LOOP_START, carry[0])
+
+    def body(r, *rest):
+        with spans.round_(r):
+            return body_fn(r, *rest)
+
+    out = graph_loop.while_(cond_fn, body, carry)
+    spans.stamp_loop(spans.LOOP_END, out[0], out[0])
+    return out
+
+
 def _run_fused_loop(g: Graph, rg, emask, labels, frontier,
                     cfg: BalancerConfig, op: Operator, pull_op,
                     max_rounds: int, collect_stats: bool):
@@ -1075,6 +1111,7 @@ def _run_fused_loop(g: Graph, rg, emask, labels, frontier,
     body is :func:`relax_fused_round` plus the ``new < old`` frontier
     update, writing stats row ``r`` on the device; the condition
     ``(r < max_rounds) & any(frontier)`` is evaluated on the device.
+    Each round is stamped (:func:`_stamped_while`).
     Returns ``(r, labels, frontier)`` plus the stat rows with
     ``collect_stats``."""
     carry = (torch.zeros((), dtype=torch.int32, device=labels.device),
@@ -1094,7 +1131,7 @@ def _run_fused_loop(g: Graph, rg, emask, labels, frontier,
             rows = (_put_row(rows[0], r, st),)
         return (r + 1, new, new < lab) + rows
 
-    return graph_loop.while_(cond, body, carry)
+    return _stamped_while(cond, body, carry)
 
 
 def run_fused(g: Graph, labels: torch.Tensor, frontier: torch.Tensor,
@@ -1120,6 +1157,7 @@ def run_fused(g: Graph, labels: torch.Tensor, frontier: torch.Tensor,
     fr = frontier if batched else frontier[None]
     pull_op, rg, emask = _pull_side(g, cfg, op)
     max_rounds = int(max_rounds)
+    _arm_spans(lab.device, cfg)
     r, lab, fr, *rows = graph_loop.run(
         g, ("fused", cfg, op, max_rounds, collect_stats),
         lambda la, f: _run_fused_loop(g, rg, emask, la, f, cfg, op,

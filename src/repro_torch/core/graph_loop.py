@@ -44,7 +44,11 @@ allocator, which frees that memory the next time it trims its cache
 ``captures`` counts the programs captured (a repeated call with a cached
 key captures none) and ``capture_seconds`` the time spent capturing
 them; :func:`set_runs` reads, on the card, how many branch and loop
-decisions the condition kernel took.
+decisions the condition kernel took.  A traced driver call
+(``core.spans``) sees a capture as its ``repro.graph.capture`` span and a
+replay as ``repro.graph.copy_in``, ``repro.graph.launch`` (with the eager
+stamp just before the launch) and ``repro.graph.copy_out``;
+:func:`stamp` launches the span stamp kernel.
 """
 from __future__ import annotations
 
@@ -57,6 +61,8 @@ import warnings
 
 import torch
 from torch.utils import _pytree as pytree
+
+from . import spans
 
 #: programs captured, and the seconds their captures took
 captures = 0
@@ -87,7 +93,9 @@ def _lib():
             ("gl_launch", [_P, _P]),
             ("gl_exec_destroy", [_P]),
             ("gl_set_runs", [ctypes.POINTER(ctypes.c_ulonglong),
-                             ctypes.c_int])):
+                             ctypes.c_int]),
+            ("gl_stamp", [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+                          ctypes.c_int, _P, pp, ctypes.c_int, _P])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
@@ -113,6 +121,19 @@ def set_runs(reset: bool = False) -> int:
     n = ctypes.c_ulonglong(0)
     _call("set_runs", ctypes.byref(n), int(reset))
     return n.value
+
+
+def stamp(ring: int, cap: int, points: int, row: int, r, col: int, flag,
+          counts, ncounts: int, stream: int) -> None:
+    """Launch ``span_stamp`` on ``stream`` (recorded, while a program is
+    captured): ``%globaltimer`` and the int32 ``counts`` (an array of
+    ``ncounts`` device addresses) into column ``col`` of row ``row + *r
+    % cap`` (``r`` a device int32's address) or of ``row`` (``r`` None)
+    of the int64 ring at address ``ring``; it returns at once while the
+    int32 at ``flag`` is 0 (``flag`` None: always writes).
+    ``core.spans`` owns the ring and its layout."""
+    _call("stamp", ring, cap, points, row, r, col, flag, counts, ncounts,
+          stream)
 
 
 # ---------------------------------------------------------------------------
@@ -318,12 +339,17 @@ class Program:
     pool (the tensors ``fn`` closes over, but for its owner's)."""
 
     def __init__(self, fn, inputs, keep: tuple):
+        with spans.span("repro.graph.capture"):
+            self._capture(fn, inputs, keep)
+
+    def _capture(self, fn, inputs, keep: tuple) -> None:
         global _REC, captures, capture_seconds
         from repro_torch.kernels import build
         if _REC is not None:
             raise RuntimeError("graph_loop: a program cannot be captured "
                                "inside another")
         build.load_all()          # no nvcc or library load while capturing
+        self._gl = _lib()         # close() needs no module global
         t0 = time.perf_counter()
         dev = inputs[0].device
         self.inputs = tuple(x.clone(memory_format=torch.contiguous_format)
@@ -359,25 +385,34 @@ class Program:
         capture_seconds += time.perf_counter() - t0
 
     def __call__(self, *inputs):
-        for buf, x in zip(self.inputs, inputs):
-            buf.copy_(x)
-        stream = torch.cuda.current_stream(self.inputs[0].device)
-        _call("launch", self._exec, ctypes.c_void_p(stream.cuda_stream))
-        return pytree.tree_unflatten([t.clone() for t in self.leaves],
-                                     self.spec)
+        with spans.span("repro.graph.copy_in"):
+            for buf, x in zip(self.inputs, inputs):
+                buf.copy_(x)
+        dev = self.inputs[0].device
+        stream = torch.cuda.current_stream(dev)
+        with spans.span("repro.graph.launch"):
+            spans.before_launch(dev)
+            _call("launch", self._exec, ctypes.c_void_p(stream.cuda_stream))
+        with spans.span("repro.graph.copy_out"):
+            return pytree.tree_unflatten([t.clone() for t in self.leaves],
+                                         self.spec)
 
     def close(self) -> None:
         """Free the program: its executable graph (freed by the driver
         once a launch still in flight ends), its graph, and the captured
         pieces, buffers and outputs that hold its memory pool.  The
-        program cannot run again."""
+        program cannot run again.  It reads no module global, so a
+        program that outlives this module at interpreter exit closes
+        too."""
         exe, graph = getattr(self, "_exec", None), getattr(self, "_graph",
                                                            None)
+        lib = getattr(self, "_gl", None)
         self._exec = self._graph = None
-        if exe:
-            _lib().gl_exec_destroy(exe)
-        if graph:
-            _lib().gl_graph_destroy(graph)
+        if lib is not None:
+            if exe:
+                lib.gl_exec_destroy(exe)
+            if graph:
+                lib.gl_graph_destroy(graph)
         self._keep = self.leaves = self.inputs = None
 
     def __del__(self):

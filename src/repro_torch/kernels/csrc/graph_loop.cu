@@ -22,8 +22,17 @@
 // a device counter (one atomic), so a run can show how many branch and
 // loop decisions the card took.
 //
+// span_stamp, the graph's other tiny kernel, times a traced traversal
+// from the inside (repro_torch/core/spans.py): one thread reads
+// %globaltimer and writes it, with up to kCounts int32 device counts the
+// round already has, into a ring of stamp rows, row base + *r % cap for
+// the round r it reads from the loop's carry on the device, so the fixed
+// arguments of a captured launch land in each round's own row.  It is
+// captured always and gated by a device flag: off, it returns at once.
+// What bounds it: launch latency (one thread, at most 48 bytes written).
+//
 // The host functions return cudaError_t as an int, as every C entry of
-// this package does; none of them launches work.
+// this package does; none of them but gl_stamp launches work.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -40,6 +49,27 @@ __global__ void set_cond(cudaGraphConditionalHandle handle,
                          const bool* flag, int negate) {
   cudaGraphSetConditional(handle, (*flag ? 1 : 0) != negate ? 1u : 0u);
   atomicAdd(&g_set_runs, 1ull);
+}
+
+constexpr int kCounts = 5;
+
+struct Counts {
+  const int* p[kCounts];
+};
+
+// ring[at][col] := {%globaltimer, *counts.p[0..kCounts)} (0 for a null
+// count), at = row + *r % cap (r null: `row`); nothing while *flag == 0
+__global__ void span_stamp(long long* ring, int cap, int points, int row,
+                           const int* r, int col, const int* flag,
+                           Counts counts) {
+  if (flag != nullptr && *flag == 0) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  const long long at = row + (r != nullptr ? (long long)(*r % cap) : 0);
+  long long* out = ring + (at * points + col) * (1 + kCounts);
+  out[0] = (long long)t;
+  for (int i = 0; i < kCounts; ++i)
+    out[1 + i] = counts.p[i] != nullptr ? *counts.p[i] : 0;
 }
 
 cudaError_t add_set(cudaGraph_t graph, cudaGraphNode_t dep,
@@ -157,4 +187,21 @@ extern "C" int gl_set_runs(unsigned long long* runs, int reset) {
   if (e != cudaSuccess || !reset) return (int)e;
   const unsigned long long zero = 0;
   return (int)cudaMemcpyToSymbol(g_set_runs, &zero, sizeof(zero));
+}
+
+// span_stamp on `stream` (recorded while the stream is captured); counts
+// holds ncounts device addresses of int32s (at most kCounts)
+extern "C" int gl_stamp(void* ring, int cap, int points, int row,
+                        const void* r, int col, const void* flag,
+                        void* const* counts, int ncounts, void* stream) {
+  if (ncounts < 0 || ncounts > kCounts || cap < 1 || col < 0 ||
+      col >= points)
+    return (int)cudaErrorInvalidValue;
+  Counts c = {};
+  for (int i = 0; i < ncounts; ++i)
+    c.p[i] = static_cast<const int*>(counts[i]);
+  span_stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(ring), cap, points, row,
+      static_cast<const int*>(r), col, static_cast<const int*>(flag), c);
+  return (int)cudaGetLastError();
 }

@@ -1502,3 +1502,130 @@ def test_cuda_sharded_prefill_launches_the_kernels(cuda_device):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+# ---- the traversal spans on the card (core/spans.py) ------------------------
+
+def _stamp_ring():
+    from repro_torch.core import spans
+    return next(r for d, r in spans._RINGS.items() if d.type == "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("direction", ["push", "pull", "adaptive"])
+def test_cuda_spans_stamp_each_round(cuda_device, direction):
+    """Traced fused traversals on the card: each round's phases in order
+    and back to back inside the loop, the loop inside the driver's span,
+    the stamped counts equal to ``collect_stats``, labels and rounds
+    bitwise the untraced ones, and one capture per key for traced and
+    untraced calls."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import balancer as tb
+    from repro_torch.core import graph_loop as gl
+    from repro_torch.core.apps import drivers as td
+    g, _ = _card_and_host_graph(cuda_device, scale=12)
+    cfg = tb.BalancerConfig(use_pallas=True, threshold=64,
+                            direction=direction)
+    for app, run in (
+            ("sssp", lambda **kw: td.sssp(g, 0, cfg, mode="fused", **kw)),
+            ("sssp_batch", lambda **kw: td.sssp_batch(
+                g, [0, 1, 2, 3], cfg, mode="fused", **kw))):
+        plain, stats = run(), run(collect_stats=True).stats
+        before = gl.captures
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            res = run()
+        again = run()
+        assert gl.captures == before
+        assert torch.equal(res.labels, plain.labels)
+        assert torch.equal(again.labels, plain.labels)
+        assert res.rounds == plain.rounds == again.rounds > 0
+        assert again.spans is None
+        rec = res.spans
+        assert len(rec.rounds) == res.rounds and rec.overflow == 0
+        top = rec.host_span(f"repro.{app}")
+        assert top[1] <= rec.loop[0] < rec.loop[1] <= top[2]
+        # the first round starts once the loop has set up its carry
+        t = rec.rounds[0].phases["inspect"][0]
+        assert t >= rec.loop[0]
+        for rnd, st in zip(rec.rounds, stats):
+            assert list(rnd.phases) == ["inspect", "list", "bin.small",
+                                        "bin.medium", "bin.large", "lb",
+                                        "turn"]
+            for a, b in rnd.phases.values():
+                assert a == t and b >= a
+                t = b
+            c = rnd.counts
+            assert (c["n_f"], c["m_f"], c["lb_edges"]) == \
+                (st.frontier_size, st.frontier_edges, st.edges_lb)
+        assert t == rec.loop[1]
+        assert {"repro.graph.copy_in", "repro.graph.launch",
+                "repro.graph.copy_out", "repro.fetch"} <= \
+            {h[0] for h in rec.host}
+
+
+@pytest.mark.gpu
+def test_cuda_spans_flag_off_writes_nothing(cuda_device):
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import balancer as tb
+    from repro_torch.core.apps import drivers as td
+    g, _ = _card_and_host_graph(cuda_device, scale=11)
+    cfg = tb.BalancerConfig(use_pallas=True, threshold=64)
+    with profile(activities=[ProfilerActivity.CPU]):
+        td.sssp(g, 0, cfg, mode="fused")
+    ring = _stamp_ring()
+    torch.cuda.synchronize()
+    assert ring.buf.any()
+    ring.buf.zero_()
+    res = td.sssp(g, 3, cfg, mode="fused")
+    torch.cuda.synchronize()
+    assert res.rounds > 0 and not ring.on
+    assert not ring.buf.any()
+
+
+@pytest.mark.gpu
+def test_cuda_spans_clock_matches_the_profiler(cuda_device):
+    """The eager stamp before the graph launch, mapped onto the host
+    clock, lands within 50 us of the profiler's own start of that
+    kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import balancer as tb
+    from repro_torch.core.apps import drivers as td
+    g, _ = _card_and_host_graph(cuda_device, scale=12)
+    cfg = tb.BalancerConfig(use_pallas=True, threshold=64)
+    td.sssp(g, 0, cfg, mode="fused")        # the ring made and calibrated
+    for src in (1, 2, 3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = td.sssp(g, src, cfg, mode="fused")
+        t0 = prof.profiler.kineto_results.trace_start_ns()
+        starts = sorted(t0 + e.time_range.start * 1e3 for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and "span_stamp" in e.name)
+        assert starts, "the profiler saw no span_stamp kernel"
+        assert abs(starts[0] - res.spans.launch_ns) < 50e3
+        assert res.spans.launch_ns <= res.spans.loop[0]
+
+
+@pytest.mark.gpu
+def test_cuda_program_alive_at_exit_closes_quietly(cuda_device):
+    import subprocess
+    import sys
+    import textwrap
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {str(src)!r})
+        import torch
+        from repro_torch.core import graph_loop
+        x = torch.arange(4, device="cuda", dtype=torch.float32)
+        keep = graph_loop.Program(lambda t: t * 2, (x,), keep=())
+        print(float(keep(x).sum()), flush=True)
+        """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["12.0"]
+    assert "Traceback" not in out.stderr and "Exception" not in out.stderr
