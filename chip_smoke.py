@@ -38,7 +38,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    their device counts (0, 1, the members, V), ``merge_path_map`` and
    ``edge_lb_map`` with the total on the device, over a span far past
    it: total 0, ragged tails, both deals, pass counts 0..k) against
-   their plain versions given the same ints;
+   their plain versions given the same ints; ``round_turn`` bitwise
+   against its plain version (V = 1, 50,000 and 50,003, B in {1, 3, 8},
+   none to every label lowered, int32 and float32, its census entry,
+   rows off a 16-byte boundary);
 3. the main path at full size: ALB ``sssp``, ``bfs`` and ``sssp_batch``
    (B = 8) on ``rmat(22, 16, seed=0)`` through the kernel pair (one
    fused ``twc_bin_relax`` / ``edge_lb_relax`` launch per pass), with
@@ -75,7 +78,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    fetch under ``set_sync_debug_mode("error")``; each run's launches
    counted on the card and held against its rounds x bins (and the bin
    listing, ``twc_bin_list``, once a round; merge_path:
-   ``merge_path_relax`` and ``twc_bin_list`` once a round), launches
+   ``merge_path_relax`` and ``twc_bin_list`` once a round; a fused
+   min-combine loop's turn, ``round_turn``, rounds + 1), launches
    recorded by the captures, graphs captured and their seconds, the
    condition kernel's decisions, medians of 6 walls host / spmd / fused in turns, device profiles of
    sssp and pagerank in host and spmd mode (launch totals and the
@@ -154,7 +158,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    over E ids and the torch epilogue), the
    host rounds' ``twc_bin_relax`` calls through the static schedule,
    and the condition kernel (a 1,000-turn WHILE loop against the same
-   loop driven from the host);
+   loop driven from the host); ``round_turn`` at the benchmark's kron 26
+   shapes (``[1, 2**26]`` and ``[8, 2**26]`` labels, 0.1% and 20%
+   lowered) beside its plain version and its bound;
 5. the LM serving path, after the graph phases' tensors are freed:
    deepseek-moe-16b at its published widths and 28 layers, random bf16
    weights from a seeded generator on the card, 4 requests of 1024
@@ -815,6 +821,86 @@ def static_entries_vs_plain(dev) -> dict:
           f"and int add exact, float add within rtol {RELAX_FLOAT_RTOL}): "
           f"{errs}", flush=True)
     return errs
+
+
+def turn_state(dev, v: int, b: int, share: float, dtype, seed: int):
+    """``(labels, new, row_ptr, frontier)`` for ``round_turn`` on
+    ``dev``: labels of ``dtype`` (int32, float32, int64 past 2**32 or
+    float64) from int32 ones with 1% at INT32_MAX, ``new``
+    below them at ``share`` of the labels and equal elsewhere, a CSR of
+    degrees 0..32 with a hub in 10,000, a frontier of junk the turn
+    overwrites."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lab = torch.randint(0, 1 << 30, (b, v), generator=gen, device=dev,
+                        dtype=torch.int32)
+    top = torch.rand((v,), generator=gen, device=dev) < 0.01
+    lab[:, top] = np.iinfo(np.int32).max
+    low = torch.rand((b, v), generator=gen, device=dev) < share
+    new = torch.where(low, lab - torch.randint(
+        1, 1 << 20, (b, v), generator=gen, device=dev, dtype=torch.int32),
+        lab)
+    if dtype == torch.int64:
+        lab, new = lab.long() << 20, new.long() << 20
+    lab, new = lab.to(dtype), new.to(dtype)
+    deg = torch.randint(0, 33, (v,), generator=gen, device=dev)
+    deg[torch.rand((v,), generator=gen, device=dev) < 1e-4] = 100_000
+    row_ptr = torch.cat([deg.new_zeros(1), deg.cumsum(0)]).to(torch.int32)
+    fr = torch.rand((b, v), generator=gen, device=dev) < 0.5
+    return lab, new, row_ptr, fr
+
+
+def round_turn_vs_plain(dev) -> dict:
+    """``round_turn`` against its plain version on the card, bitwise
+    (the frontier, the labels' words, the census, and the census
+    scratch left at 0 for the next launch): V = 1, 50,000 (the 16-byte
+    path) and 50,003 (the element path), B in {1, 3, 8}, none, 0.1%,
+    20% and every label lowered, int32, float32, int64 and float64
+    labels, each twice on one census buffer; the census entry over the
+    same frontiers; labels one word off a 16-byte boundary.  Returns the
+    cases run."""
+    import torch
+    from repro_torch.kernels import ref, relax
+    cases = 0
+
+    def held(lab, new, row_ptr, fr, census):
+        nonlocal cases
+        want_lab, want_fr = lab.clone(), fr.clone()
+        want = ref.round_turn_ref(want_lab, new, row_ptr, want_fr,
+                                  relax.census_buffer(dev))
+        got_lab, got_fr = lab.clone(), fr.clone()
+        relax.round_turn(got_lab, new, row_ptr, got_fr, census)
+        check(torch.equal(got_fr, want_fr) and torch.equal(
+            got_lab.view(torch.int32), want_lab.view(torch.int32)) and
+            torch.equal(census, want), f"round_turn != plain "
+            f"({tuple(lab.shape)}, {lab.dtype}): census {census.tolist()}"
+            f" / {want.tolist()}")
+        seen = relax.round_turn(None, None, row_ptr, fr, census)
+        keep = fr.clone()
+        check(torch.equal(seen, ref.round_turn_ref(
+            None, None, row_ptr, keep, relax.census_buffer(dev))),
+            "round_turn's census entry != plain")
+        cases += 2
+
+    for v in (1, 50_000, 50_003):
+        for b in (1, 3, 8):
+            for share in (0.0, 0.001, 0.2, 1.0):
+                for dtype in (torch.int32, torch.float32, torch.int64,
+                              torch.float64):
+                    st = turn_state(dev, v, b, share, dtype, 11 + b)
+                    census = relax.census_buffer(dev)
+                    held(*st, census)
+                    held(*st, census)
+    lab, new, row_ptr, fr = turn_state(dev, 50_001, 3, 0.2, torch.int32, 5)
+    cut = 3 * 50_000
+    held(lab.reshape(-1)[1:cut + 1].view(3, 50_000),
+         new.reshape(-1)[1:cut + 1].view(3, 50_000),
+         row_ptr[:50_001].contiguous(), fr.reshape(-1)[:cut].view(3, 50_000),
+         relax.census_buffer(dev))
+    torch.cuda.synchronize()
+    print(f"phase 2: round_turn == plain bitwise on {cases} cases (turns "
+          f"and census entries)", flush=True)
+    return {"round_turn": cases}
 
 
 # the LM kernels against their plain versions: positions_in_expert
@@ -1558,19 +1644,24 @@ def static_path(g, sym, src, sources) -> dict:
         """Launches a run's rounds need: each bin of the plan, the
         listing (of the bins and the LB bin) and the huge bin once a
         round (merge_path: the listing of its LB-all bin and
-        ``merge_path_relax``)."""
+        ``merge_path_relax``); a fused min-combine loop's turn once a
+        round and its first census once (kcore's and pagerank's loops
+        turn in torch ops)."""
         ran = rounds + (m == "spmd" and a != "pagerank")
+        turn = (rounds + 1 if m == "fused" and a not in ("kcore",
+                                                         "pagerank")
+                else 0)
         plan = effective_plan(cfg_of[a])
         if cfg_of[a].executor == "merge_path":
             return {"twc_bin_relax": 0, "edge_lb_relax": 0,
                     "merge_path_relax": ran, "twc_bin_list": ran,
-                    "merge_path_map": 0}
+                    "merge_path_map": 0, "round_turn": turn}
         return {"twc_bin_relax": ran * len(plan.bins),
                 "edge_lb_relax": ran * (plan.lb != "none"),
                 "merge_path_relax": 0,
                 "twc_bin_list": ran * (len(plan.bins) > 0
                                        or plan.lb != "none"),
-                "merge_path_map": 0}
+                "merge_path_map": 0, "round_turn": turn}
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1605,7 +1696,7 @@ def static_path(g, sym, src, sources) -> dict:
           f"captured in {capture_s:.2f} s; the condition kernel took "
           f"{decisions} branch and loop decisions on the card; peak "
           f"device memory {peak_gb:.2f} GB", flush=True)
-    for name in GRAPH_KERNELS + ("twc_bin_list",):
+    for name in GRAPH_KERNELS + ("twc_bin_list", "round_turn"):
         check(launches[name] > 0, f"{name} was not launched by phase 3d")
     check(by_run["sssp/twc/fused"]["twc_bin_relax"] > 0,
           "the twc strategy's unbounded bin did not launch twc_bin_relax")
@@ -2285,19 +2376,21 @@ def dist_launches_needed(cfg, rounds: int) -> dict:
     """Launches of the static entries a distributed run's rounds need:
     each partition runs every bin of the plan, the listing (of the bins
     and the LB bin) and the huge bin once a round (under merge_path the
-    listing of its LB-all bin and ``merge_path_relax``)."""
+    listing of its LB-all bin and ``merge_path_relax``); the runtime's
+    loops turn in torch ops, so ``round_turn`` never."""
     from repro_torch.core.balancer import effective_plan
     if cfg.executor == "merge_path":
         return {"twc_bin_relax": 0, "edge_lb_relax": 0,
                 "merge_path_relax": rounds * DIST_PARTS,
-                "twc_bin_list": rounds * DIST_PARTS, "merge_path_map": 0}
+                "twc_bin_list": rounds * DIST_PARTS, "merge_path_map": 0,
+                "round_turn": 0}
     plan = effective_plan(cfg)
     return {"twc_bin_relax": rounds * len(plan.bins) * DIST_PARTS,
             "edge_lb_relax": rounds * (plan.lb != "none") * DIST_PARTS,
             "merge_path_relax": 0,
             "twc_bin_list": rounds * (len(plan.bins) > 0
                                       or plan.lb != "none") * DIST_PARTS,
-            "merge_path_map": 0}
+            "merge_path_map": 0, "round_turn": 0}
 
 
 def dist_dispatches(local, meta, mesh, cfg, v: int, src: int, rev_aux):
@@ -3378,6 +3471,94 @@ def time_graph_loop(dev, decisions: int) -> dict:
             "launches": decisions, "max_abs_err": 0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": "bytes",
             "library_ms": None, "timed_launches": turns + 1}
+
+
+def turn_work(lab, new, row_ptr) -> tuple:
+    """``(bytes, operations)`` a ``round_turn`` launch needs: the labels
+    and the new labels read once, the frontier written once, the changed
+    labels written, and the distinct ``row_ptr`` entries of the next
+    frontier's vertices (``v`` and ``v + 1``) read; no arithmetic worth
+    counting against the byte bound."""
+    import torch
+    lower = new < lab
+    union = lower.any(dim=0)
+    ends = torch.zeros(union.numel() + 1, dtype=torch.bool,
+                       device=union.device)
+    ends[:-1] |= union
+    ends[1:] |= union
+    nbytes = (2 * lab.numel() * 4 + lab.numel()
+              + int((new.view(torch.int32) != lab.view(torch.int32)).sum())
+              * 4 + int(ends.sum()) * 4)
+    return nbytes, 0
+
+
+def time_round_turn(dev, launches: int) -> list:
+    """``round_turn`` (``csrc/round_turn.cu``, no TPU kernel) at the
+    benchmark's kron 26 shapes: V = 2**26 int32 labels, B = 1
+    (``kron26-sssp``) and B = 8 (``kron26-sssp-b8``), each with 0.1% and
+    20% of the labels lowered (a late and a wide sssp round), a CSR of
+    ~1.1 B arcs with hubs.  Held against its plain version exactly, then
+    timed beside it and its bound: each launch starts from a fresh copy
+    of the labels, made on the stream before its start event (CUDA
+    events around each launch, three a shape).  ``launches``: its count
+    on the card over phases 3d-3g."""
+    import torch
+    from repro_torch.kernels import ref, relax
+    v = 1 << 26
+    out = []
+    for b in (1, 8):
+        for share in (0.001, 0.2):
+            lab, new, row_ptr, fr = turn_state(dev, v, b, share,
+                                               torch.int32, 23 + b)
+            census = relax.census_buffer(dev)
+            want_lab, want_fr = lab.clone(), fr.clone()
+            want = ref.round_turn_ref(want_lab, new, row_ptr, want_fr,
+                                      relax.census_buffer(dev))
+            work, wfr = lab.clone(), fr.clone()
+            relax.round_turn(work, new, row_ptr, wfr, census)
+            check(torch.equal(work, want_lab) and torch.equal(wfr, want_fr)
+                  and torch.equal(census, want),
+                  f"round_turn != plain at [{b}, 2**26], share {share}")
+            del want_lab, want_fr
+            nbytes, _ = turn_work(lab, new, row_ptr)
+
+            def timed(fn):
+                fn(work, new, row_ptr, wfr, census)      # warm-up
+                pairs = []
+                for _ in range(3):
+                    work.copy_(lab)
+                    torch.cuda._sleep(2_000_000)
+                    s = torch.cuda.Event(enable_timing=True)
+                    e = torch.cuda.Event(enable_timing=True)
+                    s.record()
+                    fn(work, new, row_ptr, wfr, census)
+                    e.record()
+                    pairs.append((s, e))
+                torch.cuda.synchronize()
+                return sum(s.elapsed_time(e) for s, e in pairs) / 3
+            ms = timed(relax.round_turn)
+            plain_ms = timed(ref.round_turn_ref)
+            out.append({"b": b, "share": share, "ms": ms,
+                        "plain_ms": plain_ms, "bytes": nbytes,
+                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                        "n_f": int(want[0]), "m_f": int(want[1])})
+            print(f"phase 4: round_turn at [{b}, 2**26], {share:.1%} "
+                  f"lowered: {ms:.4f} ms per launch (plain {plain_ms:.4f} "
+                  f"ms, bound {out[-1]['bound_ms']:.4f} ms by bytes, "
+                  f"{nbytes / 1e9:.3f} GB; n_f {out[-1]['n_f']})",
+                  flush=True)
+            del lab, new, row_ptr, fr, work, wfr
+            torch.cuda.empty_cache()
+    first = out[0]
+    return {"name": "round_turn (port-only helper)", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/round_turn.cu",
+            "replaces": "none: no TPU kernel (the elementwise control "
+                        "XLA compiles around the fused loop: "
+                        "src/repro/core/balancer.py:1107-1109, :1179)",
+            "launches": launches, "max_abs_err": 0, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "timed_launches": 3 * len(out), "by_shape": out}
 
 
 def profile_path(runs: dict, wall_s: dict, label: str = "phase 4") -> dict:
@@ -4954,6 +5135,7 @@ def main() -> int:
     errs = kernel_vs_plain(dev)
     relax_vs_plain(dev)
     static_errs = static_entries_vs_plain(dev)
+    round_turn_vs_plain(dev)
     lm_kernels_vs_plain(dev)
     moe_plan_vs_plain(dev)
     mp = main_path(dev, args.scale)
@@ -4982,7 +5164,8 @@ def main() -> int:
                                           "merge_path_map")}
     static_launches = dict(sp["launches"])
     by_phase = {}
-    for k in STATIC_KERNELS + ("merge_path_relax", "merge_path_map"):
+    for k in STATIC_KERNELS + ("merge_path_relax", "merge_path_map",
+                               "round_turn"):
         by_phase[k] = {"3": mp["launches"].get(k, 0),
                        "3b": pp["launches"].get(k, 0),
                        "3d": sp["launches"][k]}
@@ -5007,6 +5190,7 @@ def main() -> int:
     rows.append(time_graph_loop(
         dev, sp["condition_decisions"] + se["condition_decisions"]
         + sv["condition_decisions"] + dp["condition_decisions"]))
+    rows.append(time_round_turn(dev, static_launches["round_turn"]))
     for r in rows:
         if r["name"].split()[0] in by_phase:
             r["launches_by_phase"] = by_phase[r["name"].split()[0]]

@@ -33,7 +33,9 @@ No round updates its input labels in place.  The torch-ops entries
 scatter into a fresh labels tensor (``scatter.scatter_combine``) in every
 pass; a pair registered ``in_place`` (``pallas``, ``merge_path``)
 combines into the labels it is given, so the round clones the labels
-once and every pass combines into that copy.  Either way the round-entry ``values`` (which
+once and every pass combines into that copy (the fused min loop keeps
+that copy across rounds instead, and :func:`run_fused`'s turn brings it
+level with the labels).  Either way the round-entry ``values`` (which
 alias the app loop's labels) and the loop's ``old`` labels stay intact.
 
 A pull round (``direction="pull"``, or ``"adaptive"`` resolving to
@@ -281,7 +283,8 @@ class ExecutorPair:
     ``values`` / ``labels`` / ``fmask`` are ``[B, V]``; the enumeration
     arguments are batch-shared (union frontier).  With ``in_place`` the
     entries combine into ``labels`` and return it: the round hands them
-    a private copy, made once per round, never the caller's labels.
+    a private buffer, never the caller's labels: a copy made once per
+    round, or the fused min loop's shadow of its labels.
     Given device scalars, an entry never reads them on the host, so a
     captured round (``core.graph_loop``) can run it.  The JAX package
     keeps a second, jit-traced entry of each (``bin_jit`` / ``lb_jit``,
@@ -949,7 +952,9 @@ def relax_fused_round(g: Graph, rg: Optional[Graph],
                       emask: Optional[torch.Tensor], values, labels,
                       frontier, cfg: BalancerConfig, op: Operator,
                       pull_op: Optional[Operator] = None,
-                      collect_stats: bool = False):
+                      collect_stats: bool = False,
+                      census: Optional[torch.Tensor] = None,
+                      owned: bool = False):
     """One round with the whole inspector on the device: ``n_f`` and
     ``m_f`` are device scalars, the Beamer rule
     (:func:`resolve_direction_device`) picks the branch with
@@ -958,39 +963,51 @@ def relax_fused_round(g: Graph, rg: Optional[Graph],
     and each branch is the static round, push on ``g`` or pull on the
     reverse CSR ``rg`` over its in-degree ``emask``.
 
+    ``n_f`` and ``m_f`` are read from ``census`` (``census[0]``,
+    ``census[1]``: the fused min loop's, which ``kernels.relax.
+    round_turn`` took of this frontier) when it is given, else computed
+    here over V (the union frontier and its out-degrees).  ``owned``:
+    ``labels`` is a private buffer that an ``in_place`` pair combines
+    into (the fused min loop's shadow of its labels); else such a pair
+    gets a copy, made here once.
+
     Inputs are batched ``[B, V]``; ``rg`` / ``emask`` / ``pull_op`` may
     be None for ``push`` configs.  Returns ``(labels, is_pull, n_f,
     m_f, stats)``, all on the device; ``stats`` is a
     :class:`RoundStatsDev` with ``frontier_edges`` / ``is_pull`` filled
     in (None unless ``collect_stats``)."""
     v = labels.shape[-1]
-    deg = g.out_degrees()
-    union = union_frontier(frontier)
-    nf = count(union)
-    m_f = torch.where(union, deg, 0).sum(dtype=torch.int32)
+    if census is None:
+        deg = g.out_degrees()
+        union = union_frontier(frontier)
+        nf = count(union)
+        m_f = torch.where(union, deg, 0).sum(dtype=torch.int32)
+    else:
+        nf, m_f = census[0], census[1]
     is_pull = resolve_direction_device(cfg, nf, m_f, v, g.num_edges)
     seen = (nf, m_f)        # stamped with the listing's start
+    # an in_place pair: every branch combines into one private buffer
+    in_place = get_executor(cfg.executor).in_place
+    if in_place and not owned:
+        labels = labels.clone(memory_format=torch.contiguous_format)
     if cfg.direction == "push":
         out = _relax_spmd_impl(g, values, labels, frontier, cfg, op,
-                               collect_stats=collect_stats, inspect=seen)
+                               collect_stats=collect_stats, owned=in_place,
+                               inspect=seen)
     elif cfg.direction == "pull":
         out = _relax_spmd_impl(rg, values, labels, frontier, cfg, pull_op,
                                collect_stats=collect_stats, emask=emask,
-                               inspect=seen)
+                               owned=in_place, inspect=seen)
     else:
-        # an in_place pair: both branches combine into one private copy
-        owned = get_executor(cfg.executor).in_place
-        lab = (labels.clone(memory_format=torch.contiguous_format)
-               if owned else labels)
         out = graph_loop.cond(
             is_pull,
-            lambda: _relax_spmd_impl(rg, values, lab, frontier, cfg,
+            lambda: _relax_spmd_impl(rg, values, labels, frontier, cfg,
                                      pull_op, collect_stats=collect_stats,
-                                     emask=emask, owned=owned,
+                                     emask=emask, owned=in_place,
                                      inspect=seen),
-            lambda: _relax_spmd_impl(g, values, lab, frontier, cfg, op,
+            lambda: _relax_spmd_impl(g, values, labels, frontier, cfg, op,
                                      collect_stats=collect_stats,
-                                     owned=owned, inspect=seen))
+                                     owned=in_place, inspect=seen))
     if collect_stats:
         labels_out, st = out
         st = st._replace(frontier_edges=m_f, is_pull=is_pull)
@@ -1108,30 +1125,49 @@ def _run_fused_loop(g: Graph, rg, emask, labels, frontier,
                     cfg: BalancerConfig, op: Operator, pull_op,
                     max_rounds: int, collect_stats: bool):
     """The fused min-combine loop: ONE :func:`graph_loop.while_` whose
-    body is :func:`relax_fused_round` plus the ``new < old`` frontier
-    update, writing stats row ``r`` on the device; the condition
-    ``(r < max_rounds) & any(frontier)`` is evaluated on the device.
-    Each round is stamped (:func:`_stamped_while`).
+    body is :func:`relax_fused_round` and the turn
+    (``kernels.relax.round_turn``, one launch over the labels: the next
+    frontier ``new < old``, the labels brought level with ``new``, and
+    the next round's census ``n_f``, ``m_f``), writing stats row ``r``
+    on the device; the condition ``(r < max_rounds) & (n_f > 0)``, which
+    is ``any(frontier)``, is evaluated on the device.  The census of the
+    first frontier is taken before the loop, by the same kernel.
+
+    An ``in_place`` pair relaxes each round into a second buffer of the
+    carry, ``N``, equal to the labels at every round's start, reading the
+    labels as the round-entry values: no round copies the labels, and
+    the turn writes back only the labels that changed.  ``N`` is a
+    temporary of the loop, never returned, so a captured program keeps
+    no buffer for it beyond its pool.  The ``xla`` pair's rounds return
+    fresh labels, which the turn takes as ``new``.  Each round is
+    stamped (:func:`_stamped_while`).
     Returns ``(r, labels, frontier)`` plus the stat rows with
     ``collect_stats``."""
+    from repro_torch.kernels import relax as krelax   # lazy: import cycle
+    census = krelax.round_turn(None, None, g.row_ptr, frontier,
+                               krelax.census_buffer(labels.device))
+    shadow = get_executor(cfg.executor).in_place
     carry = (torch.zeros((), dtype=torch.int32, device=labels.device),
-             labels, frontier)
+             labels, frontier, census) + ((labels,) if shadow else ())
     if collect_stats:
         carry += (_fused_stats_init(max_rounds, labels.shape[0],
                                     cfg.num_tiles, labels.device),)
 
-    def cond(r, lab, fr, *rows):
-        return (r < max_rounds) & fr.any()
+    def cond(r, lab, fr, census, *rest):
+        return (r < max_rounds) & (census[0] > 0)
 
-    def body(r, lab, fr, *rows):
-        new, _, _, _, st = relax_fused_round(g, rg, emask, lab, lab, fr,
-                                             cfg, op, pull_op,
-                                             collect_stats)
-        if collect_stats:
+    def body(r, lab, fr, census, *rest):
+        shade, rows = (rest[0], rest[1:]) if shadow else (lab, rest)
+        new, _, _, _, st = relax_fused_round(
+            g, rg, emask, lab, shade, fr, cfg, op, pull_op, collect_stats,
+            census=census, owned=shadow)
+        if collect_stats:      # before the turn: st reads the census
             rows = (_put_row(rows[0], r, st),)
-        return (r + 1, new, new < lab) + rows
+        krelax.round_turn(lab, new.contiguous(), g.row_ptr, fr, census)
+        return (r + 1, lab, fr, census) + ((new,) if shadow else ()) + rows
 
-    return _stamped_while(cond, body, carry)
+    r, lab, fr, _, *rest = _stamped_while(cond, body, carry)
+    return (r, lab, fr) + tuple(rest[1:] if shadow else rest)
 
 
 def run_fused(g: Graph, labels: torch.Tensor, frontier: torch.Tensor,
@@ -1154,7 +1190,7 @@ def run_fused(g: Graph, labels: torch.Tensor, frontier: torch.Tensor,
                          f"{op.name} (combine={op.combine!r})")
     batched = labels.ndim == 2
     lab = labels if batched else labels[None]
-    fr = frontier if batched else frontier[None]
+    fr = (frontier if batched else frontier[None]).to(torch.bool).contiguous()
     pull_op, rg, emask = _pull_side(g, cfg, op)
     max_rounds = int(max_rounds)
     _arm_spans(lab.device, cfg)

@@ -162,14 +162,24 @@ def cond(pred: torch.Tensor, true_fn, false_fn):
 def while_(cond_fn, body_fn, carry):
     """``lax.while_loop``: ``carry = body_fn(*carry)`` while
     ``cond_fn(*carry)`` (a one-element bool) holds; returns the final
-    carry, a tuple of tensors of fixed shapes and dtypes.  The carry
-    given is not written."""
+    carry, a tuple of tensors of fixed shapes and dtypes.  The loop runs
+    on its own copy of the carry given, which is not written: the body
+    may write its carry in place and return it, and a leaf it returns in
+    the same memory is not copied on the card."""
     carry = tuple(carry)
     if carry[0].device.type == "cpu":
+        carry = _own(carry)
         while bool(cond_fn(*carry)):
             carry = tuple(body_fn(*carry))
         return carry
     return _recorder("while_").while_(cond_fn, body_fn, carry)
+
+
+def _own(carry) -> tuple:
+    """The loop's own copy of a carry, contiguous (a body may hand its
+    leaves to a kernel that takes contiguous tensors)."""
+    return tuple(t.clone(memory_format=torch.contiguous_format)
+                 for t in carry)
 
 
 def repeat(fn, x: torch.Tensor, start: int, count):
@@ -304,7 +314,7 @@ class _Recorder:
         return pytree.tree_unflatten(t_leaves, spec)
 
     def while_(self, cond_fn, body_fn, carry):
-        bufs = tuple(t.clone() for t in carry)
+        bufs = _own(carry)
         flag = self._flag(cond_fn(*bufs))
         self.end()
         frame, handle = self._conditional(_WHILE, flag, 0)

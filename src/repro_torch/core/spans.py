@@ -34,11 +34,12 @@ untraced one records nothing and costs one such check.
 ended (one transfer, after the driver's sync) and decodes them into the
 record: per round, each phase's ``(start_ns, end_ns)`` and its counts.
 Phases of a round, in order: ``inspect`` (round start to the listing:
-the union frontier, ``n_f``, ``m_f``, the direction rule, the round's
-labels copy), ``list`` (the bin listing), ``bin.<name>`` (each bin's
-pass), ``lb`` (the LB pass) and ``turn`` (to the next round's start, or
-the loop's end: the frontier update, the loop condition and the WHILE
-turn).  A round that outruns the ring overwrites the oldest row; the
+the direction rule, and where no census is carried the union frontier,
+``n_f``, ``m_f`` and the round's labels copy), ``list`` (the bin
+listing), ``bin.<name>`` (each bin's pass), ``lb`` (the LB pass) and
+``turn`` (to the next round's start, or the loop's end: the frontier
+update, in the fused min loop with the next round's census, the loop
+condition and the WHILE turn).  A round that outruns the ring overwrites the oldest row; the
 record counts the rounds lost (``overflow``).
 
 :func:`records` returns the last :data:`KEEP` traversal records of this

@@ -13,6 +13,10 @@
   members listed once a round from the dense frontier and ``row_ptr``,
   in vertex order, for ``twc_bin_relax``, and the LB bin's for
   ``edge_lb_relax`` / ``merge_path_relax``;
+* ``relax.round_turn``          — ``csrc/round_turn.cu`` (CUDA C++), no
+  TPU kernel: the fused min-combine loop's turn, the next frontier, the
+  carry's labels brought level with the round's relaxed copy and the
+  next round's census (``n_f``, ``m_f``), in one pass;
 * ``twc_gather.twc_bin_map``    — ``csrc/twc_gather.cu`` (CUDA C++), the
   index map of a degree bin (the Pallas kernel's counterpart);
 * ``edge_lb.edge_lb_map``       — ``csrc/edge_lb.cu`` (CUDA C++), the
@@ -33,7 +37,7 @@
 * ``csrc/graph_loop.cu``        — no TPU kernel: the conditional graph
   nodes (IF, WHILE) and their condition kernel, for
   ``core.graph_loop``'s device control flow;
-* ``ref``                       — plain PyTorch versions of all ten;
+* ``ref``                       — plain PyTorch versions of all eleven;
 * ``ops``                       — the executor pairs of
   ``core.balancer``: the fused relax kernels (or, for an operator they
   do not take, the index maps with the torch epilogue, counted in
@@ -57,13 +61,13 @@ from . import ops as _ops
 from .edge_lb import edge_lb_map
 from .merge_path import merge_path_map
 from .moe_dispatch import positions_in_expert
-from .relax import (edge_lb_relax, merge_path_relax, twc_bin_list,
-                    twc_bin_relax)
+from .relax import (edge_lb_relax, merge_path_relax, round_turn,
+                    twc_bin_list, twc_bin_relax)
 from .twc_gather import twc_bin_map
 
 KERNELS = {"twc_bin_relax": twc_bin_relax, "edge_lb_relax": edge_lb_relax,
            "merge_path_relax": merge_path_relax,
-           "twc_bin_list": twc_bin_list,
+           "twc_bin_list": twc_bin_list, "round_turn": round_turn,
            "twc_bin_map": twc_bin_map, "edge_lb_map": edge_lb_map,
            "merge_path_map": merge_path_map,
            "moe_plan": _moe_plan.moe_plan,
@@ -81,7 +85,8 @@ DEVICE_COUNTED = {"twc_bin_relax": "twc_relax",
                   "edge_lb_relax": "edge_lb_relax",
                   "merge_path_relax": "merge_path_relax",
                   "twc_bin_list": "twc_list",
-                  "merge_path_map": "merge_path"}
+                  "merge_path_map": "merge_path",
+                  "round_turn": "round_turn"}
 
 
 def capture_counts() -> dict:

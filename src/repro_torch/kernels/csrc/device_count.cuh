@@ -3,8 +3,9 @@
 // A launch recorded into a CUDA graph runs each time the graph is
 // replayed, and a kernel inside a WHILE node once per turn, with no
 // host call to count it.  So the kernels that the static-shape round
-// runs (twc_relax.cu, twc_list.cu, edge_lb_relax.cu,
-// merge_path_relax.cu, merge_path.cu) count their own launches here:
+// and the fused loop run (twc_relax.cu, twc_list.cu, edge_lb_relax.cu,
+// merge_path_relax.cu, merge_path.cu, round_turn.cu) count their own
+// launches here:
 // thread 0 of block 0 adds one (a single atomic a launch).  Each source
 // is built into a library of its own, so each has its own counter;
 // `device_launches` reads it and may reset it (a copy from device

@@ -6,8 +6,9 @@ kernels, three for the merge-path map ``(graph_e, slot_j, mask)``; the
 labels combined in place for the fused relax kernels
 (``twc_bin_relax_ref``, ``edge_lb_relax_ref``, ``merge_path_relax_ref``:
 the index map above plus the torch epilogue ``slot_epilogue``); each
-degree bin's member list of a static round for ``twc_bin_list_ref``; the
-arrival rank for
+degree bin's member list of a static round for ``twc_bin_list_ref``; a
+fused round's turn and census for ``round_turn_ref``; the arrival rank
+for
 ``positions_in_expert_ref``; the whole MoE dispatch plan for
 ``moe_plan_ref``; the attention output for ``flash_attention_ref``.
 The kernel wrappers call these for CPU tensors, and the CUDA kernels
@@ -238,6 +239,23 @@ def merge_path_relax_ref(values, labels, fmask, col_idx, edge_w, hvidx,
     out = slot_epilogue(col_idx, edge_w, values, labels, fmask, hvidx[j],
                         ge, mask, op)
     return labels.copy_(out)
+
+
+def round_turn_ref(labels, new, row_ptr, frontier, census):
+    """Plain version of ``relax.round_turn``: with ``labels`` (and
+    ``new``), ``frontier = new < labels`` and ``labels = new``, in place;
+    then ``census[0]`` = the vertices set in any row of ``frontier`` (its
+    union over the batch) and ``census[1]`` = their out-degrees from
+    ``row_ptr``, summed in int32.  ``census[2:]`` is left as it is.
+    Returns ``census``."""
+    if labels is not None:
+        torch.lt(new, labels, out=frontier)
+        labels.copy_(new)
+    union = frontier.any(dim=0) if frontier.ndim == 2 else frontier
+    deg = row_ptr[1:] - row_ptr[:-1]
+    census[0] = count(union)
+    census[1] = torch.where(union, deg, 0).sum(dtype=torch.int32)
+    return census
 
 
 def positions_in_expert_ref(flat_expert, num_experts: int):

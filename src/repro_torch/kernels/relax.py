@@ -1,6 +1,7 @@
 """``twc_bin_relax`` and ``edge_lb_relax``: one whole ALB pass, fused;
 ``merge_path_relax``: one whole merge-path pass, fused;
-``twc_bin_list``: the static round's bins, listed once a round.
+``twc_bin_list``: the static round's bins, listed once a round;
+``round_turn``: the fused min-combine round's turn and census.
 
 Hand-written CUDA C++ kernels for the hot paths of the ``pallas`` and
 ``merge_path`` executor pairs (``kernels/ops.py``):
@@ -21,6 +22,10 @@ bin's members in vertex order, and the edge-balanced (LB) bin's with
 their edge prefix and total, so that each bin's ``twc_bin_relax``
 launch and the ``edge_lb_relax`` or ``merge_path_relax`` launch run
 over their members alone.
+``csrc/round_turn.cu`` (no TPU kernel) is the fused min-combine loop's
+turn: the next frontier, the carry's labels brought level with the
+round's relaxed copy, and the next round's ``n_f`` / ``m_f``, in one
+pass over the labels.
 
 ``values`` / ``labels`` / ``fmask`` are ``[B, V]`` and the enumeration is
 batch-shared.  ``labels`` is written in place and returned; it must not
@@ -36,7 +41,8 @@ JAX pairs run every operator.
 For CPU tensors the wrappers compute the plain version
 (``ref.twc_bin_relax_ref`` / ``ref.edge_lb_relax_ref`` /
 ``ref.merge_path_relax_ref``: the reference index map plus the torch
-epilogue, written into ``labels``; ``ref.twc_bin_list_ref``); for CUDA
+epilogue, written into ``labels``; ``ref.twc_bin_list_ref``;
+``ref.round_turn_ref``); for CUDA
 tensors they launch the kernel or raise.
 """
 from __future__ import annotations
@@ -50,7 +56,7 @@ from repro_torch.core.operators import has_msg_kind, msg_kind
 
 from . import build
 from .ref import (BinLists, edge_lb_relax_ref, merge_path_relax_ref,
-                  twc_bin_list_ref, twc_bin_relax_ref)
+                  round_turn_ref, twc_bin_list_ref, twc_bin_relax_ref)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -380,7 +386,87 @@ def merge_path_relax(values: torch.Tensor, labels: torch.Tensor,
     return labels
 
 
+#: int32s of a census buffer (:func:`census_buffer`): ``n_f``, ``m_f``,
+#: then the kernel's two block sums and its count of blocks done, which
+#: every launch leaves at 0
+CENSUS_INTS = 5
+# the kernel's code for each label dtype it takes (32- and 64-bit words)
+_TURN_DTYPES = {torch.int32: 0, torch.float32: 1, torch.int64: 2,
+                torch.float64: 3}
+
+
+def census_buffer(device) -> torch.Tensor:
+    """A zeroed census for :func:`round_turn` on ``device``."""
+    return torch.zeros(CENSUS_INTS, dtype=torch.int32, device=device)
+
+
+def round_turn(labels, new, row_ptr: torch.Tensor, frontier: torch.Tensor,
+               census: torch.Tensor) -> torch.Tensor:
+    """The turn of a fused min-combine round, in place, and the census of
+    the frontier it leaves.
+
+    ``frontier`` is a contiguous bool ``[R, V]`` (or ``[V]``);
+    ``labels`` and ``new`` are contiguous tensors of its shape and of one
+    dtype that share no memory: on the card int32, float32, int64 or
+    float64, on the CPU (its plain version) any.  It writes ``frontier =
+    new < labels`` and ``labels = new`` (where their bits differ: the
+    same words), then
+    ``census[0]`` = the vertices set in any row of ``frontier`` and
+    ``census[1]`` = their out-degrees from ``row_ptr`` (int32 ``[V +
+    1]``), summed in int32.  With ``labels`` and ``new`` None it only
+    takes the census of ``frontier``.  ``census`` is a
+    :func:`census_buffer` (int32 ``[CENSUS_INTS]``, its scratch ints at
+    0, as each launch leaves them).  Nothing is read on the host, so a
+    captured loop can run it.  Returns ``census``."""
+    if (labels is None) != (new is None):
+        raise ValueError("round_turn: labels and new are given together")
+    if frontier.dtype != torch.bool:
+        raise TypeError(f"round_turn: frontier must be torch.bool, got "
+                        f"{frontier.dtype}")
+    if frontier.ndim not in (1, 2) or frontier.ndim == 2 and \
+            frontier.shape[0] < 1 or not frontier.is_contiguous():
+        raise ValueError(f"round_turn: frontier must be a contiguous [V] "
+                         f"or [R, V] mask with R >= 1; got "
+                         f"{tuple(frontier.shape)}, strides "
+                         f"{frontier.stride()}")
+    v, dev = frontier.shape[-1], frontier.device
+    build.check_vec("round_turn", "row_ptr", row_ptr, v + 1, dev)
+    build.check_vec("round_turn", "census", census, CENSUS_INTS, dev)
+    if labels is not None:
+        if new.dtype != labels.dtype or dev.type == "cuda" and \
+                labels.dtype not in _TURN_DTYPES:
+            raise TypeError(f"round_turn: labels and new must be of one "
+                            f"dtype, on the card one of "
+                            f"{tuple(_TURN_DTYPES)}; got {labels.dtype}, "
+                            f"{new.dtype}")
+        for name, t in (("labels", labels), ("new", new)):
+            if t.shape != frontier.shape or t.device != dev or \
+                    not t.is_contiguous():
+                raise ValueError(f"round_turn: {name} must be a contiguous "
+                                 f"{tuple(frontier.shape)} tensor on {dev};"
+                                 f" got {tuple(t.shape)} on {t.device}")
+        if labels.untyped_storage().data_ptr() == \
+                new.untyped_storage().data_ptr():
+            raise ValueError("round_turn: labels must not share memory "
+                             "with new (it is written in place)")
+    if dev.type == "cpu":
+        return round_turn_ref(labels, new, row_ptr, frontier, census)
+    if dev.type != "cuda":
+        raise ValueError(f"round_turn runs on cuda or cpu, not {dev}")
+    rows = frontier.shape[0] if frontier.ndim == 2 else 1
+    fn = _launcher("round_turn", "round_turn", 5, 3)
+    _launched("round_turn", fn(
+        None if labels is None else labels.data_ptr(),
+        None if new is None else new.data_ptr(), row_ptr.data_ptr(),
+        frontier.data_ptr(), census.data_ptr(), rows, v,
+        0 if labels is None else _TURN_DTYPES[labels.dtype],
+        torch.cuda.current_stream(dev).cuda_stream))
+    build.count_launch(round_turn)
+    return census
+
+
 twc_bin_relax.launches = twc_bin_relax.captured = 0
 twc_bin_list.launches = twc_bin_list.captured = 0
 edge_lb_relax.launches = edge_lb_relax.captured = 0
 merge_path_relax.launches = merge_path_relax.captured = 0
+round_turn.launches = round_turn.captured = 0

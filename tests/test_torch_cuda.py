@@ -879,7 +879,7 @@ def test_cuda_device_launch_counts(cuda_device):
     assert tk.capture_counts()["twc_bin_relax"] == 1
     assert tk.device_launch_counts(reset=True) == {
         "twc_bin_relax": 3, "edge_lb_relax": 0, "merge_path_relax": 0,
-        "twc_bin_list": 0, "merge_path_map": 0}
+        "twc_bin_list": 0, "merge_path_map": 0, "round_turn": 0}
 
 
 @pytest.mark.gpu
@@ -1629,3 +1629,210 @@ def test_cuda_program_alive_at_exit_closes_quietly(cuda_device):
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["12.0"]
     assert "Traceback" not in out.stderr and "Exception" not in out.stderr
+
+
+# ---- the fused min loop's turn (csrc/round_turn.cu) ----------------------
+
+def _turn_state(dev, v, b, share, dtype, seed):
+    """``(lab, new, row_ptr, fr)`` on ``dev``: ``new <= lab`` lowered at
+    ``share`` of the labels (int64 ones past 2**32), a CSR with a few
+    hubs, a frontier of junk the turn overwrites."""
+    rng = np.random.default_rng(seed)
+    lab = rng.integers(0, 1 << 30, (b, v)).astype(np.int32)
+    lab[:, rng.random(v) < 0.01] = np.iinfo(np.int32).max
+    new = np.where(rng.random((b, v)) < share,
+                   lab - rng.integers(1, 1 << 20, (b, v)), lab)
+    lab, new = (torch.from_numpy(x.astype(np.int32)).to(dev)
+                for x in (lab, new))
+    if dtype == torch.int64:
+        lab, new = lab.long() << 20, new.long() << 20
+    lab, new = lab.to(dtype), new.to(dtype)
+    deg = rng.integers(0, 40, v)
+    deg[rng.random(v) < 1e-4] = 100_000
+    row_ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)])
+                               .astype(np.int32)).to(dev)
+    fr = torch.from_numpy(rng.random((b, v)) < 0.5).to(dev)
+    return lab, new, row_ptr, fr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v", [20_000, 3_000_001])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("share", [0.0, 0.001, 0.2, 1.0])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32,
+                                   torch.int64, torch.float64])
+def test_cuda_round_turn_matches_plain(cuda_device, v, b, share, dtype):
+    """The kernel bitwise against its plain version on the same card:
+    the frontier, the labels and the census, twice on one census buffer
+    (each launch leaves its scratch at 0); then its census entry.  V
+    20,000 takes the 16-byte path, V 3,000,001 the element path."""
+    lab, new, row_ptr, fr = _turn_state(cuda_device, v, b, share, dtype, 7)
+    want_lab, want_fr = lab.clone(), fr.clone()
+    want = tref.round_turn_ref(want_lab, new, row_ptr, want_fr,
+                               trelax.census_buffer(cuda_device))
+    census = trelax.census_buffer(cuda_device)
+    for _ in range(2):
+        got_lab, got_fr = lab.clone(), fr.clone()
+        trelax.round_turn(got_lab, new, row_ptr, got_fr, census)
+        torch.cuda.synchronize()
+        assert torch.equal(got_fr, want_fr)
+        assert torch.equal(got_lab.view(torch.int32),
+                           want_lab.view(torch.int32))
+        assert torch.equal(census, want)
+    seen = trelax.round_turn(None, None, row_ptr, fr, census)
+    keep = fr.clone()
+    assert torch.equal(seen, tref.round_turn_ref(
+        None, None, row_ptr, keep, trelax.census_buffer(cuda_device)))
+    assert torch.equal(fr, keep)
+
+
+@pytest.mark.gpu
+def test_cuda_round_turn_refuses_other_label_dtypes(cuda_device):
+    """On the card the wrapper raises on labels that are not 32- or
+    64-bit int or float words; it never turns them in torch ops."""
+    lab, new, row_ptr, fr = _turn_state(cuda_device, 1000, 2, 0.2,
+                                        torch.int32, 3)
+    for dtype in (torch.int16, torch.float16, torch.uint8):
+        with pytest.raises(TypeError, match="on the card"):
+            trelax.round_turn(lab.to(dtype), new.to(dtype), row_ptr, fr,
+                              trelax.census_buffer(cuda_device))
+
+
+@pytest.mark.gpu
+def test_cuda_round_turn_unaligned_rows_take_the_element_path(cuda_device):
+    """Labels that start off a 16-byte boundary (a view one label in)
+    and V a multiple of 4: the element path, bitwise the plain one."""
+    v, b = 40_000, 3
+    lab, new, row_ptr, fr = _turn_state(cuda_device, v + 1, b, 0.2,
+                                        torch.int32, 9)
+    lab, new = lab.reshape(-1)[1:b * v + 1], new.reshape(-1)[1:b * v + 1]
+    lab, new = lab.view(b, v), new.view(b, v)
+    row_ptr, fr = row_ptr[:v + 1].contiguous(), fr.reshape(-1)[:b * v]
+    fr = fr.view(b, v)
+    want_lab, want_fr = lab.clone(), fr.clone()
+    want = tref.round_turn_ref(want_lab, new, row_ptr, want_fr,
+                               trelax.census_buffer(cuda_device))
+    census = trelax.round_turn(lab, new, row_ptr, fr,
+                               trelax.census_buffer(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(lab, want_lab) and torch.equal(fr, want_fr)
+    assert torch.equal(census, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,direction", [
+    ("pallas", "push"), ("pallas", "adaptive"), ("merge_path", "pull"),
+    ("xla", "push")])
+def test_cuda_captured_fused_sssp_matches_eager(cuda_device, backend,
+                                                direction):
+    """A captured fused sssp and sssp_batch (one graph launch, the turn
+    in its WHILE body) against the same loop run eagerly on the CPU:
+    labels, rounds and every stat bitwise; then again from the cached
+    program."""
+    from repro_torch.core import balancer as tb
+    from repro_torch.core import graph_loop as gl
+    from repro_torch.core.apps import drivers as td
+    gc, gh = _card_and_host_graph(cuda_device, scale=12)
+    cfg = tb.BalancerConfig(backend=backend, direction=direction,
+                            threshold=64)
+    for run in (lambda g, s: td.sssp(g, s, cfg, mode="fused",
+                                     collect_stats=True),
+                lambda g, s: td.sssp_batch(g, [s, s + 1, s + 7], cfg,
+                                           mode="fused",
+                                           collect_stats=True)):
+        for src in (0, 3):
+            card, host = run(gc, src), run(gh, src)
+            assert torch.equal(card.labels.cpu(), host.labels)
+            assert card.rounds == host.rounds > 0
+            for a, b in zip(card.stats, host.stats):
+                for f in a._fields:
+                    np.testing.assert_array_equal(
+                        np.asarray(getattr(a, f)),
+                        np.asarray(getattr(b, f)), err_msg=f)
+        before = gl.captures
+        assert torch.equal(run(gc, 0).labels.cpu(), run(gh, 0).labels)
+        assert gl.captures == before
+
+
+@pytest.mark.gpu
+def test_cuda_round_turn_launches_rounds_plus_one(cuda_device):
+    """A fused min traversal launches ``round_turn`` once a round and
+    once for its first census, counted on the card; the spmd round,
+    kcore's and pagerank's loops launch it never."""
+    from repro_torch import kernels as tk
+    from repro_torch.core import balancer as tb
+    from repro_torch.core import graph as tg
+    from repro_torch.core.apps import drivers as td
+    g, _ = _card_and_host_graph(cuda_device, scale=12)
+    cfg = tb.BalancerConfig(use_pallas=True, threshold=64)
+    ada = tb.BalancerConfig(use_pallas=True, threshold=64,
+                            direction="adaptive")
+    for run in (lambda: td.sssp(g, 0, cfg, mode="fused"),
+                lambda: td.bfs(g, 3, ada, mode="fused"),
+                lambda: td.sssp_batch(g, [0, 1, 2, 3], cfg, mode="fused")):
+        for _ in range(2):               # the capture, then a replay
+            tk.device_launch_counts(reset=True)
+            res = run()
+            assert tk.device_launch_counts(reset=True)["round_turn"] == \
+                res.rounds + 1
+    sym = tg.symmetrized(g)
+    for run in (lambda: td.sssp(g, 0, ada, mode="spmd"),
+                lambda: td.kcore(sym, 6, cfg, mode="fused"),
+                lambda: td.pagerank(g, cfg=cfg, mode="fused",
+                                    max_rounds=5)):
+        tk.device_launch_counts(reset=True)
+        assert run().rounds > 0
+        assert tk.device_launch_counts(reset=True)["round_turn"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_cuda_fused_loop_turns_int64_labels(cuda_device, backend):
+    """int64 labels past 2**32 through the public ``resume_loop``: the
+    captured fused loop on the card turns them with the kernel (rounds
+    + 1 launches) and equals host mode on the CPU."""
+    from repro_torch import kernels as tk
+    from repro_torch.core import balancer as tb
+    from repro_torch.core import operators as tops
+    from repro_torch.core.apps import drivers as td
+    gc, gh = _card_and_host_graph(cuda_device, scale=12)
+    cfg = tb.BalancerConfig(threshold=64, backend=backend)
+    v = gh.num_vertices
+    lab = torch.full((v,), 1 << 40, dtype=torch.int64)
+    lab[0] = 0
+    fr = lab == 0
+    want = td.resume_loop(gh, lab.clone(), fr.clone(), cfg,
+                          tops.SSSP_RELAX, mode="host")
+    tk.device_launch_counts(reset=True)
+    got = td.resume_loop(gc, lab.to(cuda_device), fr.to(cuda_device), cfg,
+                         tops.SSSP_RELAX, mode="fused")
+    assert tk.device_launch_counts(reset=True)["round_turn"] == \
+        got.rounds + 1
+    assert got.labels.dtype == torch.int64
+    assert torch.equal(got.labels.cpu(), want.labels)
+    assert got.rounds == want.rounds > 2
+
+
+@pytest.mark.gpu
+def test_cuda_fused_program_keeps_no_shadow_labels(cuda_device):
+    """After a fused sssp's capture the memory still allocated is the
+    program's copies of its inputs and its carry (and the caller's
+    result): the loop's shadow of the labels lives in the program's
+    pool only, as the per-round copy it replaces did."""
+    from repro_torch.core import balancer as tb
+    from repro_torch.core import graph as tg
+    from repro_torch.core.apps import drivers as td
+    cfg = tb.BalancerConfig(use_pallas=True, threshold=64)
+    small, _ = _card_and_host_graph(cuda_device, scale=8)
+    td.sssp(small, 0, cfg, mode="fused")    # the stamp ring, made once
+    g = tg.rmat(20, 8, seed=4, device=cuda_device)
+    v = g.num_vertices
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    res = td.sssp(g, 0, cfg, mode="fused")
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated(cuda_device) - before \
+        - res.labels.numel() * 4
+    # inputs and carry: int32 labels and a bool frontier, twice
+    assert res.rounds > 1
+    assert kept <= 2 * (4 * v + v) + (1 << 20), (kept, v)

@@ -131,7 +131,7 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
         assert torch.equal(a, b)
     assert tk.launch_counts() == {"twc_bin_relax": 0, "edge_lb_relax": 0,
                                   "merge_path_relax": 0, "twc_bin_list": 0,
-                                  "twc_bin_map": 0, "edge_lb_map": 0,
+                                  "round_turn": 0, "twc_bin_map": 0, "edge_lb_map": 0,
                                   "merge_path_map": 0, "moe_plan": 0,
                                   "positions_in_expert": 0,
                                   "flash_attention": 0}
@@ -166,8 +166,8 @@ def test_kernel_sources_present():
                                "flash_attention", "flash_attention_wgmma",
                                "graph_loop", "merge_path",
                                "merge_path_relax", "moe_dispatch",
-                               "moe_plan", "twc_gather", "twc_list",
-                               "twc_relax"]
+                               "moe_plan", "round_turn", "twc_gather",
+                               "twc_list", "twc_relax"]
 
 
 def test_build_cache_key_covers_headers(tmp_path, monkeypatch):
